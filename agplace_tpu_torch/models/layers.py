@@ -1,0 +1,87 @@
+"""Small layers with flax ``linen`` semantics on NHWC tensors.
+
+The public layout of the port is the JAX package's NHWC.  A NHWC tensor
+permuted to NCHW *is* a ``channels_last`` tensor, so the convolutions here
+hand cuDNN its preferred layout without a copy and permute the result back.
+
+Dtype rules follow flax: ``Conv(dtype=d)`` casts input, kernel and bias to
+``d`` and returns ``d`` (the conv rounds once, the bias add once);
+``Dense`` promotes input and parameters to their common type.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, stride: int = 1,
+                padding=0, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+    """NHWC conv with an OIHW weight, computed in ``dtype`` (default: the
+    input's).  bf16 on the CPU runs as an fp32 conv of the bf16-rounded
+    operands, rounded once to bf16 — the XLA CPU semantics the reference
+    tests run under."""
+    dt = dtype or x.dtype
+    xc = x.to(dt).permute(0, 3, 1, 2)
+    w = weight.to(dt)
+    if dt == torch.bfloat16 and x.device.type == "cpu":
+        y = F.conv2d(xc.float(), w.float(), None, stride, padding).to(dt)
+    else:
+        y = F.conv2d(xc, w, None, stride, padding)
+    y = y.permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias.to(dt)
+    return y
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv`` (NHWC in and out); ``weight`` is OIHW."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 padding: int = 0, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x):
+        return conv2d_nhwc(x, self.weight, self.bias, self.stride,
+                           self.padding, self.dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``weight`` is [out, in]; input and parameters are
+    promoted to their common dtype."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x):
+        return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+def l2n(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """``mm.py:_l2`` — L2-normalise the last axis."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                           min=eps)

@@ -1,0 +1,127 @@
+"""Build and load the port's CUDA kernels (route (b): ``nvcc`` into one
+shared library with a plain C interface, loaded with ctypes).
+
+The library is built at first use from ``agplace_tpu_torch/csrc/*.cu`` into
+``agplace_tpu_torch/_build/`` (listed in ``.gitignore``), written to a
+process-private temp path and renamed atomically, and rebuilt when any
+source is newer than it.  A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libagplace_kernels.so")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: name -> argtypes (every one returns cudaError_t as int)
+_SIGNATURES = {
+    "agp_ode_euler": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "agp_bev_down": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "agp_block_conv1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "agp_block_conv2_pool": [_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
+    "agp_block_eca": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "agp_block_combine_ds": [_P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _P],
+    "agp_block_combine_id": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of agplace_tpu_torch "
+                       "are built from source with nvcc (CUDA toolkit)")
+
+
+def build(force: bool = False) -> str:
+    """Compile the kernels if the library is missing or stale; returns its
+    path.  Raises RuntimeError when nvcc is missing or the build fails."""
+    srcs = _sources()
+    if (not force and os.path.exists(LIB_PATH)
+            and os.path.getmtime(LIB_PATH) >= max(map(os.path.getmtime,
+                                                      srcs))):
+        return LIB_PATH
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+           *[s for s in srcs if s.endswith(".cu")]]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
+        f.write(res.stderr)
+    os.replace(tmp, LIB_PATH)
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def call(name: str, *args) -> None:
+    """Launch C entry ``name`` on the current stream; raise on a CUDA
+    error.  Tensors are passed as device pointers."""
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), name)(*conv, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """Dispatch decision of every kernel wrapper: False when all inputs lie
+    on the CPU (the plain version runs), True when all lie on one CUDA
+    device (the kernel runs).  Anything else raises, as does a CUDA input
+    that needs a gradient: the kernels are forward-only."""
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return False
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"kernel inputs on mixed or unsupported devices: "
+                         f"{sorted(map(str, devs))}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("the CUDA kernels are forward-only: call them "
+                           "under torch.inference_mode() / no_grad()")
+    return True
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

@@ -1,0 +1,206 @@
+"""Serving: a place-recognition index (``agplace_tpu/serving.py``), limited
+to the fp32 single-device gallery.
+
+    mm, db = build_towers(cfg, device="cuda", generator=g)  # or converted
+    idx = PlaceIndex(cfg, (mm, db), device="cuda")
+    idx.add_tiles(ds)                            # embed + index the gallery
+    d, i = idx.search(images, points, k=5)       # (sq distances, indices)
+
+Requests are padded to ``infer_batch_size`` (embedding) and to power-of-two
+query buckets (search), as the JAX index does.  The gallery is kept as a
+host fp32 buffer plus a device-resident copy rebuilt only after adds.  The
+int8, sharded and audit paths and the HTTP front end are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from agplace_tpu.config import Config
+from agplace_tpu_torch.data.voxels import prepare_query_vox
+from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
+from agplace_tpu_torch.retrieval.knn import l2_topk_blocked
+
+
+class PlaceIndex:
+    GALLERY_VERSION = 1
+
+    def __init__(self, cfg: Config, towers=None, device=None):
+        """``towers``: (MM, DBVanilla2D) from ``infer.build_towers``, or
+        None for a search-only index.  ``device`` defaults to the towers'
+        device (else the CPU)."""
+        self.cfg = cfg
+        if towers is None:
+            self._embed_q = self._embed_db = None
+            self.device = torch.device(device or "cpu")
+        else:
+            self._embed_q, self._embed_db = make_infer_fns(*towers)
+            self.device = torch.device(
+                device or next(towers[0].parameters()).device)
+        self._parts: list = []  # host fp32 [n_i, C]
+        self._pos_parts: list = []  # [n_i, 2] UTM east/north, or None
+        self._gallery: Optional[torch.Tensor] = None
+        self._dirty = False
+        self._n_rows = 0
+        self.upload_count = 0  # host->device gallery builds
+
+    # -- gallery ------------------------------------------------------------
+    def add_tiles(self, ds, indices: Optional[Sequence[int]] = None) -> int:
+        """Embed aerial tiles of ``ds`` (any object with ``database_num``,
+        ``load_db_maps(i) -> [NMAP, H, W, 3]`` and optionally
+        ``db_eastnorth``) and append them.  Returns the gallery size."""
+        if self._embed_db is None:
+            raise RuntimeError("search-only index has no tower")
+        idx = list(indices if indices is not None
+                   else range(ds.database_num))
+        bs = self.cfg.train.infer_batch_size
+        feats = []
+        for s in range(0, len(idx), bs):
+            chunk = idx[s:s + bs]
+            keep = len(chunk)
+            chunk = chunk + [chunk[-1]] * (bs - keep)
+            maps = np.stack([ds.load_db_maps(i) for i in chunk])
+            emb = self._embed_db(self._to_device(maps))
+            feats.append(emb[:keep].float().cpu().numpy())
+        pos = getattr(ds, "db_eastnorth", None)
+        if pos is not None:
+            pos = np.asarray(pos, np.float64)[idx]
+        return self.add_descriptors(
+            np.concatenate(feats) if feats else np.zeros((0, 0), np.float32),
+            positions=pos)
+
+    def add_descriptors(self, feats: np.ndarray,
+                        positions: Optional[np.ndarray] = None) -> int:
+        """Append [n, C] descriptors (and optional [n, 2] positions)."""
+        feats = np.asarray(feats, np.float32)
+        if feats.ndim != 2:
+            raise ValueError(f"descriptors must be [n, C], got {feats.shape}")
+        if self._parts and feats.shape[1] != self.dim:
+            raise ValueError(f"descriptor dim {feats.shape[1]} != "
+                             f"gallery dim {self.dim}")
+        if positions is not None:
+            positions = np.asarray(positions, np.float64)
+            if positions.shape != (feats.shape[0], 2):
+                raise ValueError(
+                    f"positions {positions.shape} != ({feats.shape[0]}, 2)")
+        self._parts.append(feats)
+        self._pos_parts.append(positions)
+        self._n_rows += int(feats.shape[0])
+        self._dirty = True
+        return self._n_rows
+
+    @property
+    def positions(self) -> Optional[np.ndarray]:
+        if not self._pos_parts or any(p is None for p in self._pos_parts):
+            return None
+        if len(self._pos_parts) > 1:
+            self._pos_parts = [np.concatenate(self._pos_parts)]
+        return self._pos_parts[0]
+
+    def _host_gallery(self) -> np.ndarray:
+        if not self._parts:
+            raise RuntimeError("empty index: add tiles first")
+        if len(self._parts) > 1:
+            self._parts = [np.concatenate(self._parts)]
+        return self._parts[0]
+
+    def _device_gallery(self) -> torch.Tensor:
+        if self._dirty or self._gallery is None:
+            self._gallery = torch.from_numpy(self._host_gallery()).to(
+                self.device)
+            self.upload_count += 1
+            self._dirty = False
+        return self._gallery
+
+    def __len__(self) -> int:
+        return self._n_rows
+
+    @property
+    def dim(self) -> Optional[int]:
+        return int(self._parts[0].shape[1]) if self._parts else None
+
+    # -- persistence ---------------------------------------------------------
+    def save_gallery(self, path: str) -> None:
+        """Persist descriptors (+ positions) to an ``.npz`` — the same file
+        format as the JAX index, so either package can load it."""
+        arrays = {"feats": self._host_gallery(),
+                  "version": np.int64(self.GALLERY_VERSION)}
+        pos = self.positions
+        if pos is not None:
+            arrays["positions"] = pos
+        np.savez_compressed(path, **arrays)
+
+    def load_gallery(self, path: str) -> int:
+        with np.load(path) as z:
+            v = int(z["version"])
+            if v > self.GALLERY_VERSION:
+                raise ValueError(f"gallery file version {v} is newer than "
+                                 f"this build ({self.GALLERY_VERSION})")
+            feats = z["feats"]
+            pos = z["positions"] if "positions" in z.files else None
+        if not np.isfinite(feats).all():
+            raise ValueError(f"gallery {path!r} contains non-finite "
+                             f"descriptors")
+        return self.add_descriptors(feats, positions=pos)
+
+    # -- queries ------------------------------------------------------------
+    def _to_device(self, images: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+        return t.to(self.device)
+
+    def embed(self, images: np.ndarray,
+              points: Optional[np.ndarray] = None) -> np.ndarray:
+        """[B, H, W, 3] images (+ optional [B, P, 3] NaN-padded clouds) ->
+        [B, C] descriptors; requests are padded to ``infer_batch_size``."""
+        if self._embed_q is None:
+            raise RuntimeError("search-only index has no tower")
+        bs = self.cfg.train.infer_batch_size
+        images = np.asarray(images, np.float32)
+        n = images.shape[0]
+        if n == 0:
+            return np.zeros((0, self.cfg.model.features_dim), np.float32)
+        if points is None:
+            points = np.full((n, 1, 3), np.nan, np.float32)
+        elif len(points) != n:
+            raise ValueError(f"{len(points)} point clouds for {n} images")
+        outs = []
+        for s in range(0, n, bs):
+            im, pt = images[s:s + bs], points[s:s + bs]
+            keep = im.shape[0]
+            if keep < bs:
+                im = np.concatenate([im, np.repeat(im[-1:], bs - keep, 0)])
+                pt = np.concatenate([pt, np.repeat(pt[-1:], bs - keep, 0)])
+            vox = prepare_query_vox(self.cfg, pt, self.device,
+                                    compute_dtype(self.cfg))
+            emb = self._embed_q(self._to_device(im), vox)
+            outs.append(emb[:keep].float().cpu().numpy())
+        return np.concatenate(outs)
+
+    def search(self, images: np.ndarray, points: Optional[np.ndarray] = None,
+               k: int = 5) -> Tuple[np.ndarray, np.ndarray]:
+        """Embed queries and return (sq_distances [B, k], indices [B, k])."""
+        if self._n_rows == 0:
+            raise RuntimeError("empty index: add tiles first")
+        return self.search_descriptors(self.embed(images, points), k)
+
+    @staticmethod
+    def _pow2(n: int, lo: int = 1) -> int:
+        return max(lo, 1 << (max(n, 1) - 1).bit_length())
+
+    def search_descriptors(self, q_feats: np.ndarray, k: int
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact top-k of [Q, C] descriptors.  The query count is bucketed
+        to a power of two (min 8, padded with the last row) and k to a
+        power of two, then sliced, as the JAX index does."""
+        q = np.asarray(q_feats, np.float32)
+        nq = q.shape[0]
+        if nq == 0:
+            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int64))
+        bq = self._pow2(nq, lo=8)
+        if bq != nq:
+            q = np.concatenate([q, np.repeat(q[-1:], bq - nq, 0)])
+        d, i = l2_topk_blocked(q, self._device_gallery(), self._pow2(k))
+        return d[:nq, :k], i[:nq, :k]

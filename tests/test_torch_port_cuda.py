@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
+without one; on the card run ``python -m pytest --noconftest
+tests/test_torch_port_cuda.py -m cuda``.  The file
+imports no JAX, so it runs on a machine that has only the port's stack.
+Shapes are small but keep the kernels' tile constraints (folded channel
+widths that are multiples of 32).
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from agplace_tpu_torch import kitti360_config, ops
+from agplace_tpu_torch.ops import bev_block_sm, bev_down, ode_step
+from agplace_tpu_torch.sparse.bev_grid import BEVGrid, fold_w2_k2s2, \
+    fold_w2_stride1
+
+K1_TOL = dict(rtol=1e-4, atol=1e-5)  # fp32, summation order only
+# bf16 with fp32 accumulation: isolated 1-ulp flips from the different
+# summation order (wmma tiles vs cuDNN), scaled by the output's magnitude
+# (the residual add can cancel a large flipped term)
+BF16_ATOL_FRAC, BF16_RTOL = 1e-2, 2e-2
+
+
+def _close_bf16(got, want):
+    got, want = got.float(), want.float()
+    bound = BF16_ATOL_FRAC * want.abs().max() + BF16_RTOL * want.abs()
+    assert bool(((got - want).abs() <= bound).all())
+    assert float((got - want).abs().mean()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
+def _affine(g, c, z, dev):
+    s = torch.rand(c, generator=g) + 0.5
+    b = torch.randn(c, generator=g) * 0.1
+    return s.repeat(z).to(dev), b.repeat(z).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh", "sigmoid", "id"])
+def test_k1_kernel_matches_plain(cuda, act):
+    g = _gen()
+    x = torch.randn(13, 256, generator=g).to(cuda)  # ragged row tile
+    w = (torch.randn(256, 256, generator=g) / 16).to(cuda)
+    b = (torch.randn(256, generator=g) * 0.1).to(cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = ode_step.fused_euler_ode(x, w, b, 10, 0.1, act)
+        want = ode_step.euler_ode_plain(x, w, b, 10, 0.1, act)
+    torch.testing.assert_close(got, want, **K1_TOL)
+    assert ode_step.fused_euler_ode.launches == 1
+
+
+@pytest.mark.cuda
+def test_k2_kernel_matches_plain(cuda):
+    g = _gen()
+    z, c1 = 4, 64
+    mask = (torch.rand(2, 32, 32, z, generator=g) < 0.3).to(cuda)
+    args = (mask.to(torch.bfloat16), mask,
+            fold_w2_stride1(torch.randn(5, 5, 5, 1, c1, generator=g) * .25,
+                            z).to(cuda), *_affine(g, c1, z, cuda),
+            fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .09,
+                         z).to(cuda), *_affine(g, c1, 2, cuda))
+    ops.reset_launches()
+    with torch.inference_mode():
+        got, m1 = bev_down.fused_conv0_down0(*args, z=z)
+        want, m2 = bev_down.conv0_down0_plain(*args, z=z)
+    assert torch.equal(m1, m2) and got.dtype == torch.bfloat16
+    _close_bf16(got, want)
+    assert bev_down.fused_conv0_down0.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,c,xy", [(64, 64, 16), (64, 128, 8),
+                                      (128, 256, 8)])
+def test_k3_kernel_matches_plain(cuda, cin, c, xy):
+    g = _gen()
+    z = 2
+    mask = (torch.rand(3, xy, xy, z, generator=g) < 0.4).to(cuda)
+    x = torch.randn(3, xy, xy, z, cin, generator=g).to(cuda)
+    x = torch.where(mask[..., None], x, 0).reshape(3, xy, xy, z * cin)
+    kw = {}
+    if cin != c:
+        sd, bd = _affine(g, c, z, cuda)
+        kw = dict(wd=fold_w2_stride1(torch.randn(1, 1, 1, cin, c,
+                                                 generator=g) * (2 / cin) ** .5,
+                                     z).to(cuda), scale_d=sd, bias_d=bd)
+    args = (x.to(torch.bfloat16), mask,
+            fold_w2_stride1(torch.randn(3, 3, 3, cin, c, generator=g)
+                            * (2 / (27 * cin)) ** .5, z).to(cuda),
+            fold_w2_stride1(torch.randn(3, 3, 3, c, c, generator=g)
+                            * (2 / (27 * c)) ** .5, z).to(cuda),
+            *_affine(g, c, z, cuda), *_affine(g, c, z, cuda),
+            torch.randn(3 if c == 64 else 5, generator=g).to(cuda))
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = bev_block_sm.fused_eca_block_sm(*args, z=z, **kw)
+        want = bev_block_sm.eca_block_plain(*args, z=z, **kw)
+    _close_bf16(got, want)
+    mf = mask.repeat_interleave(c, dim=-1)
+    assert bool((got[~mf] == 0).all())
+    assert bev_block_sm.fused_eca_block_sm.launches == 1
+
+
+@pytest.mark.cuda
+def test_cuda_input_needing_grad_raises(cuda):
+    x = torch.randn(4, 256, device=cuda, requires_grad=True)
+    w = torch.randn(256, 256, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ode_step.fused_euler_ode(x, w, torch.zeros(256, device=cuda))
+
+
+@pytest.mark.cuda
+def test_mm_forward_on_card_counts_kernels_and_matches_cpu(cuda):
+    from agplace_tpu_torch.infer import build_towers
+
+    cfg = kitti360_config()
+    mm_cfg = dataclasses.replace(cfg.model.mm, vox_grid_extent=(32, 32, 4))
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, mm=mm_cfg, compute_dtype="bfloat16"))
+    mm, _ = build_towers(cfg, "cpu", _gen())
+    g = _gen()
+    img = torch.randn(2, 64, 64, 3, generator=g)
+    mask = torch.rand(2, 32, 32, 4, generator=g) < 0.3
+    with torch.inference_mode():
+        want = mm(img, BEVGrid(feats=mask.float(), mask=mask, z=4))
+        mm.to(cuda)
+        ops.reset_launches()
+        got = mm(img.to(cuda), BEVGrid(feats=mask.float().to(cuda),
+                                       mask=mask.to(cuda), z=4))
+    assert ops.launches() == {"fused_euler_ode": 3, "fused_conv0_down0": 1,
+                              "fused_eca_block_sm": 4}
+    for k, v in want.items():
+        err = float((got[k].cpu() - v).abs().max())
+        assert err <= 5e-2 * float(v.abs().max()), (k, err)
