@@ -8,7 +8,7 @@
 // each a hand-written kernel:
 //   1. h   = relu(bn1(conv3x3(x))) * mask                (conv_igemm, EPI 0)
 //   2. g   = bn2(conv3x3(h)); pool[b, zc] += sum g*mask  (conv_igemm, EPI 1)
-//   3. att = sigmoid(conv1d_k(sum_z pool / count))       (eca_kernel)
+//   3. att = sigmoid(conv1d_k(sum_z pool / count))       (eca.cuh)
 //   4. out = relu(g*att + r) * mask with r = x (combine_id_kernel) or
 //      r = bn_d(conv1x1(x)) computed in the GEMM epilogue (conv_igemm, EPI 2)
 // Dtype flow and rounding points are those of bev_block_sm.py:77-136: convs
@@ -23,78 +23,11 @@
 // The masked pool is folded into phase 2's epilogue (shared-memory reduce,
 // one atomic per channel per block), so g is never re-read for it.
 #include "conv_igemm.cuh"
+#include "eca.cuh"
 
 namespace {
 
 using agp::bf16;
-
-agp::ConvParams block_params(const bf16* x, const bf16* w, bf16* out, int B,
-                             int X, int Y, int cin, int cout, int k, int z,
-                             const float* scale, const float* bias,
-                             const uint8_t* mask) {
-  agp::ConvParams p = {};
-  p.x = x;
-  p.w = w;
-  p.out = out;
-  p.B = B;
-  p.H = X;
-  p.W = Y;
-  p.Cin = cin;
-  p.Ho = X;
-  p.Wo = Y;
-  p.Cout = cout;
-  p.KH = k;
-  p.KW = k;
-  p.stride = 1;
-  p.pad = k / 2;
-  p.scale = scale;
-  p.bias = bias;
-  p.out_mask = mask;
-  p.out_z = z;
-  p.out_cz = cout / z;
-  return p;
-}
-
-constexpr int kEcaThreads = 256;
-
-// Phase 3: one block per batch item.  count = max(sum(mask), 1); pooled[c] =
-// sum_z pool[z*C + c] / count; att[c] = sigmoid(sum_t w[t] pooled[c+t-half])
-// (zero padded); written z-tiled as bf16 [B, Z*C].
-__global__ void __launch_bounds__(kEcaThreads)
-eca_kernel(const float* __restrict__ pool, const uint8_t* __restrict__ mask,
-           const float* __restrict__ w, bf16* __restrict__ att, int xyz,
-           int z, int c, int k) {
-  extern __shared__ float pooled[];  // [c]
-  __shared__ int wsum[kEcaThreads / 32];
-  const int b = blockIdx.x;
-  int cnt = 0;
-  for (int i = threadIdx.x; i < xyz; i += blockDim.x)
-    cnt += mask[(size_t)b * xyz + i];
-  for (int off = 16; off > 0; off >>= 1)
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = cnt;
-  __syncthreads();
-  int total = 0;
-  for (int i = 0; i < kEcaThreads / 32; ++i) total += wsum[i];
-  const float n = fmaxf((float)total, 1.0f);
-  const int zc = z * c;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float s = 0.0f;
-    for (int zz = 0; zz < z; ++zz) s += pool[(size_t)b * zc + zz * c + ch];
-    pooled[ch] = s / n;
-  }
-  __syncthreads();
-  const int half = (k - 1) / 2;
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float a = 0.0f;
-    for (int t = 0; t < k; ++t) {
-      const int src = ch + t - half;
-      if (src >= 0 && src < c) a += w[t] * pooled[src];
-    }
-    const bf16 ab = __float2bfloat16_rn(agp::sigmoidf_(a));
-    for (int zz = 0; zz < z; ++zz) att[(size_t)b * zc + zz * c + ch] = ab;
-  }
-}
 
 // Phase 4, identity residual: out = relu(bf16(bf16(g*att) + x)) * mask.
 __global__ void combine_id_kernel(const bf16* __restrict__ g,
@@ -136,7 +69,7 @@ extern "C" int agp_block_conv1(const bf16* x, const uint8_t* mask,
                                const float* b1, bf16* h, int B, int X, int Y,
                                int zci, int zco, int z, void* stream) {
   agp::ConvParams p =
-      block_params(x, w1, h, B, X, Y, zci, zco, 3, z, s1, b1, mask);
+      agp::same_conv_params(x, w1, h, B, X, Y, zci, zco, 3, z, s1, b1, mask);
   return agp::launch_conv<agp::PRO_NONE, agp::EPI_AFFINE_RELU_MASK>(
       p, static_cast<cudaStream_t>(stream));
 }
@@ -147,7 +80,7 @@ extern "C" int agp_block_conv2_pool(const bf16* h, const uint8_t* mask,
                                     int B, int X, int Y, int zco, int z,
                                     void* stream) {
   agp::ConvParams p =
-      block_params(h, w2, g, B, X, Y, zco, zco, 3, z, s2, b2, mask);
+      agp::same_conv_params(h, w2, g, B, X, Y, zco, zco, 3, z, s2, b2, mask);
   p.pool = pool;
   return agp::launch_conv<agp::PRO_NONE, agp::EPI_AFFINE_POOL>(
       p, static_cast<cudaStream_t>(stream));
@@ -156,10 +89,8 @@ extern "C" int agp_block_conv2_pool(const bf16* h, const uint8_t* mask,
 extern "C" int agp_block_eca(const float* pool, const uint8_t* mask,
                              const float* w_eca, int k, bf16* att, int B,
                              int xyz, int z, int c, void* stream) {
-  eca_kernel<<<B, kEcaThreads, c * sizeof(float),
-               static_cast<cudaStream_t>(stream)>>>(pool, mask, w_eca, att,
-                                                    xyz, z, c, k);
-  return cudaGetLastError();
+  return agp::launch_eca(pool, mask, w_eca, k, att, B, xyz, z, c,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int agp_block_combine_ds(const bf16* x, const uint8_t* mask,
@@ -169,7 +100,7 @@ extern "C" int agp_block_combine_ds(const bf16* x, const uint8_t* mask,
                                     int Y, int zci, int zco, int z,
                                     void* stream) {
   agp::ConvParams p =
-      block_params(x, wd, out, B, X, Y, zci, zco, 1, z, sd, bd, mask);
+      agp::same_conv_params(x, wd, out, B, X, Y, zci, zco, 1, z, sd, bd, mask);
   p.g = g;
   p.att = att;
   return agp::launch_conv<agp::PRO_NONE, agp::EPI_AFFINE_COMBINE>(

@@ -1,5 +1,6 @@
 // One templated implicit-GEMM convolution with fused prologue/epilogue,
-// shared by the K2 (bev_down.cu) and K3 (bev_block_sm.cu) kernels.
+// shared by the K2 (bev_down.cu), K3 (bev_block_sm.cu) and K6
+// (bev_block.cu) kernels; K4 (bev_head.cu) uses its cp.async helpers.
 //
 // Layouts (the port's public layouts): x [B, H, W, Cin] bf16 (NHWC, the
 // z-major fold puts z*C in the channel axis), weights [KH, KW, Cin, Cout]
@@ -20,11 +21,16 @@
 // accumulator tile goes through shared memory to an epilogue that works on
 // 8 consecutive output channels per thread (16-byte stores).
 //
-// Rounding points follow the JAX kernels (bev_down.py / bev_block_sm.py):
-// the conv result is rounded to bf16, the BN eval affine runs in bf16 (one
-// rounding after the multiply, one after the add), relu and the 0/1 mask
-// are exact.  Scales and biases arrive in fp32 and are rounded to bf16 here,
-// as the Pallas kernels do (`a_ref[0].astype(bf16)`).
+// Rounding points follow the JAX kernels.  The bf16 epilogues (EPI 0-2,
+// bev_down.py / bev_block_sm.py): the conv result is rounded to bf16, the
+// BN eval affine runs in bf16 (one rounding after the multiply, one after
+// the add), relu and the 0/1 mask are exact; scales and biases arrive in
+// fp32 and are rounded to bf16 here, as those Pallas kernels do
+// (`a_ref[0].astype(bf16)`).  The fp32 epilogues (EPI 3-4, bev_block.py):
+// the affine runs in fp32 on the unrounded accumulator with fp32 scale and
+// bias, as a multiply and an add each rounded to fp32 (no fma contraction,
+// so the plain PyTorch `acc * s + b` gives the same bits), and the result
+// is rounded to bf16 once.
 #pragma once
 
 #include <mma.h>
@@ -34,7 +40,13 @@
 namespace agp {
 
 enum { PRO_NONE = 0, PRO_AFFINE_RELU_MASK = 1 };
-enum { EPI_AFFINE_RELU_MASK = 0, EPI_AFFINE_POOL = 1, EPI_AFFINE_COMBINE = 2 };
+enum {
+  EPI_AFFINE_RELU_MASK = 0,
+  EPI_AFFINE_POOL = 1,
+  EPI_AFFINE_COMBINE = 2,
+  EPI_F32_RELU_MASK = 3,  // bf16(relu(acc*s + b) * mask), fp32 affine
+  EPI_F32_POOL = 4        // g = bf16(acc*s + b); pool += g * mask
+};
 
 struct ConvParams {
   const bf16* x;
@@ -52,7 +64,7 @@ struct ConvParams {
   const float* bias;
   const uint8_t* out_mask;
   int out_z, out_cz;
-  float* pool;      // EPI_AFFINE_POOL: [B, Cout] fp32 masked sums (+=)
+  float* pool;      // EPI_*_POOL: [B, Cout] fp32 masked sums (+=)
   const bf16* g;    // EPI_AFFINE_COMBINE: [M, Cout] second-conv output
   const bf16* att;  // EPI_AFFINE_COMBINE: [B, Cout] z-tiled attention
 };
@@ -82,6 +94,8 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int PRO, int EPI>
 __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
   using namespace nvcuda;
+  constexpr bool kF32 = EPI == EPI_F32_RELU_MASK || EPI == EPI_F32_POOL;
+  constexpr bool kPool = EPI == EPI_AFFINE_POOL || EPI == EPI_F32_POOL;
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   __shared__ float red[kNT / 32][kBN];
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -249,8 +263,8 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
   float sc[8], bi[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    sc[j] = n_ok ? rbf(p.scale[n + j]) : 0.0f;
-    bi[j] = n_ok ? rbf(p.bias[n + j]) : 0.0f;
+    sc[j] = n_ok ? (kF32 ? p.scale[n + j] : rbf(p.scale[n + j])) : 0.0f;
+    bi[j] = n_ok ? (kF32 ? p.bias[n + j] : rbf(p.bias[n + j])) : 0.0f;
   }
   const bool uniform =
       (m0 + kBM <= M) && (m0 / HWo == (m0 + kBM - 1) / HWo);
@@ -268,15 +282,19 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
     const float mk = (float)p.out_mask[(size_t)m * p.out_z + n / p.out_cz];
     float v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      v[j] = rbf(rbf(rbf(Cs[row * kLDC + cg * 8 + j]) * sc[j]) + bi[j]);
+    for (int j = 0; j < 8; ++j) {
+      const float acc = Cs[row * kLDC + cg * 8 + j];
+      v[j] = kF32 ? __fadd_rn(__fmul_rn(acc, sc[j]), bi[j])
+                  : rbf(rbf(rbf(acc) * sc[j]) + bi[j]);
+      if (EPI == EPI_F32_POOL) v[j] = rbf(v[j]);  // g is a bf16 map
+    }
     uint4 o;
     bf16* oe = reinterpret_cast<bf16*>(&o);
-    if (EPI == EPI_AFFINE_RELU_MASK) {
+    if (EPI == EPI_AFFINE_RELU_MASK || EPI == EPI_F32_RELU_MASK) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         oe[j] = __float2bfloat16_rn(fmaxf(v[j], 0.0f) * mk);
-    } else if (EPI == EPI_AFFINE_POOL) {
+    } else if (kPool) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) oe[j] = __float2bfloat16_rn(v[j]);
       if (!uniform && b != pb) {
@@ -306,7 +324,7 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
     *reinterpret_cast<uint4*>(p.out + (size_t)m * p.Cout + n) = o;
   }
 
-  if (EPI == EPI_AFFINE_POOL) {
+  if (kPool) {
     if (!uniform) {
       if (pb >= 0 && n_ok)
 #pragma unroll
@@ -333,6 +351,36 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
       }
     }
   }
+}
+
+// Parameters of a stride-1 'same' k x k conv over a [B, X, Y, cin] map
+// whose epilogue applies a per-channel affine and the occupancy mask
+// [B, X, Y, z] (the BEV block convs of K3 and K6).
+inline ConvParams same_conv_params(const bf16* x, const bf16* w, bf16* out,
+                                   int B, int X, int Y, int cin, int cout,
+                                   int k, int z, const float* scale,
+                                   const float* bias, const uint8_t* mask) {
+  ConvParams p = {};
+  p.x = x;
+  p.w = w;
+  p.out = out;
+  p.B = B;
+  p.H = X;
+  p.W = Y;
+  p.Cin = cin;
+  p.Ho = X;
+  p.Wo = Y;
+  p.Cout = cout;
+  p.KH = k;
+  p.KW = k;
+  p.stride = 1;
+  p.pad = k / 2;
+  p.scale = scale;
+  p.bias = bias;
+  p.out_mask = mask;
+  p.out_z = z;
+  p.out_cz = cout / z;
+  return p;
 }
 
 // Launch helper: grid over (M tiles, N tiles) on `stream`.

@@ -36,8 +36,9 @@ class DBVanilla2D(nn.Module):
         self.output_l2, self.final_l2 = output_l2, final_l2
         last = ImageFE.last_dim(config.image_fe, config.image_fe_layers)
         for i in range(1 if self.share else nmap):
-            setattr(self, f"fe_{i}", ImageFE(config.image_fe,
-                                             config.image_fe_layers, dtype))
+            setattr(self, f"fe_{i}", ImageFE(
+                config.image_fe, config.image_fe_layers, dtype,
+                use_pallas_stem=config.stem_pallas))
             setattr(self, f"pool_{i}", GeM())
             setattr(self, f"mlp_{i}", MLP(last, dim))
 

@@ -60,7 +60,8 @@ class MM(nn.Module):
         self.dtype = dtype
         self.use_vox = "vox" in cfg.output_type
         self.use_shallow = "shallow" in cfg.output_type
-        self.image_fe = ImageFE(cfg.imgfe, cfg.imgfe_layers, dtype)
+        self.image_fe = ImageFE(cfg.imgfe, cfg.imgfe_layers, dtype,
+                                use_pallas_stem=cfg.stem_pallas)
         self.image_pool = GeM()
         if self.use_vox:
             self.vox_fe = BEVMinkFPN(
@@ -68,6 +69,7 @@ class MM(nn.Module):
                 planes=cfg.voxfe_planes, layers=cfg.voxfe_layers,
                 num_top_down=cfg.voxfe_ntd, conv0_kernel_size=5,
                 block=cfg.voxfe_block, use_pallas=cfg.bev_pallas,
+                use_pallas_head=cfg.bev_pallas_head,
                 use_fused_down=cfg.bev_fused_down)
             self.vox_pool = BEVMinkGeM()
         if self.use_shallow:

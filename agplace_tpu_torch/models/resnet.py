@@ -3,8 +3,9 @@
 Module and parameter names follow the flax tree (``conv1``, ``bn1``,
 ``layer{s}_{b}``, ``downsample_conv``/``downsample_bn``) so the weight
 bridge maps paths one to one.  The convolutions are cuDNN (XLA ran them
-outside any Pallas kernel); the stem tail runs unfused here, as the JAX
-package runs it with ``stem_pallas`` off.
+outside any Pallas kernel).  The stem tail (BN, relu, maxpool 3x3/2) runs
+unfused, or, with ``use_pallas_stem`` on bf16 activations of even size, as
+K5 (``ops/stem_pool.py``), with JAX's gate (``resnet.py:134-138``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from agplace_tpu_torch.models.layers import Conv2d
 from agplace_tpu_torch.models.norm import BatchNorm2D
+from agplace_tpu_torch.ops import stem_pool
 
 _BASIC_STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
@@ -48,7 +50,8 @@ class ResNetFeatures(nn.Module):
     per-stage maps), all NHWC."""
 
     def __init__(self, arch: str = "resnet18", num_stages: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_pallas_stem: bool = False):
         super().__init__()
         if arch not in _BASIC_STAGES:
             raise NotImplementedError(f"arch={arch} (port has basic-block "
@@ -56,6 +59,7 @@ class ResNetFeatures(nn.Module):
         self.conv1 = Conv2d(3, 64, 7, 2, 3, False, dtype)
         self.bn1 = BatchNorm2D(64)
         self.num_stages = num_stages
+        self.use_pallas_stem = use_pallas_stem
         in_ch = 64
         for stage in range(num_stages):
             planes = 64 * 2 ** stage
@@ -71,8 +75,13 @@ class ResNetFeatures(nn.Module):
                        for s in range(num_stages)]
 
     def forward(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+        x = self.conv1(x)
+        if (self.use_pallas_stem and x.dtype == torch.bfloat16
+                and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
+            x = stem_pool.fused_affine_relu_maxpool(x, *self.bn1.affine())
+        else:
+            x = torch.relu(self.bn1(x)).permute(0, 3, 1, 2)
+            x = F.max_pool2d(x, 3, 2, 1).permute(0, 2, 3, 1)
         maps = []
         for stage in self.blocks:
             for blk in stage:

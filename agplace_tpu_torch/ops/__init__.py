@@ -1,9 +1,16 @@
-"""Hand-written Hopper kernels of the serving slice, one module each, with
-their plain PyTorch versions beside them:
+"""Hand-written Hopper kernels of the port, one module each, with their
+plain PyTorch versions beside them:
 
-* ``ode_step.fused_euler_ode``       K1 (csrc/ode_step.cu)
-* ``bev_down.fused_conv0_down0``     K2 (csrc/bev_down.cu)
-* ``bev_block_sm.fused_eca_block_sm`` K3 (csrc/bev_block_sm.cu)
+* ``ode_step.fused_euler_ode``                   K1 (csrc/ode_step.cu)
+* ``bev_down.fused_conv0_down0``                 K2 (csrc/bev_down.cu)
+* ``bev_block_sm.fused_eca_block_sm``            K3 (csrc/bev_block_sm.cu)
+* ``bev_head.fused_head``                        K4 (csrc/bev_head.cu)
+* ``stem_pool.fused_affine_relu_maxpool``        K5 (csrc/stem_pool.cu)
+* ``bev_block.fused_eca_block``                  K6 (csrc/bev_block.cu)
+
+The default serving configuration runs K1-K3; ``bev_pallas_head`` swaps K2
+for K4, ``stem_pallas`` / ``db.stem_pallas`` run K5 in the image stems.  No
+model path calls K6.
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``); only a launch of the CUDA kernel counts.
@@ -15,10 +22,12 @@ from typing import Dict
 
 
 def kernels():
-    from agplace_tpu_torch.ops import bev_block_sm, bev_down, ode_step
+    from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
+                                       bev_head, ode_step, stem_pool)
 
     return (ode_step.fused_euler_ode, bev_down.fused_conv0_down0,
-            bev_block_sm.fused_eca_block_sm)
+            bev_block_sm.fused_eca_block_sm, bev_head.fused_head,
+            stem_pool.fused_affine_relu_maxpool, bev_block.fused_eca_block)
 
 
 def reset_launches() -> None:

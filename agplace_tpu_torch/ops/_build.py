@@ -2,8 +2,9 @@
 shared library with a plain C interface, loaded with ctypes).
 
 The library is built at first use from ``agplace_tpu_torch/csrc/*.cu`` into
-``agplace_tpu_torch/_build/`` (listed in ``.gitignore``), written to a
-process-private temp path and renamed atomically, and rebuilt when any
+``agplace_tpu_torch/_build/`` (listed in ``.gitignore``): one ``nvcc -c``
+per source, all started together, then one link, written to a
+process-private temp path and renamed atomically.  It is rebuilt when any
 source is newer than it.  A missing ``nvcc`` or a failed build raises.
 """
 
@@ -14,6 +15,7 @@ import glob
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
@@ -37,6 +39,13 @@ _SIGNATURES = {
     "agp_block_combine_ds": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
     "agp_block_combine_id": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "agp_bev_head": [_P] * 10 + [_I] * 10 + [_P],
+    "agp_stem_pool": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "agp_block_bm_conv1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "agp_block_bm_conv2_pool": [_P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _P],
+    "agp_block_bm_eca": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "agp_block_bm_combine": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -65,20 +74,37 @@ def build(force: bool = False) -> str:
         return LIB_PATH
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in cus]
+    tmp = f"{LIB_PATH}.{tag}"
+    compiles = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", o, s]
+                for s, o in zip(cus, objs)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+    try:
+        # subprocess.run kills its own nvcc on a timeout
+        with ThreadPoolExecutor(len(compiles)) as pool:
+            done = list(pool.map(_run, compiles))
+        _run(link)
+        with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
+            f.write("".join(done))
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.unlink(path)
+    return LIB_PATH
+
+
+def _run(cmd) -> str:
+    """Run one build command; its stderr (ptxas's report), or raise."""
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
         raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
                            f"{res.stdout}\n{res.stderr}")
-    with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
-        f.write(res.stderr)
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    return res.stderr
 
 
 def lib() -> ctypes.CDLL:

@@ -13,8 +13,9 @@ the JAX package leaves them to XLA.  They always run in ``compute_dtype``
 (bf16) and round their result to bf16 before casting to the feats dtype,
 like ``BEVConv``.
 
-Two kernels plug in here: K2 (``ops/bev_down.py``) at the stage-0 site of
-``BEVMinkFPN`` and K3 (``ops/bev_block_sm.py``) in ``BEVECABasicBlock``.
+Three kernels plug in here: K2 (``ops/bev_down.py``) or, with
+``use_pallas_head``, K4 (``ops/bev_head.py``) at the stage-0 site of
+``BEVMinkFPN``, and K3 (``ops/bev_block_sm.py``) in ``BEVECABasicBlock``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from torch import nn
 from agplace_tpu_torch.data.voxels import me_down_align
 from agplace_tpu_torch.models.layers import conv2d_nhwc
 from agplace_tpu_torch.models.norm import BatchNorm2D
-from agplace_tpu_torch.ops import bev_block_sm, bev_down
+from agplace_tpu_torch.ops import bev_block_sm, bev_down, bev_head
 
 Pad = Tuple[int, int]
 
@@ -267,7 +268,8 @@ class BEVMinkFPN(nn.Module):
                  planes: Tuple[int, ...] = (64, 128, 256),
                  layers: Tuple[int, ...] = (1, 1, 1), num_top_down: int = 0,
                  conv0_kernel_size: int = 5, block: str = "eca",
-                 use_pallas: bool = False, use_fused_down: bool = True,
+                 use_pallas: bool = False, use_pallas_head: bool = False,
+                 use_fused_down: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         if num_top_down != 0 or block != "eca":
@@ -277,6 +279,7 @@ class BEVMinkFPN(nn.Module):
         cdt = compute_dtype
         self.n_stages = len(planes)
         self.k0 = conv0_kernel_size
+        self.use_pallas_head = use_pallas_head
         self.use_fused_down = use_fused_down
         self.conv0 = BEVConv(in_channels, planes[0], conv0_kernel_size,
                              mask_output=False, compute_dtype=cdt)
@@ -304,20 +307,25 @@ class BEVMinkFPN(nn.Module):
 
     def forward(self, g: BEVGrid) -> Tuple[BEVGrid, List[BEVGrid]]:
         x, y = g.feats.shape[1], g.feats.shape[2]
-        # the JAX stage-0 gate (bev_grid.py:669-681) minus its TPU check:
-        # spatial dims need no ME alignment padding
-        fuse_down = (self.use_fused_down
-                     and x % 2 == 0 and y % 2 == 0
-                     and (x // 2) % 2 == 0 and (y // 2) % 2 == 0
+        # the JAX stage-0 gates (bev_grid.py:669-681) minus the TPU check:
+        # spatial dims need no ME alignment padding; the fused head (K4)
+        # takes k0 in (3, 5) and wins over the fused down (K2)
+        fusible = (x % 2 == 0 and y % 2 == 0
+                   and (x // 2) % 2 == 0 and (y // 2) % 2 == 0)
+        fuse_head = self.use_pallas_head and fusible and self.k0 in (3, 5)
+        fuse_down = (self.use_fused_down and not fuse_head and fusible
                      and self.k0 % 2 == 1 and self.k0 >= 3)
         down0, down_bn0, _ = self.stages[0]
-        if fuse_down:
+        fused = fuse_head or fuse_down
+        if fused:
             z0 = g.z
             z_down = me_down_align(z0)[2]
             cdt = self.conv0.compute_dtype
             s0, b0 = self.bn0.affine(z0)
             sd, bd = down_bn0.affine(z_down)
-            feats, mask = bev_down.fused_conv0_down0(
+            kernel = (bev_head.fused_head if fuse_head
+                      else bev_down.fused_conv0_down0)
+            feats, mask = kernel(
                 g.feats, g.mask, self.conv0.folded(z0, "s1", cdt), s0, b0,
                 down0.folded(z0, "k2s2", cdt), sd, bd, z=z0)
             g = BEVGrid(feats=feats.to(g.feats.dtype), mask=mask, z=z_down,
@@ -326,7 +334,7 @@ class BEVMinkFPN(nn.Module):
             g = self._bn_relu_mask(self.conv0(g), self.bn0)
         out_maps = []
         for i, (down, down_bn, blocks) in enumerate(self.stages):
-            if not (fuse_down and i == 0):
+            if not (fused and i == 0):
                 g = self._bn_relu_mask(down(g), down_bn)
             for blk in blocks:
                 g = blk(g)

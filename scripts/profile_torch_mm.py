@@ -1,0 +1,140 @@
+#!/usr/bin/env python
+"""Device time of the PyTorch port's MM forward by kernel, on one NVIDIA GPU.
+
+    python scripts/profile_torch_mm.py [--batches 32 128] [--forwards 5]
+
+Builds the MM query tower of ``kitti360_config()`` in bf16 at full width
+(seeded random weights with non-trivial BN statistics, LiDAR-like clouds as
+``chip_smoke.py`` makes them) in two configurations: the default one and
+the fused-stem / fused-head one (``bev_pallas_head`` and ``stem_pallas``
+set).  For each configuration and batch it profiles ``--forwards`` forwards
+after warm-up with ``torch.profiler`` and prints the device ms per forward
+of every hand-written kernel (by template: ``conv_igemm_kernel<PRO, EPI>``
+is K2 for ``<1, 0>``, K3's conv1 / conv2 + pool / 1x1 + combine for
+``<0, 0>`` / ``<0, 1>`` / ``<0, 2>``), of each class of library kernels,
+the device total and the launch count; beside it the unprofiled
+back-to-back ms per forward (CUDA events, median of 5 runs of
+``--forwards`` forwards), so total / back-to-back is the device's busy
+share.  The tables of PERF.md section 5 come from this script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import re
+import sys
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import IMAGE, card, cuda_ms, lidar, seed_bn  # noqa: E402
+
+_OWN = re.compile(r"(conv_igemm_kernel<[^>]*>|ode_euler_kernel|bev_head_kernel"
+                  r"|stem_pool_kernel|eca_kernel|combine_id_kernel"
+                  r"|combine_kernel)")
+# library kernels, first match wins
+_CLASSES = (
+    ("max-pools", ("max_pool",)),
+    ("cuDNN / cuBLAS convs and GEMMs", ("cudnn", "xmma", "cutlass", "gemm",
+                                        "conv", "sm90_", "implicit")),
+    ("elementwise / copies", ("elementwise", "copy", "memcpy", "memset",
+                              "fill", "cat", "index")),
+    ("reductions", ("reduce",)),
+)
+
+
+def classify(name: str) -> str:
+    own = _OWN.search(name)
+    if own:
+        return own.group(1)
+    low = name.lower()
+    for label, keys in _CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def device_times(fn, n: int):
+    """{class: (ms per call of fn, launches per call)} over n calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ms, count = defaultdict(float), defaultdict(int)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = classify(evt.key)
+        ms[key] += evt.self_device_time_total / 1e3 / n
+        count[key] += evt.count
+    if not ms:
+        raise RuntimeError("the profiler recorded no device time")
+    return {k: (ms[k], count[k] / n) for k in ms}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batches", type=int, nargs="+", default=[32, 128])
+    ap.add_argument("--forwards", type=int, default=5)
+    args = ap.parse_args()
+
+    from agplace_tpu_torch import kitti360_config
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.infer import build_towers
+    from agplace_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_mm: needs an NVIDIA GPU")
+    print(card(), flush=True)
+    _build.lib()
+    dev = torch.device("cuda")
+    cfg = kitti360_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype="bfloat16"))
+    mc = dataclasses.replace(cfg.model.mm, bev_pallas_head=True,
+                             stem_pallas=True)
+    configs = {"default": cfg,
+               "fused": cfg.replace(model=dataclasses.replace(cfg.model,
+                                                              mm=mc))}
+    models = {}
+    for label, c in configs.items():
+        mm, _ = build_towers(c, "cpu", torch.Generator().manual_seed(0))
+        seed_bn(mm, np.random.default_rng(0))
+        models[label] = mm.to(dev)
+
+    rng = np.random.default_rng(5)
+    n = args.forwards
+    for bsz in args.batches:
+        images = torch.from_numpy(rng.standard_normal(
+            (bsz, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+        vox = prepare_query_vox(cfg, lidar(rng, bsz), dev)
+        for label, mm in models.items():
+            def forwards():
+                for _ in range(n):
+                    mm(images, vox)
+
+            with torch.inference_mode():
+                wall = cuda_ms(forwards, warmup=1, iters=5) / n
+                times = device_times(lambda: mm(images, vox), n)
+            total = sum(ms for ms, _ in times.values())
+            launches = sum(c for _, c in times.values())
+            print(f"\n== MM forward b{bsz} {label}: device {total:.3f} ms "
+                  f"({launches:.0f} kernels) per forward; back-to-back "
+                  f"{wall:.3f} ms per forward unprofiled; busy "
+                  f"{100 * total / wall:.1f} %", flush=True)
+            for key, (ms, cnt) in sorted(times.items(),
+                                         key=lambda kv: -kv[1][0]):
+                print(f"  {ms:8.3f} ms {100 * ms / total:5.1f} % "
+                      f"{cnt:6.1f} x  {key}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
