@@ -7,10 +7,14 @@ plain PyTorch versions beside them:
 * ``bev_head.fused_head``                        K4 (csrc/bev_head.cu)
 * ``stem_pool.fused_affine_relu_maxpool``        K5 (csrc/stem_pool.cu)
 * ``bev_block.fused_eca_block``                  K6 (csrc/bev_block.cu)
+* ``probe_block_sm_v2.fused_eca_block_concat``   P1 (csrc/probe_block_sm_v2.cu)
+* ``probe_down_v2.fused_down_concat``            P2 (csrc/probe_down_v2.cu)
 
 The default serving configuration runs K1-K3; ``bev_pallas_head`` swaps K2
 for K4, ``stem_pallas`` / ``db.stem_pallas`` run K5 in the image stems.  No
-model path calls K6.
+model path calls K6, P1 or P2; the probe entry points
+(``scripts/probe_torch_{block_sm,down}_v2.py``) time P1 against K3 and P2
+against K2.
 
 Each wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``); only a launch of the CUDA kernel counts.
@@ -23,11 +27,14 @@ from typing import Dict
 
 def kernels():
     from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
-                                       bev_head, ode_step, stem_pool)
+                                       bev_head, ode_step, probe_block_sm_v2,
+                                       probe_down_v2, stem_pool)
 
     return (ode_step.fused_euler_ode, bev_down.fused_conv0_down0,
             bev_block_sm.fused_eca_block_sm, bev_head.fused_head,
-            stem_pool.fused_affine_relu_maxpool, bev_block.fused_eca_block)
+            stem_pool.fused_affine_relu_maxpool, bev_block.fused_eca_block,
+            probe_block_sm_v2.fused_eca_block_concat,
+            probe_down_v2.fused_down_concat)
 
 
 def reset_launches() -> None:

@@ -46,6 +46,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _I, _P],
     "agp_block_bm_eca": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "agp_block_bm_combine": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "agp_down_concat": [_P] * 12 + [_I] * 7 + [_P],
+    "agp_p1_conv1": [_P] * 6 + [_I] * 7 + [_P],
+    "agp_p1_conv2_pool": [_P] * 7 + [_I] * 6 + [_P],
+    "agp_p1_smem_bytes": [_I],  # returns bytes, not an error code
 }
 
 _lib: Optional[ctypes.CDLL] = None

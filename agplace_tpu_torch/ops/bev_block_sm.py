@@ -37,6 +37,49 @@ def eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2, bias2, w_eca,
     return bg.mask_bev(torch.relu(out + r), mask, z)
 
 
+def check_block_args(name, x, w1, w2, z: int, wd=None):
+    """The CUDA phases' shape rules for an ECA block (K3's and P1's);
+    returns (B, X, Y, Z*Cin, Z*Cout)."""
+    b, xd, yd, zci = x.shape
+    zco = int(w2.shape[3])
+    _build.check(x.dtype == _BF16, f"{name}: bf16 x")
+    _build.check(tuple(w1.shape) == (3, 3, zci, zco)
+                 and tuple(w2.shape) == (3, 3, zco, zco),
+                 f"{name}: w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}")
+    _build.check(zci % 32 == 0 and zco % 32 == 0 and (zco // z) % 8 == 0,
+                 f"{name}: widths {zci}->{zco} at z={z} not multiples of the "
+                 f"kernel's tiles")
+    if wd is None:
+        _build.check(zci == zco,
+                     f"{name}: identity residual needs Cin == Cout")
+    else:
+        _build.check(tuple(wd.shape) == (1, 1, zci, zco),
+                     f"{name}: wd {tuple(wd.shape)}")
+    return b, xd, yd, zci, zco
+
+
+def eca_combine(x, m, g, pool, w_eca, z: int, wd=None, scale_d=None,
+                bias_d=None):
+    """Phases 3 and 4 on the card: the ECA attention from the masked pool
+    [B, Z*Cout] fp32, then relu(g*att + r) * mask with r = x or the 1x1
+    residual conv + BN in the combine's GEMM.  Returns [B,X,Y,Z*Cout]."""
+    b, xd, yd, zci = x.shape
+    zco = int(g.shape[3])
+    att = torch.empty((b, zco), dtype=_BF16, device=x.device)
+    w_e = w_eca.float().contiguous()
+    _build.call("agp_block_eca", pool, m, w_e, int(w_e.shape[0]), att, b,
+                xd * yd * z, z, zco // z)
+    out = torch.empty_like(g)
+    if wd is not None:
+        _build.call("agp_block_combine_ds", x, m, wd.to(_BF16).contiguous(),
+                    scale_d.float().contiguous(), bias_d.float().contiguous(),
+                    g, att, out, b, xd, yd, zci, zco, z)
+    else:
+        _build.call("agp_block_combine_id", g, x, att, m, out, b, xd, yd,
+                    zco, z)
+    return out
+
+
 def fused_eca_block_sm(x, mask, w1, w2, scale1, bias1, scale2, bias2,
                        w_eca, z: int, wd=None, scale_d=None, bias_d=None):
     """x [B,X,Y,Z*Cin] (masked), mask [B,X,Y,Z] bool, w1 [3,3,Z*Cin,Z*Cout]
@@ -48,45 +91,20 @@ def fused_eca_block_sm(x, mask, w1, w2, scale1, bias1, scale2, bias2,
                           w_eca, *ds):
         return eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2,
                                bias2, w_eca, z, wd, scale_d, bias_d)
-    b, xd, yd, zci = x.shape
-    zco = int(w2.shape[3])
-    c = zco // z
-    _build.check(x.dtype == _BF16, "fused_eca_block_sm: bf16 x")
-    _build.check(tuple(w1.shape) == (3, 3, zci, zco)
-                 and tuple(w2.shape) == (3, 3, zco, zco),
-                 f"fused_eca_block_sm: w1 {tuple(w1.shape)} "
-                 f"w2 {tuple(w2.shape)}")
-    _build.check(zci % 32 == 0 and zco % 32 == 0 and c % 8 == 0,
-                 f"fused_eca_block_sm: widths {zci}->{zco} at z={z} not "
-                 f"multiples of the kernel's tiles")
-    _build.check(wd is not None or zci == zco,
-                 "fused_eca_block_sm: identity residual needs Cin == Cout")
+    b, xd, yd, zci, zco = check_block_args("fused_eca_block_sm", x, w1, w2,
+                                           z, wd)
     x = x.contiguous()
     m = mask.contiguous()
-    dev = x.device
-    h = torch.empty((b, xd, yd, zco), dtype=_BF16, device=dev)
+    h = torch.empty((b, xd, yd, zco), dtype=_BF16, device=x.device)
     _build.call("agp_block_conv1", x, m, w1.to(_BF16).contiguous(),
                 scale1.float().contiguous(), bias1.float().contiguous(), h,
                 b, xd, yd, zci, zco, z)
     g = torch.empty_like(h)
-    pool = torch.zeros((b, zco), dtype=torch.float32, device=dev)
+    pool = torch.zeros((b, zco), dtype=torch.float32, device=x.device)
     _build.call("agp_block_conv2_pool", h, m, w2.to(_BF16).contiguous(),
                 scale2.float().contiguous(), bias2.float().contiguous(), g,
                 pool, b, xd, yd, zco, z)
-    att = torch.empty((b, zco), dtype=_BF16, device=dev)
-    w_e = w_eca.float().contiguous()
-    _build.call("agp_block_eca", pool, m, w_e, int(w_e.shape[0]), att, b,
-                xd * yd * z, z, c)
-    out = torch.empty_like(h)
-    if wd is not None:
-        _build.check(tuple(wd.shape) == (1, 1, zci, zco),
-                     f"fused_eca_block_sm: wd {tuple(wd.shape)}")
-        _build.call("agp_block_combine_ds", x, m, wd.to(_BF16).contiguous(),
-                    scale_d.float().contiguous(), bias_d.float().contiguous(),
-                    g, att, out, b, xd, yd, zci, zco, z)
-    else:
-        _build.call("agp_block_combine_id", g, x, att, m, out, b, xd, yd,
-                    zco, z)
+    out = eca_combine(x, m, g, pool, w_eca, z, wd, scale_d, bias_d)
     fused_eca_block_sm.launches += 1
     return out
 

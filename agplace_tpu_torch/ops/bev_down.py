@@ -35,6 +35,23 @@ def conv0_down0_plain(feats, mask, w0_folded, scale0, bias0, wd_folded,
     return d, mask_out
 
 
+def check_stage0_args(name, feats, w0_folded, wd_folded, z: int):
+    """The CUDA kernels' shape rules for the BEV stage 0 (K2's and P2's):
+    spatial dims that need no ME padding, channel widths on the tiles."""
+    _, x, y, _ = feats.shape
+    zc1, zc2 = int(w0_folded.shape[3]), int(wd_folded.shape[3])
+    zo = me_down_align(z)[2]
+    _build.check(me_down_align(x)[:2] == (0, 0)
+                 and me_down_align(y)[:2] == (0, 0),
+                 f"{name}: spatial dims {x}x{y} need ME padding")
+    _build.check(zc1 % 32 == 0 and (zc1 // z) % 8 == 0
+                 and (zc2 // zo) % 8 == 0 and zc2 % 8 == 0,
+                 f"{name}: channel widths {zc1}->{zc2} at z={z} not "
+                 f"multiples of the kernel's tiles")
+    _build.check(tuple(wd_folded.shape) == (2, 2, zc1, zc2),
+                 f"{name}: wd {tuple(wd_folded.shape)}")
+
+
 def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
                       scale_d, bias_d, *, z: int):
     """feats [B,X,Y,Z*C0] (masked), mask [B,X,Y,Z] bool, w0_folded
@@ -52,15 +69,7 @@ def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
     zc1, zc2 = int(w0_folded.shape[3]), int(wd_folded.shape[3])
     lo_z, hi_z, zo = me_down_align(z)
     _build.check(feats.dtype == _BF16, "fused_conv0_down0: bf16 feats")
-    _build.check(me_down_align(x)[:2] == (0, 0)
-                 and me_down_align(y)[:2] == (0, 0),
-                 f"fused_conv0_down0: spatial dims {x}x{y} need ME padding")
-    _build.check(zc1 % 32 == 0 and (zc1 // z) % 8 == 0
-                 and (zc2 // zo) % 8 == 0 and zc2 % 8 == 0,
-                 f"fused_conv0_down0: channel widths {zc1}->{zc2} at z={z}"
-                 f" not multiples of the kernel's tiles")
-    _build.check(tuple(wd_folded.shape) == (2, 2, zc1, zc2),
-                 f"fused_conv0_down0: wd {tuple(wd_folded.shape)}")
+    check_stage0_args("fused_conv0_down0", feats, w0_folded, wd_folded, z)
     g0 = bg.bev_conv2d(feats, w0_folded, 1, (k0 // 2,) * 2,
                        (k0 // 2,) * 2).contiguous()
     mask_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()

@@ -9,22 +9,26 @@ card and checks every hand-written kernel of the port:
 * the default configuration: K1 (FCODE), K2 (BEV stage 0), K3 (ECA blocks);
 * the fused-stem / fused-head configuration (``bev_pallas_head``,
   ``stem_pallas`` and ``db.stem_pallas`` set): K4 replaces K2, and K5 runs
-  the stem tail of both ResNet towers.
-K6 has no model path; only its parity is checked.
+  the stem tail of both ResNet towers;
+* the two probe entry points (``scripts/probe_torch_down_v2.py`` and
+  ``scripts/probe_torch_block_sm_v2.py``): P2 against K2 and P1 against K3.
+K6 has no path; only its parity is checked.
 
 1. device check (raises without CUDA) and the card's name / power limit;
 2. kernel build from ``agplace_tpu_torch/csrc`` (one nvcc per source, in
    parallel, sm_90a);
 3. [parity] each kernel against its plain PyTorch version on the card at
    its main-path shapes, with CUDA-event timings of both (median of 20):
-   K1; K2 and K4 at [32,128,128,4]; K3 at four block shapes; K5 at
-   [32,128,128,64] and [128,128,128,64] plus an all-negative case; K6 at
-   [32,64,64,128] and [32,16,16,512].  A bf16 kernel may differ from its
-   plain version (isolated ulp flips of the summation order) in at most
-   1e-3 (K2, K4) or 0.15 (K3, K6) of the non-zero outputs; K4 against K2
-   and K6 against K3's plain version, on the same inputs, must differ in
-   more than 0.25 (their rounding points differ), so a kernel with the
-   other's rounding fails;
+   K1; K2, K4 and P2 at [32,128,128,4]; K3 at four block shapes, and P1 at
+   the same four at chunks 1, 3 and 9; K5 at [32,128,128,64] and
+   [128,128,128,64] plus an all-negative case; K6 at [32,64,64,128] and
+   [32,16,16,512].  A bf16 kernel may differ from its plain version
+   (isolated ulp flips of the summation order) in at most 1e-3 (K2, K4,
+   P2) or 0.15 (K3, K6, P1) of the non-zero outputs; P2 is held to K2 and
+   P1 to K3's plain version within the same limits (the same rounding
+   points); K4 against K2 and K6 against K3's plain version, on the same
+   inputs, must differ in more than 0.25 (their rounding points differ),
+   so a kernel with the other's rounding fails;
 4. [serving] the default path: a 512-tile aerial gallery and three search
    requests (1, 7 and 32 queries, k=5); [serving-fused] the fused path: its
    own 128-tile gallery and three requests.  Each checks shapes, a planted
@@ -37,10 +41,14 @@ K6 has no model path; only its parity is checked.
 5. [slice] / [slice-fused] 4 query embeddings on the card vs the same module
    and weights on the CPU (plain versions);
 6. [timing] MM forward of both configurations at batch 32 and 128
-   (synchronised latency and back-to-back throughput), on the same inputs.
+   (synchronised latency and back-to-back throughput), on the same inputs;
+7. [probe] the probe entry points' ``run()`` at b32: the stage-0 A/B (P2
+   vs K2) and the block0 A/B (P1 vs K3) at chunks 1, 3 and 9, each v2
+   checked against v1 and both timed in the cold-L2 regime; exact launch
+   counts: one P2 or P1 launch per v2 call, one K2 or K3 per v1 call.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
-JSON record (``launches`` summed over both paths, split in
+JSON record (``launches`` summed over the three paths, split in
 ``launches_by_path``), the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -48,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -60,6 +69,7 @@ IMAGE = 256
 N_TILES = 512  # default path's gallery
 N_TILES_FUSED = 128
 N_POINTS = 30000
+CHUNKS = (1, 3, 9)  # P1's taps per concatenated group
 # |kernel - plain| <= atol * max|plain| + rtol * |plain| elementwise, the
 # mean error <= mean_tol * max|plain|, and the two differ at all on at most
 # a share `frac` of the non-zero outputs (``differ``).
@@ -71,13 +81,13 @@ K1_TOL = dict(rtol=1e-4, atol=1e-5, mean=1e-6, frac=1.0)  # fp32 sum order
 # A systematic error would show in the mean, which must stay tiny.  A
 # kernel that rounds at other points (K2's points in K4, K3's in K6) stays
 # inside those bounds but changes far more outputs: `frac` catches it.
-# ECA blocks (K3, K6): a flip in conv1's rounded output moves many conv2
-# sums, so 1.3e-3 to 5.2e-2 of the non-zero outputs differ at the
+# ECA blocks (K3, K6, P1): a flip in conv1's rounded output moves many
+# conv2 sums, so 9.8e-4 to 5.2e-2 of the non-zero outputs differ at the
 # main-path shapes (H100, measured); other rounding points: 0.43-0.47.
 KBF16_TOL = dict(rtol=2e-2, atol=1e-2, mean=1e-4, frac=0.15)
-# BEV stage 0 (K2, K4): conv0 sums bf16 weights over a 0/1 grid, exact in
-# fp32, so only the down0 sum order differs: 0 and 5.7e-5 of the non-zero
-# outputs (H100, measured); K2's rounding points in K4: 0.69.
+# BEV stage 0 (K2, K4, P2): conv0 sums bf16 weights over a 0/1 grid,
+# exact in fp32, so only the down0 sum order differs: 0 to 5.7e-5 of the
+# non-zero outputs (H100, measured); K2's rounding points in K4: 0.69.
 KSTAGE0_TOL = dict(KBF16_TOL, frac=1e-3)
 # K5: the same fp32 multiply and add, one round, an exact max: bit-equal
 EXACT = dict(rtol=0.0, atol=0.0, mean=0.0, frac=0.0)
@@ -201,7 +211,8 @@ def phase_build():
 def phase_parity(dev, masks):
     """Each kernel vs its plain version at its main-path shapes (b32)."""
     from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
-                                       bev_head, ode_step, stem_pool)
+                                       bev_head, ode_step, probe_block_sm_v2,
+                                       probe_down_v2, stem_pool)
     from agplace_tpu_torch.sparse.bev_grid import (fold_w2_k2s2,
                                                    fold_w2_stride1)
 
@@ -270,6 +281,23 @@ def phase_parity(dev, masks):
     rec["vs_k2"] = rounding_apart("K4 vs K2", out4, out)
     results["fused_head"] = rec
 
+    # P2 on K2's inputs: four parity convs, one concat GEMM, K2's rounding
+    out_p2, mo_p2 = probe_down_v2.fused_down_concat(*args, z=z0)
+    ref_p2, mr_p2 = probe_down_v2.down_concat_plain(*args, z=z0)
+    if not (torch.equal(mo_p2, mr_p2) and torch.equal(mo_p2, mo)):
+        raise AssertionError("P2 output masks differ")
+    rec = compare("P2 fused_down_concat [32,128,128,4]->[32,64,64,128]",
+                  out_p2, ref_p2, KSTAGE0_TOL)
+    rec["vs_k2"] = compare("P2 vs K2 (same inputs, same rounding points)",
+                           out_p2, out, KSTAGE0_TOL)
+    rec["ms"] = cuda_ms(lambda: probe_down_v2.fused_down_concat(*args,
+                                                                z=z0))
+    rec["plain_ms"] = cuda_ms(lambda: probe_down_v2.down_concat_plain(
+        *args, z=z0))
+    log(f"  P2: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
+        f"(both include the four cuDNN parity convs)")
+    results["fused_down_concat"] = rec
+
     # K5: the stem conv output at b32 and b128 (256 px images)
     b32 = masks[0].shape[0]
     hw = IMAGE // 2  # the stem conv's output
@@ -295,9 +323,14 @@ def phase_parity(dev, masks):
             k5 = dict(rec, ms=ms, plain_ms=pms)
     results["fused_affine_relu_maxpool"] = k5
 
-    # K3 at the four slice shapes (z = 2 after down0)
+    # K3 at the four slice shapes (z = 2 after down0), and P1 on K3's
+    # inputs at each chunk
     k3 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
           "frac_differ": 0.0}
+    p1 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+          "frac_differ": 0.0, "ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
+          "plain_ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
+          "vs_k3_plain_frac_differ": 0.0}
     for mask, cin, c, name in ((masks[1], 64, 64, "block0_0"),
                                (masks[2], 64, 128, "block1_0"),
                                (masks[3], 128, 256, "block2_0"),
@@ -321,10 +354,10 @@ def phase_parity(dev, masks):
                                       std=(2 / (27 * c)) ** .5), z),
                 *affine(c, z), *affine(c, z), randn(k_eca))
         shape = f"[{bsz},{xy},{xy},{z * cin}]->{z * c}"
+        k3_plain = bev_block_sm.eca_block_plain(*args, z=z, **kw)
         rec = compare(f"K3 fused_eca_block_sm {name} {shape}",
                       bev_block_sm.fused_eca_block_sm(*args, z=z, **kw),
-                      bev_block_sm.eca_block_plain(*args, z=z, **kw),
-                      KBF16_TOL)
+                      k3_plain, KBF16_TOL)
         ms = cuda_ms(lambda: bev_block_sm.fused_eca_block_sm(*args, z=z,
                                                              **kw))
         pms = cuda_ms(lambda: bev_block_sm.eca_block_plain(*args, z=z,
@@ -334,7 +367,32 @@ def phase_parity(dev, masks):
         k3["plain_ms"] += pms
         k3["max_abs_err"] = max(k3["max_abs_err"], rec["max_abs_err"])
         k3["frac_differ"] = max(k3["frac_differ"], rec["frac_differ"])
+        for ch in CHUNKS:
+            kwc = dict(kw, chunk=ch)
+            got = probe_block_sm_v2.fused_eca_block_concat(*args, z=z, **kwc)
+            rec = compare(f"P1 fused_eca_block_concat chunk {ch} {name} "
+                          f"{shape}", got,
+                          probe_block_sm_v2.eca_block_concat_plain(
+                              *args, z=z, **kwc), KBF16_TOL)
+            vs = compare(f"P1 chunk {ch} vs K3's plain version {name} "
+                         f"(same rounding points)", got, k3_plain,
+                         KBF16_TOL)
+            ms_c = cuda_ms(lambda: probe_block_sm_v2.fused_eca_block_concat(
+                *args, z=z, **kwc))
+            pms_c = cuda_ms(lambda: probe_block_sm_v2.eca_block_concat_plain(
+                *args, z=z, **kwc))
+            log(f"  P1 chunk {ch} {name}: kernel {ms_c:.4f} ms, plain "
+                f"{pms_c:.4f} ms (K3 kernel {ms:.4f} ms)")
+            p1["ms_by_chunk"][ch] += ms_c
+            p1["plain_ms_by_chunk"][ch] += pms_c
+            p1["max_abs_err"] = max(p1["max_abs_err"], rec["max_abs_err"])
+            p1["frac_differ"] = max(p1["frac_differ"], rec["frac_differ"])
+            p1["vs_k3_plain_frac_differ"] = max(
+                p1["vs_k3_plain_frac_differ"], vs["frac_differ"])
     results["fused_eca_block_sm"] = k3
+    p1["ms"], p1["plain_ms"] = p1["ms_by_chunk"][3], \
+        p1["plain_ms_by_chunk"][3]  # the default chunk, four shapes
+    results["fused_eca_block_concat"] = p1
 
     # K6 (no model path): identity blocks at a stage-0 and a stage-2 shape
     k6 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
@@ -407,7 +465,8 @@ def expected_launches(cfg, n_tiles, n_requests):
                 (n_requests if mm.stem_pallas else 0)
                 + (db_forwards * cfg.data.nmap if cfg.model.db.stem_pallas
                    else 0),
-            "fused_eca_block": 0}
+            "fused_eca_block": 0, "fused_eca_block_concat": 0,
+            "fused_down_concat": 0}
 
 
 def phase_serving(cfg, dev, n_tiles, label):
@@ -520,6 +579,46 @@ def phase_timing(cfg, models, dev, name):
                 f"{bsz / tput * 1e3:.1f} desc/s")
 
 
+def phase_probe(dev):
+    """The probe entry points at b32: P2 vs K2, and P1 vs K3 at each chunk.
+    Launch counts are exact: each v1 / v2 call of a ``run()`` is one
+    launch of K2 / P2 or K3 / P1."""
+    from agplace_tpu_torch import ops
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import probe_torch_block_sm_v2
+    import probe_torch_down_v2
+
+    ops.reset_launches()  # ---- the path: both entry points
+    down = probe_torch_down_v2.run(dev)
+    blocks = [probe_torch_block_sm_v2.run(dev, chunk=ch) for ch in CHUNKS]
+    counts = ops.launches()  # ---- read just after the path
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_conv0_down0=down["calls"]["v1"],
+                fused_down_concat=down["calls"]["v2"],
+                fused_eca_block_sm=sum(r["calls"]["v1"] for r in blocks),
+                fused_eca_block_concat=sum(r["calls"]["v2"] for r in blocks))
+    log(f"[probe] launches {counts}")
+    if not all(want[k] for k in ("fused_conv0_down0", "fused_down_concat",
+                                 "fused_eca_block_sm",
+                                 "fused_eca_block_concat")):
+        raise AssertionError(f"a kernel of the probe path never ran: {want}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    for rec, limit in [(down, KSTAGE0_TOL["frac"])] + [
+            (r, KBF16_TOL["frac"]) for r in blocks]:
+        what = (f"block0 chunk {rec['chunk']} P1 vs K3" if "chunk" in rec
+                else "stage 0 P2 vs K2")
+        log(f"[probe] {what}: v1_shipped {rec['v1_shipped']:.4f} ms, "
+            f"v2_concat {rec['v2_concat']:.4f} ms (cold L2); max_abs "
+            f"{rec['max_abs']:.3g}, differ {rec['frac_differ']:.3g} (limit "
+            f"{limit}); {json.dumps(rec)}")
+        if not rec["frac_differ"] <= limit:
+            raise AssertionError(f"{what}: v2 disagrees with v1")
+    return counts, down, blocks
+
+
 def main() -> None:
     import dataclasses
 
@@ -565,6 +664,14 @@ def main() -> None:
     phase_slice_parity(cfg_f, mm_f, cpu_mm_f, requests_f, dev,
                        "slice-fused")
     phase_timing(cfg, {"default": mm, "fused": mm_f}, dev, name)
+    # ---- the probe entry points: P2 vs K2, P1 vs K3
+    with torch.inference_mode():
+        counts_p, down, blocks = phase_probe(dev)
+    parity["fused_down_concat"]["probe_ab"] = {
+        k: down[k] for k in ("v1_shipped", "v2_concat")}
+    parity["fused_eca_block_concat"]["probe_ab"] = {
+        r["chunk"]: {k: r[k] for k in ("v1_shipped", "v2_concat")}
+        for r in blocks}
 
     sources = {
         "fused_euler_ode": ("agplace_tpu_torch/csrc/ode_step.cu",
@@ -580,14 +687,26 @@ def main() -> None:
                                       "109"),
         "fused_eca_block": ("agplace_tpu_torch/csrc/bev_block.cu",
                             "agplace_tpu/ops/pallas/bev_block.py:127"),
+        "fused_eca_block_concat": (
+            "agplace_tpu_torch/csrc/probe_block_sm_v2.cu",
+            "scripts/probe_block_sm_v2.py:178"),
+        "fused_down_concat": ("agplace_tpu_torch/csrc/probe_down_v2.cu",
+                              "scripts/probe_down_v2.py:143"),
     }
-    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[k] + counts_f[k],
-                "launches_by_path": {"default": counts[k],
-                                     "fused": counts_f[k]},
-                "max_abs_err": parity[k]["max_abs_err"],
-                "frac_differ": parity[k]["frac_differ"],
-                "ms": parity[k]["ms"], "plain_ms": parity[k]["plain_ms"]}
+    kernels = [dict({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep,
+                     "launches": counts[k] + counts_f[k] + counts_p[k],
+                     "launches_by_path": {"default": counts[k],
+                                          "fused": counts_f[k],
+                                          "probe": counts_p[k]},
+                     "max_abs_err": parity[k]["max_abs_err"],
+                     "frac_differ": parity[k]["frac_differ"],
+                     "ms": parity[k]["ms"],
+                     "plain_ms": parity[k]["plain_ms"]},
+                    **{x: parity[k][x] for x in ("ms_by_chunk",
+                                                 "plain_ms_by_chunk",
+                                                 "probe_ab")
+                       if x in parity[k]})
                for k, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@ from chip_smoke import IMAGE, card, cuda_ms, lidar, seed_bn  # noqa: E402
 
 _OWN = re.compile(r"(conv_igemm_kernel<[^>]*>|ode_euler_kernel|bev_head_kernel"
                   r"|stem_pool_kernel|eca_kernel|combine_id_kernel"
-                  r"|combine_kernel)")
+                  r"|combine_kernel|halo_conv3x3_kernel<[^>]*>"
+                  r"|down_concat_kernel)")
 # library kernels, first match wins
 _CLASSES = (
     ("max-pools", ("max_pool",)),

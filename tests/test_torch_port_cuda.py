@@ -15,7 +15,8 @@ import torch
 
 from agplace_tpu_torch import kitti360_config, ops
 from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
-                                   bev_head, ode_step, stem_pool)
+                                   bev_head, ode_step, probe_block_sm_v2,
+                                   probe_down_v2, stem_pool)
 from agplace_tpu_torch.sparse.bev_grid import BEVGrid, fold_w2_k2s2, \
     fold_w2_stride1
 
@@ -83,16 +84,21 @@ def test_k1_kernel_matches_plain(cuda, act):
     assert ode_step.fused_euler_ode.launches == 1
 
 
+def _stage0_args(g, b, xy, c1, dev, k0=5, z=4):
+    """Occupancy [b, xy, xy, z] as the BEV stage 0's input, conv0 k0 x k0,
+    widths Z*C1 -> 2*C1, from the generator ``g``."""
+    mask = (torch.rand(b, xy, xy, z, generator=g) < 0.3).to(dev)
+    w0 = fold_w2_stride1(torch.randn(k0, k0, k0, 1, c1, generator=g) * .25, z)
+    s0, b0 = _affine(g, c1, z, dev)
+    wd = fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .09, z)
+    return (mask.to(torch.bfloat16), mask, w0.to(dev), s0, b0, wd.to(dev),
+            *_affine(g, c1, 2, dev))
+
+
 @pytest.mark.cuda
 def test_k2_kernel_matches_plain(cuda):
-    g = _gen()
-    z, c1 = 4, 64
-    mask = (torch.rand(2, 32, 32, z, generator=g) < 0.3).to(cuda)
-    args = (mask.to(torch.bfloat16), mask,
-            fold_w2_stride1(torch.randn(5, 5, 5, 1, c1, generator=g) * .25,
-                            z).to(cuda), *_affine(g, c1, z, cuda),
-            fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .09,
-                         z).to(cuda), *_affine(g, c1, 2, cuda))
+    z = 4
+    args = _stage0_args(_gen(), 2, 32, 64, cuda)
     ops.reset_launches()
     with torch.inference_mode():
         got, m1 = bev_down.fused_conv0_down0(*args, z=z)
@@ -102,28 +108,32 @@ def test_k2_kernel_matches_plain(cuda):
     assert bev_down.fused_conv0_down0.launches == 1
 
 
+def _block_args(g, cin, c, xy, z, dev, b=3):
+    mask = (torch.rand(b, xy, xy, z, generator=g) < 0.4).to(dev)
+    x = torch.randn(b, xy, xy, z, cin, generator=g).to(dev)
+    x = torch.where(mask[..., None], x, 0).reshape(b, xy, xy, z * cin)
+    kw = {}
+    if cin != c:
+        sd, bd = _affine(g, c, z, dev)
+        kw = dict(wd=fold_w2_stride1(torch.randn(1, 1, 1, cin, c,
+                                                 generator=g) * (2 / cin) ** .5,
+                                     z).to(dev), scale_d=sd, bias_d=bd)
+    args = (x.to(torch.bfloat16), mask,
+            fold_w2_stride1(torch.randn(3, 3, 3, cin, c, generator=g)
+                            * (2 / (27 * cin)) ** .5, z).to(dev),
+            fold_w2_stride1(torch.randn(3, 3, 3, c, c, generator=g)
+                            * (2 / (27 * c)) ** .5, z).to(dev),
+            *_affine(g, c, z, dev), *_affine(g, c, z, dev),
+            torch.randn(3 if c == 64 else 5, generator=g).to(dev))
+    return mask, args, kw
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,c,xy", [(64, 64, 16), (64, 128, 8),
                                       (128, 256, 8)])
 def test_k3_kernel_matches_plain(cuda, cin, c, xy):
-    g = _gen()
     z = 2
-    mask = (torch.rand(3, xy, xy, z, generator=g) < 0.4).to(cuda)
-    x = torch.randn(3, xy, xy, z, cin, generator=g).to(cuda)
-    x = torch.where(mask[..., None], x, 0).reshape(3, xy, xy, z * cin)
-    kw = {}
-    if cin != c:
-        sd, bd = _affine(g, c, z, cuda)
-        kw = dict(wd=fold_w2_stride1(torch.randn(1, 1, 1, cin, c,
-                                                 generator=g) * (2 / cin) ** .5,
-                                     z).to(cuda), scale_d=sd, bias_d=bd)
-    args = (x.to(torch.bfloat16), mask,
-            fold_w2_stride1(torch.randn(3, 3, 3, cin, c, generator=g)
-                            * (2 / (27 * cin)) ** .5, z).to(cuda),
-            fold_w2_stride1(torch.randn(3, 3, 3, c, c, generator=g)
-                            * (2 / (27 * c)) ** .5, z).to(cuda),
-            *_affine(g, c, z, cuda), *_affine(g, c, z, cuda),
-            torch.randn(3 if c == 64 else 5, generator=g).to(cuda))
+    mask, args, kw = _block_args(_gen(), cin, c, xy, z, cuda)
     ops.reset_launches()
     with torch.inference_mode():
         got = bev_block_sm.fused_eca_block_sm(*args, z=z, **kw)
@@ -141,14 +151,8 @@ def test_k4_kernel_matches_plain(cuda, b, xy, k0, c1):
     """KITTI widths (c1=64 at z=4: Z*C1 = 256, Zo*C2 = 128) and narrower
     ones (128 -> 64); 3 x 10 x 10 output cells leave a ragged last tile of
     the 64-cell blocks."""
-    g = _gen()
     z = 4
-    mask = (torch.rand(b, xy, xy, z, generator=g) < 0.3).to(cuda)
-    args = (mask.to(torch.bfloat16), mask,
-            fold_w2_stride1(torch.randn(k0, k0, k0, 1, c1, generator=g)
-                            * .25, z).to(cuda), *_affine(g, c1, z, cuda),
-            fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .09,
-                         z).to(cuda), *_affine(g, c1, 2, cuda))
+    args = _stage0_args(_gen(), b, xy, c1, cuda, k0)
     ops.reset_launches()
     with torch.inference_mode():
         got, m1 = bev_head.fused_head(*args, z=z)
@@ -186,17 +190,8 @@ def test_k5_kernel_matches_plain(cuda, b, h, w, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,xy", [(64, 16), (256, 8)])
 def test_k6_kernel_matches_plain(cuda, c, xy):
-    g = _gen()
     z = 2
-    mask = (torch.rand(3, xy, xy, z, generator=g) < 0.4).to(cuda)
-    x = torch.randn(3, xy, xy, z, c, generator=g).to(cuda)
-    x = torch.where(mask[..., None], x, 0).reshape(3, xy, xy, z * c)
-    ws = [fold_w2_stride1(torch.randn(3, 3, 3, c, c, generator=g)
-                          * (2 / (27 * c)) ** .5, z).to(cuda)
-          for _ in range(2)]
-    args = (x.to(torch.bfloat16), mask, *ws, *_affine(g, c, z, cuda),
-            *_affine(g, c, z, cuda),
-            torch.randn(3 if c == 64 else 5, generator=g).to(cuda))
+    mask, args, _ = _block_args(_gen(), c, c, xy, z, cuda)
     ops.reset_launches()
     with torch.inference_mode():
         got = bev_block.fused_eca_block(*args, z=z)
@@ -208,6 +203,57 @@ def test_k6_kernel_matches_plain(cuda, c, xy):
     mf = mask.repeat_interleave(c, dim=-1)
     assert bool((got[~mf] == 0).all())
     assert bev_block.fused_eca_block.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 3, 9])
+@pytest.mark.parametrize("cin,c,xy", [(64, 64, 16), (64, 128, 8),
+                                      (128, 256, 12)])
+def test_p1_kernel_matches_plain(cuda, chunk, cin, c, xy):
+    """P1 against its plain version and against K3's plain version (the
+    same rounding points); 12 x 12 maps leave ragged 8 x 16 patches."""
+    mask, args, kw = _block_args(_gen(), cin, c, xy, 2, cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = probe_block_sm_v2.fused_eca_block_concat(*args, z=2,
+                                                       chunk=chunk, **kw)
+        want = probe_block_sm_v2.eca_block_concat_plain(*args, z=2,
+                                                        chunk=chunk, **kw)
+        k3 = bev_block_sm.eca_block_plain(*args, z=2, **kw)
+    _close_bf16(got, want, BLOCK_FRAC_DIFFER)
+    _close_bf16(got, k3, BLOCK_FRAC_DIFFER)
+    mf = mask.repeat_interleave(c, dim=-1)
+    assert bool((got[~mf] == 0).all())
+    assert probe_block_sm_v2.fused_eca_block_concat.launches == 1
+
+
+@pytest.mark.cuda
+def test_p1_kernel_raises_on_widths_off_its_tiles(cuda):
+    _, args, _ = _block_args(_gen(), 40, 40, 8, 2, cuda)  # Z*C = 80
+    with pytest.raises(ValueError, match="multiples of the kernel's tiles"):
+        probe_block_sm_v2.fused_eca_block_concat(*args, z=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,xy,c1", [(2, 32, 64), (3, 20, 8)])
+def test_p2_kernel_matches_plain(cuda, b, xy, c1):
+    """P2 against its plain version and against K2 (the same rounding
+    points); 3 x 10 x 10 output cells leave a ragged last tile."""
+    z = 4
+    args = _stage0_args(_gen(), b, xy, c1, cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got, m1 = probe_down_v2.fused_down_concat(*args, z=z)
+        want, m2 = probe_down_v2.down_concat_plain(*args, z=z)
+        k2, m3 = bev_down.fused_conv0_down0(*args, z=z)
+    assert torch.equal(m1, m2) and torch.equal(m1, m3)
+    assert got.dtype == torch.bfloat16
+    _close_bf16(got, want, STAGE0_FRAC_DIFFER)
+    _close_bf16(got, k2, STAGE0_FRAC_DIFFER)
+    mf = m1.repeat_interleave(c1, dim=-1)
+    assert bool((got[~mf] == 0).all())
+    assert probe_down_v2.fused_down_concat.launches == 1
+    assert bev_down.fused_conv0_down0.launches == 1
 
 
 @pytest.mark.cuda
@@ -239,7 +285,9 @@ def test_mm_forward_on_card_counts_kernels_and_matches_cpu(cuda):
     assert ops.launches() == {"fused_euler_ode": 3, "fused_conv0_down0": 1,
                               "fused_eca_block_sm": 4, "fused_head": 0,
                               "fused_affine_relu_maxpool": 0,
-                              "fused_eca_block": 0}
+                              "fused_eca_block": 0,
+                              "fused_eca_block_concat": 0,
+                              "fused_down_concat": 0}
     for k, v in want.items():
         err = float((got[k].cpu() - v).abs().max())
         assert err <= 5e-2 * float(v.abs().max()), (k, err)
@@ -269,7 +317,9 @@ def test_fused_mm_forward_on_card_counts_kernels_and_matches_cpu(cuda):
     assert ops.launches() == {"fused_euler_ode": 3, "fused_conv0_down0": 0,
                               "fused_eca_block_sm": 4, "fused_head": 1,
                               "fused_affine_relu_maxpool": 1,
-                              "fused_eca_block": 0}
+                              "fused_eca_block": 0,
+                              "fused_eca_block_concat": 0,
+                              "fused_down_concat": 0}
     for k, v in want.items():
         err = float((got[k].cpu() - v).abs().max())
         assert err <= 5e-2 * float(v.abs().max()), (k, err)

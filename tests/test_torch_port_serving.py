@@ -152,6 +152,10 @@ def test_port_imports_no_jax():
     code = ("import sys, agplace_tpu_torch, agplace_tpu_torch.serving, "
             "agplace_tpu_torch.infer, agplace_tpu_torch.utils.convert, "
             "agplace_tpu_torch.ops._build; "
+            # every kernel wrapper, the smoke and the probe entry points
+            "from agplace_tpu_torch import ops; ops.kernels(); "
+            "sys.path.insert(0, 'scripts'); import chip_smoke, "
+            "probe_torch_down_v2, probe_torch_block_sm_v2; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax')]; "
             "assert not bad, bad; "

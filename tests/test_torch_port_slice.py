@@ -243,7 +243,9 @@ def test_mm_all_keys_match(world, dtype):
                               "fused_conv0_down0": 0,
                               "fused_eca_block_sm": 0, "fused_head": 0,
                               "fused_affine_relu_maxpool": 0,
-                              "fused_eca_block": 0}
+                              "fused_eca_block": 0,
+                              "fused_eca_block_concat": 0,
+                              "fused_down_concat": 0}
 
 
 def test_dbvanilla2d_matches(world):
