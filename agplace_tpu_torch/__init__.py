@@ -1,9 +1,10 @@
 """agplace_tpu_torch — the PyTorch / CUDA (Hopper) port of ``agplace_tpu``.
 
 The JAX package stays the reference; this package mirrors its module names
-so each ported piece sits next to its counterpart's name, and it reads the
-same frozen ``Config`` tree (``agplace_tpu/config.py`` is dataclasses and
-argparse only, so it is shared rather than copied).
+so each ported piece sits next to its counterpart's name.  It imports
+nothing of the JAX package: the frozen ``Config`` tree and the dataset
+presets are the port's own copy (``agplace_tpu_torch/config.py``), and so
+is the host voxelizer (``agplace_tpu_torch/native``).
 
 Kernel dispatch rule: every hand-written kernel's wrapper runs its plain
 PyTorch version only for CPU tensors; a CUDA tensor either launches the
@@ -13,7 +14,7 @@ off (see ``agplace_tpu_torch/ops``).
 
 import torch
 
-from agplace_tpu.config import (  # noqa: F401  (re-exported presets)
+from agplace_tpu_torch.config import (  # noqa: F401  (re-exported presets)
     Config,
     kitti360_config,
     nuscenes_config,

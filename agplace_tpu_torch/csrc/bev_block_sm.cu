@@ -6,8 +6,8 @@
 // second conv and the attention multiply inside VMEM.  CUDA blocks run in
 // no order and cannot carry that sum, so the block is written as phases,
 // each a hand-written kernel:
-//   1. h   = relu(bn1(conv3x3(x))) * mask                (conv_igemm, EPI 0)
-//   2. g   = bn2(conv3x3(h)); pool[b, zc] += sum g*mask  (conv_igemm, EPI 1)
+//   1. h   = relu(bn1(conv3x3(x))) * mask                (conv3x3_sm90.cu)
+//   2. g   = bn2(conv3x3(h)); pool[b, zc] += sum g*mask  (conv3x3_sm90.cu)
 //   3. att = sigmoid(conv1d_k(sum_z pool / count))       (eca.cuh)
 //   4. out = relu(g*att + r) * mask with r = x (combine_id_kernel) or
 //      r = bn_d(conv1x1(x)) computed in the GEMM epilogue (conv_igemm, EPI 2)
@@ -17,11 +17,12 @@
 // 1-D channel conv in fp32.
 //
 // What bounds it on the H100: at the slice shapes the two 3x3 convs are
-// tensor-core work (block0 at b32: 2 x 38.7 GFLOP over a 33.6 MB map), the
-// rest is bytes.  Between phases h and g go through HBM (the TPU kernel
-// kept them in VMEM); each is one bf16 map, written once and read once.
-// The masked pool is folded into phase 2's epilogue (shared-memory reduce,
-// one atomic per channel per block), so g is never re-read for it.
+// tensor-core work (block0 at b32: 2 x 38.7 GFLOP over a 33.6 MB map; their
+// kernel and its design are in conv3x3_sm90.cu), the rest is bytes.
+// Between phases h and g go through HBM (the TPU kernel kept them in VMEM);
+// each is one bf16 map, written once and read once.  The masked pool is
+// folded into phase 2's epilogue, so g is never re-read for it.  This file
+// holds phases 3 and 4.
 #include "conv_igemm.cuh"
 #include "eca.cuh"
 
@@ -63,28 +64,6 @@ __global__ void combine_id_kernel(const bf16* __restrict__ g,
 }
 
 }  // namespace
-
-extern "C" int agp_block_conv1(const bf16* x, const uint8_t* mask,
-                               const bf16* w1, const float* s1,
-                               const float* b1, bf16* h, int B, int X, int Y,
-                               int zci, int zco, int z, void* stream) {
-  agp::ConvParams p =
-      agp::same_conv_params(x, w1, h, B, X, Y, zci, zco, 3, z, s1, b1, mask);
-  return agp::launch_conv<agp::PRO_NONE, agp::EPI_AFFINE_RELU_MASK>(
-      p, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int agp_block_conv2_pool(const bf16* h, const uint8_t* mask,
-                                    const bf16* w2, const float* s2,
-                                    const float* b2, bf16* g, float* pool,
-                                    int B, int X, int Y, int zco, int z,
-                                    void* stream) {
-  agp::ConvParams p =
-      agp::same_conv_params(h, w2, g, B, X, Y, zco, zco, 3, z, s2, b2, mask);
-  p.pool = pool;
-  return agp::launch_conv<agp::PRO_NONE, agp::EPI_AFFINE_POOL>(
-      p, static_cast<cudaStream_t>(stream));
-}
 
 extern "C" int agp_block_eca(const float* pool, const uint8_t* mask,
                              const float* w_eca, int k, bf16* att, int B,

@@ -1,6 +1,7 @@
 // One templated implicit-GEMM convolution with fused prologue/epilogue,
-// shared by the K2 (bev_down.cu), K3 (bev_block_sm.cu) and K6
-// (bev_block.cu) kernels; K4 (bev_head.cu) uses its cp.async helpers.
+// shared by the K2 (bev_down.cu), K6 (bev_block.cu) and K3's 1x1 residual
+// combine (bev_block_sm.cu, EPI 2); K4 (bev_head.cu) and P1 use its
+// cp.async helpers.
 //
 // Layouts (the port's public layouts): x [B, H, W, Cin] bf16 (NHWC, the
 // z-major fold puts z*C in the channel axis), weights [KH, KW, Cin, Cout]
@@ -21,7 +22,7 @@
 // accumulator tile goes through shared memory to an epilogue that works on
 // 8 consecutive output channels per thread (16-byte stores).
 //
-// Rounding points follow the JAX kernels.  The bf16 epilogues (EPI 0-2,
+// Rounding points follow the JAX kernels.  The bf16 epilogues (EPI 0, 2,
 // bev_down.py / bev_block_sm.py): the conv result is rounded to bf16, the
 // BN eval affine runs in bf16 (one rounding after the multiply, one after
 // the add), relu and the 0/1 mask are exact; scales and biases arrive in
@@ -42,7 +43,6 @@ namespace agp {
 enum { PRO_NONE = 0, PRO_AFFINE_RELU_MASK = 1 };
 enum {
   EPI_AFFINE_RELU_MASK = 0,
-  EPI_AFFINE_POOL = 1,
   EPI_AFFINE_COMBINE = 2,
   EPI_F32_RELU_MASK = 3,  // bf16(relu(acc*s + b) * mask), fp32 affine
   EPI_F32_POOL = 4        // g = bf16(acc*s + b); pool += g * mask
@@ -95,7 +95,7 @@ template <int PRO, int EPI>
 __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
   using namespace nvcuda;
   constexpr bool kF32 = EPI == EPI_F32_RELU_MASK || EPI == EPI_F32_POOL;
-  constexpr bool kPool = EPI == EPI_AFFINE_POOL || EPI == EPI_F32_POOL;
+  constexpr bool kPool = EPI == EPI_F32_POOL;
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   __shared__ float red[kNT / 32][kBN];
   bf16* ring = reinterpret_cast<bf16*>(smem);

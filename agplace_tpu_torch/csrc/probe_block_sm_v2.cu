@@ -26,8 +26,9 @@
 // chunk 9 and Zcin 512 (9*512 bf16 per row) would not fit a block.  Stages
 // are double-buffered with cp.async: step t+1's weights (and at a slab
 // boundary its halo tile) load while step t feeds the tensor cores.  Each
-// input element is read once per slab and N tile, where K3's implicit GEMM
-// (conv_igemm.cuh, not used here) gathers it once per tap, nine times.
+// input element is read once per slab and N tile, where the wmma implicit
+// GEMM of conv_igemm.cuh (not used here) gathers it once per tap, nine
+// times.
 //
 //   phase 1 (EPI 0): h = relu(bf16(bf16(bf16(acc)*s1) + b1)) * mask
 //   phase 2 (EPI 1): g = bf16(bf16(bf16(acc)*s2) + b2); pool[b, c] += the

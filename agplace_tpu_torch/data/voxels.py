@@ -6,9 +6,12 @@ collate-side voxel code, returning torch tensors on the caller's device.
 * ``rasterize_from_voxels_host`` <- ``agplace_tpu/sparse/bev_grid.py:73-100``
 * ``prepare_query_vox``          <- ``agplace_tpu/data/base.py:101-118``
 
-All the work is numpy on the host (one fancy-index write for the raster);
-only the finished arrays cross to the device.  Outputs are exactly equal to
-the JAX package's (tested in ``tests/test_torch_port_slice.py``).
+All the work is on the host: the port's native voxelizer
+(``agplace_tpu_torch/native``, ``voxelize_plain`` is its numpy plain
+version) and one fancy-index write for the raster; only the finished arrays
+cross to the device, which is the card unless the caller passes ``"cpu"``.
+Outputs are exactly equal to the JAX package's (tested in
+``tests/test_torch_port_slice.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from agplace_tpu.config import Config
+from agplace_tpu_torch import native
+from agplace_tpu_torch.config import Config
+from agplace_tpu_torch.device import resolve_device
 
 GRID_RADIUS = 64  # static half-extent of the occupancy grid, in voxels
 
@@ -45,16 +50,12 @@ def me_down_align(cells: int) -> Tuple[int, int, int]:
     return lo, hi, (cells + lo + hi) // 2
 
 
-def _voxelize_np(points: np.ndarray, quant_size: float, capacity: int):
+def voxelize_plain(points: np.ndarray, quant_size: float, capacity: int):
+    """The voxelizer's plain numpy version (the tests hold the native one to
+    it): per cloud the lexicographically smallest ``capacity`` unique
+    voxel coordinates, ascending, clamped to the grid."""
     pts = np.asarray(points, dtype=np.float32)
     b = pts.shape[0]
-    from agplace_tpu.native import voxelize_batch_native
-
-    native = voxelize_batch_native(pts, quant_size, capacity, GRID_RADIUS)
-    if native is not None:
-        return native
-    # numpy fallback: the same canonical rule as the native voxelizer
-    # (lexicographically smallest ``capacity`` unique coords, ascending)
     finite = np.all(np.isfinite(pts), axis=-1)
     coords_all = np.floor(np.nan_to_num(pts) / quant_size).astype(np.int32)
     np.clip(coords_all, -GRID_RADIUS + 1, GRID_RADIUS - 1, out=coords_all)
@@ -70,11 +71,15 @@ def _voxelize_np(points: np.ndarray, quant_size: float, capacity: int):
     return out_coords, out_mask
 
 
+def _voxelize(points: np.ndarray, quant_size: float, capacity: int):
+    return native.voxelize_batch(points, quant_size, capacity, GRID_RADIUS)
+
+
 def batched_from_pointclouds(points: np.ndarray, quant_size: float,
                              capacity: int, device=None) -> SparseVoxels:
     """Metric point clouds [B, P, 3] (NaN-padded) -> quantised, padded
     ``SparseVoxels`` with constant-1 features."""
-    coords, mask = _voxelize_np(points, quant_size, capacity)
+    coords, mask = _voxelize(points, quant_size, capacity)
     feats = mask[..., None].astype(np.float32)
     return SparseVoxels(coords=torch.from_numpy(coords).to(device),
                         feats=torch.from_numpy(feats).to(device),
@@ -114,17 +119,20 @@ def _grid(mask: np.ndarray, stride: int, dtype, device):
                    z=mask.shape[-1], stride=stride)
 
 
-def prepare_query_vox(cfg: Config, pts: np.ndarray, device=None,
+def prepare_query_vox(cfg: Config, pts: np.ndarray, device="cuda",
                       dtype: Optional[torch.dtype] = None):
     """Point clouds [B, P, 3] -> the query tower's voxel input, built on the
-    host.  The live MM + BEV configuration gets the folded occupancy grid
-    (``BEVGrid``); every other configuration the padded ``SparseVoxels``."""
+    host and moved to ``device`` (the card; ``"cpu"`` keeps it on the host,
+    and without a card anything else raises).  The live MM + BEV
+    configuration gets the folded occupancy grid (``BEVGrid``); every other
+    configuration the padded ``SparseVoxels``."""
+    device = resolve_device(device)
     m = cfg.model
     if not (m.modelq == "mm" and m.mm.voxfe_backend == "bev"
             and "vox" in m.mm.output_type):
         return batched_from_pointclouds(pts, cfg.data.quant_size,
                                         cfg.data.vox_max_points, device)
-    coords, mask = _voxelize_np(pts, cfg.data.quant_size,
-                                cfg.data.vox_max_points)
+    coords, mask = _voxelize(pts, cfg.data.quant_size,
+                             cfg.data.vox_max_points)
     return _grid(_raster_np(coords, mask, 1, m.mm.vox_grid_extent), 1,
                  dtype, device)

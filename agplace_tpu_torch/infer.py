@@ -2,9 +2,9 @@
 descriptor closures (``agplace_tpu/models/factory.py`` +
 ``train/step.py:make_infer_fns``).
 
-    mm, db = build_towers(cfg, device="cuda", generator=torch.Generator())
+    mm, db = build_towers(cfg, generator=torch.Generator())  # on the card
     embed_queries, embed_db = make_infer_fns(mm, db)
-    q = embed_queries(images, prepare_query_vox(cfg, points, device))
+    q = embed_queries(images, prepare_query_vox(cfg, points))
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from agplace_tpu.config import Config
+from agplace_tpu_torch.config import Config
+from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.models.dbvanilla2d import DBVanilla2D
 from agplace_tpu_torch.models.mm import MM
 
@@ -52,12 +53,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             p.copy_(torch.randn(p.shape, generator=generator) * std)
 
 
-def build_towers(cfg: Config, device="cpu",
+def build_towers(cfg: Config, device="cuda",
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[MM, DBVanilla2D]:
     """The MM query tower and the DBVanilla2D aerial tower, in eval mode on
-    ``device``; weights are seeded from ``generator`` when given (load real
-    weights with ``utils.convert.load_jax_variables``)."""
+    ``device`` (the card; ``"cpu"`` runs the plain versions, and without a
+    card anything else raises); weights are seeded from ``generator`` when
+    given (load real weights with ``utils.convert.load_jax_variables``)."""
+    device = resolve_device(device)
     if cfg.model.modelq != "mm" or cfg.model.db.modeldb != "vanilla2d":
         raise NotImplementedError("the port serves modelq='mm' with "
                                   "modeldb='vanilla2d'")

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from agplace_tpu.config import DBConfig
+from agplace_tpu_torch.config import DBConfig
 from agplace_tpu_torch.models.image_fe import ImageFE
 from agplace_tpu_torch.models.layers import Dense, LayerNorm, l2n
 from agplace_tpu_torch.models.pooling import GeM

@@ -17,7 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from agplace_tpu.config import ODEConfig
+from agplace_tpu_torch.config import ODEConfig
 from agplace_tpu_torch.models.layers import Conv2d, Dense, LayerNorm
 from agplace_tpu_torch.models.norm import BatchNorm2D
 from agplace_tpu_torch.models.pooling import GeM

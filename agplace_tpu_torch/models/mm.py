@@ -14,7 +14,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from agplace_tpu.config import MMConfig
+from agplace_tpu_torch.config import MMConfig
 from agplace_tpu_torch.models.fusion import (
     FuseBlockToShallow,
     Stage2FuseBlockAdd,

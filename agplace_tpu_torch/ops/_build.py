@@ -32,9 +32,8 @@ _SIGNATURES = {
     "agp_ode_euler": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "agp_bev_down": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
-    "agp_block_conv1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "agp_block_conv2_pool": [_P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
+    # epi, z, then the 17 fields of bev_block_sm.Conv3x3Tiling
+    "agp_conv3x3": [_P] * 7 + [_I] * 19 + [_P],
     "agp_block_eca": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "agp_block_combine_ds": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
@@ -68,6 +67,12 @@ def _nvcc() -> str:
                        "are built from source with nvcc (CUDA toolkit)")
 
 
+def nvcc_cmd(*args: str) -> list:
+    """An nvcc command with the port's flags (sm_90a, C++17, -O3, PIC)."""
+    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            *args]
+
+
 def build(force: bool = False) -> str:
     """Compile the kernels if the library is missing or stale; returns its
     path.  Raises RuntimeError when nvcc is missing or the build fails."""
@@ -83,14 +88,11 @@ def build(force: bool = False) -> str:
     objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
             for s in cus]
     tmp = f"{LIB_PATH}.{tag}"
-    compiles = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
-                 "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", o, s]
+    compiles = [nvcc_cmd("-c", "-Xptxas", "-v", "-o", o, s)
                 for s, o in zip(cus, objs)]
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     try:
-        # subprocess.run kills its own nvcc on a timeout
-        with ThreadPoolExecutor(len(compiles)) as pool:
-            done = list(pool.map(_run, compiles))
+        done = run_all(compiles)
         _run(link)
         with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
             f.write("".join(done))
@@ -100,6 +102,13 @@ def build(force: bool = False) -> str:
             if os.path.exists(path):
                 os.unlink(path)
     return LIB_PATH
+
+
+def run_all(cmds) -> list:
+    """Run build commands all at once; their stderr, or raise.
+    subprocess.run kills its own nvcc on a timeout."""
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        return list(pool.map(_run, cmds))
 
 
 def _run(cmd) -> str:

@@ -102,7 +102,7 @@ def fused_eca_block_concat(x, mask, w1, w2, scale1, bias1, scale2, bias2,
                                       bias2, w_eca, z, wd, scale_d, bias_d,
                                       chunk)
     b, xd, yd, zci, zco = bev_block_sm.check_block_args(
-        "fused_eca_block_concat", x, w1, w2, z, wd)
+        "fused_eca_block_concat", x, w1, w2, z, wd, 32, 32)
     _build.check(smem_bytes(chunk) <= SMEM_LIMIT,
                  f"fused_eca_block_concat: chunk {chunk} needs "
                  f"{smem_bytes(chunk)} bytes of shared memory")

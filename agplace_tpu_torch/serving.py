@@ -1,8 +1,8 @@
 """Serving: a place-recognition index (``agplace_tpu/serving.py``), limited
 to the fp32 single-device gallery.
 
-    mm, db = build_towers(cfg, device="cuda", generator=g)  # or converted
-    idx = PlaceIndex(cfg, (mm, db), device="cuda")
+    mm, db = build_towers(cfg, generator=g)      # on the card, or converted
+    idx = PlaceIndex(cfg, (mm, db))
     idx.add_tiles(ds)                            # embed + index the gallery
     d, i = idx.search(images, points, k=5)       # (sq distances, indices)
 
@@ -19,8 +19,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from agplace_tpu.config import Config
+from agplace_tpu_torch.config import Config
 from agplace_tpu_torch.data.voxels import prepare_query_vox
+from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
 from agplace_tpu_torch.retrieval.knn import l2_topk_blocked
 
@@ -31,14 +32,15 @@ class PlaceIndex:
     def __init__(self, cfg: Config, towers=None, device=None):
         """``towers``: (MM, DBVanilla2D) from ``infer.build_towers``, or
         None for a search-only index.  ``device`` defaults to the towers'
-        device (else the CPU)."""
+        device, and for a search-only index to the card (``"cpu"`` keeps
+        it on the CPU; without a card anything else raises)."""
         self.cfg = cfg
         if towers is None:
             self._embed_q = self._embed_db = None
-            self.device = torch.device(device or "cpu")
+            self.device = resolve_device(device)
         else:
             self._embed_q, self._embed_db = make_infer_fns(*towers)
-            self.device = torch.device(
+            self.device = resolve_device(
                 device or next(towers[0].parameters()).device)
         self._parts: list = []  # host fp32 [n_i, C]
         self._pos_parts: list = []  # [n_i, 2] UTM east/north, or None

@@ -16,11 +16,16 @@ K6 has no path; only its parity is checked.
 
 1. device check (raises without CUDA) and the card's name / power limit;
 2. kernel build from ``agplace_tpu_torch/csrc`` (one nvcc per source, in
-   parallel, sm_90a);
+   parallel, sm_90a), and a check that the library holds wgmma (``HGMMA``
+   in ``cuobjdump -sass``: K3's conv phases);
 3. [parity] each kernel against its plain PyTorch version on the card at
    its main-path shapes, with CUDA-event timings of both (median of 20):
-   K1; K2, K4 and P2 at [32,128,128,4]; K3 at four block shapes, and P1 at
-   the same four at chunks 1, 3 and 9; K5 at [32,128,128,64] and
+   K1; K2, K4 and P2 at [32,128,128,4]; K3 at its four block shapes at b32
+   and b128, each of its two conv phases also against its plain version
+   and timed beside a cuDNN yardstick (``F.conv2d``, bf16, channels_last,
+   the conv alone; 10 calls queued per timing), with TFLOP/s and share of
+   bound; P1 at
+   K3's four b32 shapes at chunks 1, 3 and 9; K5 at [32,128,128,64] and
    [128,128,128,64] plus an all-negative case; K6 at [32,64,64,128] and
    [32,16,16,512].  A bf16 kernel may differ from its plain version
    (isolated ulp flips of the summation order) in at most 1e-3 (K2, K4,
@@ -49,7 +54,10 @@ K6 has no path; only its parity is checked.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
 JSON record (``launches`` summed over the three paths, split in
-``launches_by_path``), the last line ``{"ok": true, "device": {...}}``.
+``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
+inputs by ``bound``; ``library_ms`` the cuDNN conv yardstick for K3's conv
+phases, null for the kernels no single PyTorch call computes), the last
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -89,6 +97,13 @@ KBF16_TOL = dict(rtol=2e-2, atol=1e-2, mean=1e-4, frac=0.15)
 # exact in fp32, so only the down0 sum order differs: 0 to 5.7e-5 of the
 # non-zero outputs (H100, measured); K2's rounding points in K4: 0.69.
 KSTAGE0_TOL = dict(KBF16_TOL, frac=1e-3)
+# One K3 conv phase against its plain version: the same rounding points,
+# another summation order, so only isolated 1-ulp flips (2.1e-5 to 9.8e-4
+# of the non-zero outputs at the main-path shapes on an H100 80GB HBM3);
+# the masked pool sums those values in fp32 in another order (within
+# 1.3e-4 of its largest magnitude there).
+KCONV_TOL = dict(KBF16_TOL, frac=1e-2)
+KPOOL_TOL = dict(rtol=0.0, atol=5e-3, mean=5e-4, frac=1.0)
 # K5: the same fp32 multiply and add, one round, an exact max: bit-equal
 EXACT = dict(rtol=0.0, atol=0.0, mean=0.0, frac=0.0)
 # K4 against K2 and K6 against K3's plain version (not a kernel and its
@@ -102,6 +117,13 @@ ROUNDING_MIN_DIFFER = 0.25
 # GPU (kernels, cuDNN bf16) vs CPU (plain versions) embeddings: bf16 flips
 # propagate through ~30 layers; bound the error by the embedding's scale
 SLICE_TOL = 5e-2
+# The least time of a kernel's work (``bound``): the larger of its
+# operations over the card's peak for their type and its bytes (each input
+# read once, each output written once) over the memory rate.  Published
+# dense peaks of one H100 SXM at 700 W: bf16 tensor cores, fp32 outside
+# them, HBM3.  Convolutions count the products of the 3-D convs
+# (``conv_flops``), not the folded kernels' structural zeros.
+PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 
 
 def log(*a):
@@ -133,6 +155,16 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, n: int = 10) -> float:
+    """Device ms per call of ``fn`` with ``n`` calls queued back to back
+    between two events (median of 20): the host's enqueue overlaps the
+    device's work, so a kernel of 0.05 ms or more is timed by the device."""
+    def calls():
+        for _ in range(n):
+            fn()
+    return cuda_ms(calls) / n
+
+
 def lidar(rng, n: int) -> np.ndarray:
     """Spinning-scanner clouds (HDL-64 elevation FOV, log-uniform range to
     100 m, ground truncation at sensor height) as ``bench.py`` makes them."""
@@ -143,6 +175,50 @@ def lidar(rng, n: int) -> np.ndarray:
                      r * np.cos(elev) * np.sin(az),
                      np.maximum(r * np.sin(elev), -1.73)],
                     axis=-1).astype(np.float32)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, n_bytes: int, peak: float = PEAK_BF16) -> dict:
+    """The least time in ms for ``flops`` operations at ``peak`` and
+    ``n_bytes`` at the memory rate, and which of the two sets it."""
+    ops_ms, bytes_ms = flops / peak * 1e3, n_bytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def conv_flops(cells: int, w, z_in: int, z_out: int) -> float:
+    """2 x output cells x the products of the 3-D conv whose folded kernel
+    is ``w`` [k, k, z_in*cin, z_out*cout].  The fold holds a k*k*cin*cout
+    block for each (zi, zo) pair the 3-D kernel reaches and zeros elsewhere
+    (at z_in = 4: 14 of 16 blocks for conv0's 5 taps, 4 of 8 for down0's
+    z pairing; at z = 2 the 3x3x3 kernels are dense, the 1x1 residual 2 of
+    4); only the non-zero blocks are work."""
+    k1, k2, zci, zco = w.shape
+    blocks = w.reshape(k1 * k2, z_in, zci // z_in, z_out, zco // z_out)
+    live = int((blocks.ne(0).sum(dim=(0, 2, 4)) > 0).sum())
+    return 2.0 * cells * live * k1 * k2 * (zci // z_in) * (zco // z_out)
+
+
+def block_bound(x, mask, w1, w2, s1, b1, s2, b2, w_eca, z, wd=None,
+                scale_d=None, bias_d=None) -> dict:
+    """An ECA block's bound (K3, K6, P1): its convs' operations against x,
+    the mask, the parameters and the output once."""
+    extra = () if wd is None else (wd, scale_d, bias_d)
+    cells = x.shape[0] * x.shape[1] * x.shape[2]
+    out_bytes = cells * w2.shape[3] * 2
+    return bound(sum(conv_flops(cells, w, z, z) for w in (w1, w2)
+                     + extra[:1]),
+                 nbytes(x, mask, w1, w2, s1, b1, s2, b2, w_eca, *extra)
+                 + out_bytes)
+
+
+def add_bound(rec: dict, other: dict) -> None:
+    """Sum the bounds of several shapes into ``rec``."""
+    rec["bound_ms"] = rec.get("bound_ms", 0.0) + other["bound_ms"]
+    rec["bound_by"] = other["bound_by"]
 
 
 def differ(got, want) -> float:
@@ -206,10 +282,61 @@ def phase_build():
         for line in f:
             if "Used" in line or "spill" in line and "0 bytes" not in line:
                 log("  ptxas:", line.strip())
+    sass = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()),
+                                        "cuobjdump"), "-sass",
+                           _build.LIB_PATH], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    n_hgmma = sass.count("HGMMA")
+    log(f"[build] cuobjdump -sass: {n_hgmma} HGMMA (wgmma) instructions")
+    if n_hgmma == 0:
+        raise AssertionError("the kernel library holds no wgmma")
 
 
-def phase_parity(dev, masks):
-    """Each kernel vs its plain version at its main-path shapes (b32)."""
+def conv_phases(name, args, z):
+    """K3's two conv phases at one block shape, each against its plain
+    version (the same conv + BN epilogue in PyTorch), timed beside the
+    cuDNN yardstick: ``F.conv2d`` in bf16, channels_last, on the same folded
+    weights (the conv alone; the port never calls it)."""
+    import torch.nn.functional as F
+    from agplace_tpu_torch.ops import bev_block_sm
+
+    x, mask, w1, w2, s1, b1, s2, b2 = args[:8]
+    cells = x.shape[0] * x.shape[1] * x.shape[2]
+    h = bev_block_sm.conv_phase(x, mask, w1, s1, b1, z, pool=False)
+    h_want = bev_block_sm.conv_phase_plain(x, mask, w1, s1, b1, z, False)
+    g, pool = bev_block_sm.conv_phase(h, mask, w2, s2, b2, z, pool=True)
+    g_want, pool_want = bev_block_sm.conv_phase_plain(h, mask, w2, s2, b2,
+                                                      z, True)
+    compare(f"K3 conv phase 1 {name}", h, h_want, KCONV_TOL)
+    compare(f"K3 conv phase 2 {name}", g, g_want, KCONV_TOL)
+    compare(f"K3 conv phase 2 pool {name}", pool, pool_want, KPOOL_TOL)
+    out = {}
+    for label, src, w, s, b, pool_ in (("conv1", x, w1, s1, b1, False),
+                                       ("conv2_pool", h, w2, s2, b2, True)):
+        wb = w.to(torch.bfloat16)  # the model's folded weights are bf16
+        ms = queued_ms(lambda: bev_block_sm.conv_phase(src, mask, wb, s, b,
+                                                       z, pool=pool_))
+        xc = src.permute(0, 3, 1, 2)  # NHWC storage: channels_last NCHW
+        wc = wb.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        cudnn = queued_ms(lambda: F.conv2d(xc, wc, padding=1))
+        flops = conv_flops(cells, w, z, z)
+        outs = cells * w.shape[3] * 2 + (x.shape[0] * w.shape[3] * 4
+                                         if pool_ else 0)
+        bnd = bound(flops, nbytes(src, mask, w, s, b) + outs)
+        out[label] = dict(ms=ms, cudnn_ms=cudnn, tflops=flops / ms / 1e9,
+                          share_of_bound=bnd["bound_ms"] / ms, **bnd)
+        log(f"  K3 {label} {name}: {ms:.4f} ms = {flops / ms / 1e9:.1f} "
+            f"TFLOP/s ({100 * flops / ms / 1e9 / (PEAK_BF16 / 1e12):.1f} % "
+            f"of the bf16 peak), bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}; cuDNN "
+            f"conv alone {cudnn:.4f} ms = {flops / cudnn / 1e9:.1f} TFLOP/s")
+    return out
+
+
+def phase_parity(dev, masks, masks128):
+    """Each kernel vs its plain version at its main-path shapes (b32; K3
+    also at b128)."""
     from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
                                        bev_head, ode_step, probe_block_sm_v2,
                                        probe_down_v2, stem_pool)
@@ -244,6 +371,9 @@ def phase_parity(dev, masks):
             k1.update(ms=ms, plain_ms=pms)
         k1["max_abs_err"] = max(k1["max_abs_err"], rec["max_abs_err"])
         k1["frac_differ"] = max(k1["frac_differ"], rec["frac_differ"])
+    # 10 steps of x @ W (fp32, outside the tensor cores); x, W, b read once
+    k1.update(bound(10 * 2.0 * x.shape[0] * w.numel(), nbytes(x, w, b, x),
+                    PEAK_FP32), library_ms=None)
     results["fused_euler_ode"] = k1
 
     # K2 at b32 KITTI: [32,128,128,4] occupancy, conv0 5x5 -> 4x64, down0
@@ -265,6 +395,14 @@ def phase_parity(dev, masks):
                                                                  z=z0))
     log(f"  K2: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
         f"(both include the cuDNN conv0)")
+    # the stage's work: conv0 over every full-resolution cell, down0 over
+    # every output cell; the occupancy grid in, the output map and mask out
+    stage0 = bound(conv_flops(m0.shape[0] * m0.shape[1] * m0.shape[2],
+                              args[2], z0, z0)
+                   + conv_flops(out.shape[0] * out.shape[1] * out.shape[2],
+                                args[5], z0, 2),
+                   nbytes(*args, out, mo))
+    rec.update(stage0, library_ms=None)
     results["fused_conv0_down0"] = rec
 
     # K4 on K2's inputs: conv0 inside the kernel, fp32 epilogues
@@ -279,6 +417,7 @@ def phase_parity(dev, masks):
     log(f"  K4: kernel {rec['ms']:.4f} ms (conv0 inside), plain "
         f"{rec['plain_ms']:.4f} ms (fp32 cuDNN convs)")
     rec["vs_k2"] = rounding_apart("K4 vs K2", out4, out)
+    rec.update(stage0, library_ms=None)  # K2's function
     results["fused_head"] = rec
 
     # P2 on K2's inputs: four parity convs, one concat GEMM, K2's rounding
@@ -296,6 +435,7 @@ def phase_parity(dev, masks):
         *args, z=z0))
     log(f"  P2: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
         f"(both include the four cuDNN parity convs)")
+    rec.update(stage0, library_ms=None)  # K2's function
     results["fused_down_concat"] = rec
 
     # K5: the stem conv output at b32 and b128 (256 px images)
@@ -319,28 +459,19 @@ def phase_parity(dev, masks):
         ms = cuda_ms(lambda: stem_pool.fused_affine_relu_maxpool(x, sc, bi))
         pms = cuda_ms(lambda: stem_pool.stem_pool_plain(x, sc, bi))
         log(f"  K5 b{bsz}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        if bsz == b32:
-            k5 = dict(rec, ms=ms, plain_ms=pms)
+        if bsz == b32:  # bytes: the map in, the pooled map out
+            k5 = dict(rec, ms=ms, plain_ms=pms, library_ms=None,
+                      **bound(0.0, nbytes(x, sc, bi) + x.numel() // 2))
     results["fused_affine_relu_maxpool"] = k5
 
-    # K3 at the four slice shapes (z = 2 after down0), and P1 on K3's
+    # K3 at the four slice shapes (z = 2 after down0) and block0 at b128,
+    # each conv phase timed beside its cuDNN yardstick; P1 on K3's b32
     # inputs at each chunk
-    k3 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
-          "frac_differ": 0.0}
-    p1 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
-          "frac_differ": 0.0, "ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
-          "plain_ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
-          "vs_k3_plain_frac_differ": 0.0}
-    for mask, cin, c, name in ((masks[1], 64, 64, "block0_0"),
-                               (masks[2], 64, 128, "block1_0"),
-                               (masks[3], 128, 256, "block2_0"),
-                               (masks[3], 256, 256, "ffn_vox_0")):
-        z = 2
+    def block_args(mask, cin, c, z=2):
         bsz, xy = mask.shape[0], mask.shape[1]
         xin = randn(bsz, xy, xy, z, cin).to(torch.bfloat16)
         xin = torch.where(mask[..., None], xin, 0).reshape(bsz, xy, xy,
                                                            z * cin)
-        k_eca = 3 if c == 64 else 5
         kw = {}
         if cin != c:
             sd, bd = affine(c, z)
@@ -352,8 +483,27 @@ def phase_parity(dev, masks):
                                       std=(2 / (27 * cin)) ** .5), z),
                 fold_w2_stride1(randn(3, 3, 3, c, c,
                                       std=(2 / (27 * c)) ** .5), z),
-                *affine(c, z), *affine(c, z), randn(k_eca))
-        shape = f"[{bsz},{xy},{xy},{z * cin}]->{z * c}"
+                *affine(c, z), *affine(c, z), randn(3 if c == 64 else 5))
+        return args, kw
+
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+          "frac_differ": 0.0, "library_ms": 0.0, "ms_by_shape": {},
+          "conv_phases": {}}
+    p1 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+          "frac_differ": 0.0, "ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
+          "plain_ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
+          "vs_k3_plain_frac_differ": 0.0, "library_ms": None,
+          "chunk3_ms_by_shape": {}}
+    shapes = ((1, 64, 64, "block0_0"), (2, 64, 128, "block1_0"),
+              (3, 128, 256, "block2_0"), (3, 256, 256, "ffn_vox_0"))
+    for mask, cin, c, name in (
+            [(masks[i], cin, c, name) for i, cin, c, name in shapes]
+            + [(masks128[i], cin, c, name + "_b128")
+               for i, cin, c, name in shapes]):
+        z = 2
+        args, kw = block_args(mask, cin, c, z)
+        bsz, xy, zci = args[0].shape[0], args[0].shape[1], args[0].shape[3]
+        shape = f"[{bsz},{xy},{xy},{zci}]->{z * c}"
         k3_plain = bev_block_sm.eca_block_plain(*args, z=z, **kw)
         rec = compare(f"K3 fused_eca_block_sm {name} {shape}",
                       bev_block_sm.fused_eca_block_sm(*args, z=z, **kw),
@@ -362,11 +512,24 @@ def phase_parity(dev, masks):
                                                              **kw))
         pms = cuda_ms(lambda: bev_block_sm.eca_block_plain(*args, z=z,
                                                            **kw))
-        log(f"  K3 {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        k3["ms"] += ms
-        k3["plain_ms"] += pms
+        bnd = block_bound(*args, z, **kw)
+        log(f"  K3 {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share of bound "
+            f"{bnd['bound_ms'] / ms:.3f}")
+        phases = conv_phases(name, args, z)
+        k3["conv_phases"][name] = phases
+        k3["ms_by_shape"][name] = ms
         k3["max_abs_err"] = max(k3["max_abs_err"], rec["max_abs_err"])
         k3["frac_differ"] = max(k3["frac_differ"], rec["frac_differ"])
+        if name.endswith("_b128"):  # not in the b32 sums
+            k3.setdefault("b128", {})[name[:-5]] = dict(ms=ms, plain_ms=pms,
+                                                        **bnd)
+            continue
+        k3["ms"] += ms
+        k3["plain_ms"] += pms
+        k3["library_ms"] += sum(ph["cudnn_ms"] for ph in phases.values())
+        add_bound(k3, bnd)
+        add_bound(p1, bnd)  # P1 computes K3's function
         for ch in CHUNKS:
             kwc = dict(kw, chunk=ch)
             got = probe_block_sm_v2.fused_eca_block_concat(*args, z=z, **kwc)
@@ -382,9 +545,12 @@ def phase_parity(dev, masks):
             pms_c = cuda_ms(lambda: probe_block_sm_v2.eca_block_concat_plain(
                 *args, z=z, **kwc))
             log(f"  P1 chunk {ch} {name}: kernel {ms_c:.4f} ms, plain "
-                f"{pms_c:.4f} ms (K3 kernel {ms:.4f} ms)")
+                f"{pms_c:.4f} ms (K3 kernel {ms:.4f} ms: "
+                f"{'faster' if ms < ms_c else 'NOT faster'})")
             p1["ms_by_chunk"][ch] += ms_c
             p1["plain_ms_by_chunk"][ch] += pms_c
+            if ch == 3:
+                p1["chunk3_ms_by_shape"][name] = ms_c
             p1["max_abs_err"] = max(p1["max_abs_err"], rec["max_abs_err"])
             p1["frac_differ"] = max(p1["frac_differ"], rec["frac_differ"])
             p1["vs_k3_plain_frac_differ"] = max(
@@ -420,6 +586,8 @@ def phase_parity(dev, masks):
         k6["plain_ms"] += pms
         k6["max_abs_err"] = max(k6["max_abs_err"], rec["max_abs_err"])
         k6["frac_differ"] = max(k6["frac_differ"], rec["frac_differ"])
+        add_bound(k6, block_bound(*args, z))
+    k6["library_ms"] = None
     results["fused_eca_block"] = k6
     return results
 
@@ -479,7 +647,7 @@ def phase_serving(cfg, dev, n_tiles, label):
     seed_bn(mm, rng)
     seed_bn(db, rng)
     cpu_mm = copy.deepcopy(mm)
-    idx = PlaceIndex(cfg, (mm.to(dev), db.to(dev)))
+    idx = PlaceIndex(cfg, (mm.to(dev), db.to(dev)), device=dev)
 
     requests = []
     for n in (1, 7, 32):
@@ -531,7 +699,7 @@ def phase_slice_parity(cfg, mm, cpu_mm, requests, dev, label):
         gpu = mm(torch.from_numpy(images).to(dev),
                  prepare_query_vox(cfg, points, dev))["embedding"].cpu()
         cpu = cpu_mm(torch.from_numpy(images),
-                     prepare_query_vox(cfg, points))["embedding"]
+                     prepare_query_vox(cfg, points, "cpu"))["embedding"]
     err = float((gpu - cpu).abs().max())
     scale = float(cpu.abs().max())
     cos = float(torch.nn.functional.cosine_similarity(gpu, cpu).min())
@@ -642,13 +810,14 @@ def main() -> None:
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 compute_dtype="bfloat16"))
     rng = np.random.default_rng(42)
-    m = prepare_query_vox(cfg, lidar(rng, 32), dev).mask
-    masks = [m]
-    for pz in ((0, 0), (1, 1), (1, 1)):  # ME z pairing at z=4, then z=2
-        masks.append(mask_down(masks[-1], (0, 0), (0, 0), pz))
+    masks = {}
+    for bsz in (32, 128):
+        masks[bsz] = [prepare_query_vox(cfg, lidar(rng, bsz), dev).mask]
+        for pz in ((0, 0), (1, 1), (1, 1)):  # ME z pairing at z=4, then 2
+            masks[bsz].append(mask_down(masks[bsz][-1], (0, 0), (0, 0), pz))
     log("[parity] kernel vs plain on the card (b32 main-path shapes)")
     with torch.inference_mode():
-        parity = phase_parity(dev, masks)
+        parity = phase_parity(dev, masks[32], masks[128])
 
     # ---- the default path: K1, K2, K3
     mm, cpu_mm, requests, counts = phase_serving(cfg, dev, N_TILES,
@@ -678,7 +847,7 @@ def main() -> None:
                             "agplace_tpu/ops/pallas/ode_step.py:70"),
         "fused_conv0_down0": ("agplace_tpu_torch/csrc/bev_down.cu",
                               "agplace_tpu/ops/pallas/bev_down.py:108"),
-        "fused_eca_block_sm": ("agplace_tpu_torch/csrc/bev_block_sm.cu",
+        "fused_eca_block_sm": ("agplace_tpu_torch/csrc/conv3x3_sm90.cu",
                                "agplace_tpu/ops/pallas/bev_block_sm.py:175"),
         "fused_head": ("agplace_tpu_torch/csrc/bev_head.cu",
                        "agplace_tpu/ops/pallas/bev_head.py:166"),
@@ -702,10 +871,15 @@ def main() -> None:
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],
-                     "plain_ms": parity[k]["plain_ms"]},
+                     "plain_ms": parity[k]["plain_ms"],
+                     "bound_ms": parity[k]["bound_ms"],
+                     "bound_by": parity[k]["bound_by"],
+                     "library_ms": parity[k]["library_ms"]},
                     **{x: parity[k][x] for x in ("ms_by_chunk",
                                                  "plain_ms_by_chunk",
-                                                 "probe_ab")
+                                                 "chunk3_ms_by_shape",
+                                                 "ms_by_shape", "b128",
+                                                 "conv_phases", "probe_ab")
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

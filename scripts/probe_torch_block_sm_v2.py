@@ -20,7 +20,7 @@ would otherwise stay in the 50 MB L2 between calls).  Prints one JSON line:
 ``chunk``, ``v1_shipped`` and ``v2_concat`` in ms, ``max_abs``,
 ``frac_differ``, ``card``, ``calls`` and, on the card, ``device_ms`` (each
 version's device time by kernel: P1's two halo-tile conv phases against
-K3's two implicit-GEMM ones).  ``run(device, chunk)`` returns the same
+K3's two TMA + wgmma ones).  ``run(device, chunk)`` returns the same
 record; on the CPU the times are None (not measured).
 """
 

@@ -5,7 +5,8 @@ without one; on the card run ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -m cuda``.  The file
 imports no JAX, so it runs on a machine that has only the port's stack.
 Shapes are small but keep the kernels' tile constraints (folded channel
-widths that are multiples of 32).
+widths: K3's conv phases take Zcin in multiples of 64 and Zcout of 128, the
+other kernels multiples of 32).
 """
 
 import dataclasses
@@ -34,6 +35,12 @@ BLOCK_FRAC_DIFFER, STAGE0_FRAC_DIFFER = 0.15, 1e-3
 # other rounding points differ in more than this share (measured: 0.32
 # for K3's in K6, 0.69 for K2's in K4)
 ROUNDING_MIN_DIFFER = 0.25
+# one conv phase of K3 against its plain version: the same rounding points,
+# another summation order (wgmma vs cuDNN), so only isolated 1-ulp flips
+# (measured by chip_smoke.py on an H100 80GB HBM3: 2.1e-5 to 9.8e-4 of the
+# non-zero outputs); the masked pool sums those bf16 values in fp32 in
+# another order (measured: within 1.3e-4 of its largest magnitude)
+CONV_FRAC_DIFFER, POOL_TOL = 1e-2, 5e-3
 
 
 def _frac_differ(got, want):
@@ -142,6 +149,73 @@ def test_k3_kernel_matches_plain(cuda, cin, c, xy):
     mf = mask.repeat_interleave(c, dim=-1)
     assert bool((got[~mf] == 0).all())
     assert bev_block_sm.fused_eca_block_sm.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,c,xy", [(64, 64, 16), (64, 128, 8),
+                                      (128, 256, 8), (128, 256, 4),
+                                      (256, 256, 4), (64, 128, 12)])
+def test_k3_conv_phases_match_plain(cuda, cin, c, xy):
+    """K3's two conv phases (TMA + wgmma) against the plain conv + BN
+    epilogue, at K3's parametrisations and the 8 x 8 and 4 x 4 maps of the
+    MM test (smaller than the 8 x 16 patch); 12 x 12 leaves ragged
+    patches."""
+    z = 2
+    _, args, _ = _block_args(_gen(), cin, c, xy, z, cuda)
+    x, mask, w1, w2, s1, b1, s2, b2 = args[:8]
+    with torch.inference_mode():
+        h = bev_block_sm.conv_phase(x, mask, w1, s1, b1, z, pool=False)
+        h_want = bev_block_sm.conv_phase_plain(x, mask, w1, s1, b1, z, False)
+        g, pool = bev_block_sm.conv_phase(h_want, mask, w2, s2, b2, z,
+                                          pool=True)
+        g_want, pool_want = bev_block_sm.conv_phase_plain(h_want, mask, w2,
+                                                          s2, b2, z, True)
+    _close_bf16(h, h_want, CONV_FRAC_DIFFER)
+    _close_bf16(g, g_want, CONV_FRAC_DIFFER)
+    assert float((pool - pool_want).abs().max()) <= \
+        POOL_TOL * float(pool_want.abs().max())
+
+
+@pytest.mark.cuda
+def test_k3_conv_phase_reads_a_strided_x(cuda):
+    """The tensor maps assume dense rows: ``conv_phase`` makes a strided x
+    dense first, so it gives what the same values give contiguous."""
+    z = 2
+    _, args, _ = _block_args(_gen(), 64, 128, 8, z, cuda)
+    x, mask, w1, _, s1, b1 = args[:6]
+    strided = torch.stack([x, -x], dim=-1)[..., 0]
+    assert not strided.is_contiguous()
+    with torch.inference_mode():
+        got = bev_block_sm.conv_phase(strided, mask, w1, s1, b1, z, False)
+        want = bev_block_sm.conv_phase(x, mask, w1, s1, b1, z, False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k3_item_with_empty_mask_pools_exactly_zero(cuda):
+    z = 2
+    mask, args, kw = _block_args(_gen(), 64, 128, 8, z, cuda)
+    mask[1] = False  # item 1: no occupied cell
+    x = torch.where(mask.repeat_interleave(64, dim=-1), args[0], 0)
+    args = (x, mask, *args[2:])
+    with torch.inference_mode():
+        h = bev_block_sm.conv_phase(x, mask, *args[2:3], *args[4:6], z,
+                                    pool=False)
+        _, pool = bev_block_sm.conv_phase(h, mask, args[3], *args[6:8], z,
+                                          pool=True)
+        out = bev_block_sm.fused_eca_block_sm(*args, z=z, **kw)
+    assert bool((pool[1] == 0).all()) and bool((pool[0] != 0).any())
+    assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_k3_kernel_raises_on_widths_off_its_tiles(cuda):
+    # Zcin = 96: a multiple of 32 (the old rule) but not of the 64-channel
+    # TMA slab; Zcout = 192: not a multiple of the 128-channel tile
+    for cin, c in ((48, 64), (64, 96)):
+        _, args, kw = _block_args(_gen(), cin, c, 8, 2, cuda)
+        with pytest.raises(ValueError, match="multiples of the kernel's"):
+            bev_block_sm.fused_eca_block_sm(*args, z=2, **kw)
 
 
 @pytest.mark.cuda

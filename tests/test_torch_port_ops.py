@@ -4,7 +4,8 @@ On the CPU each wrapper runs its plain PyTorch version; here those are held
 against the JAX Pallas functions run as the JAX tests run them on the CPU
 (interpret mode), at small shapes, from the same numpy inputs.  CPU calls
 must leave the launch counters at 0.  The kernels themselves are compared
-with their plain versions on the card in ``test_torch_port_cuda.py``.
+with their plain versions on the card in ``test_torch_port_cuda.py``; K3's
+conv phases' launch geometry is replayed here on the CPU.
 """
 
 import numpy as np
@@ -156,6 +157,132 @@ def test_k3_plain_matches_pallas(z, cin, c, xy, b):
     mf = np.repeat(mask, c, axis=-1)
     assert np.all(got.float().numpy()[~mf] == 0)
     assert bev_block_sm.fused_eca_block_sm.launches == 0
+
+
+def _tma_box(src, start, box):
+    """A TMA box of ``src`` as the hardware reads it: dims, ``start`` and
+    ``box`` innermost first; cells outside ``src`` (negative or past the
+    end) read zero.  Returns the box outermost first."""
+    out = torch.zeros(box[::-1], dtype=src.dtype)
+    s_src, s_out = [], []
+    for dim, s0, n in zip(src.shape[::-1], start, box):
+        lo, hi = max(s0, 0), max(min(s0 + n, dim), max(s0, 0))
+        s_src.append(slice(lo, hi))
+        s_out.append(slice(lo - s0, hi - s0))
+    out[tuple(s_out[::-1])] = src[tuple(s_src[::-1])]
+    return out
+
+
+@pytest.mark.parametrize("b,xd,yd,zci,zco", [(2, 5, 20, 128, 256),
+                                             (1, 4, 4, 256, 512),
+                                             (2, 8, 8, 128, 128),
+                                             (1, 12, 12, 64, 128)])
+def test_k3_conv_tiling_covers_the_conv(b, xd, yd, zci, zco):
+    """The conv phases' launch geometry (``conv3x3_tiling`` /
+    ``conv3x3_coords``, what the kernel's TMA boxes read) replayed on the
+    CPU: per block and K step one zero-filled x box times two w boxes,
+    accumulated over the steps, gives the 'same' 3x3 conv exactly
+    (small-integer inputs: every sum is exact)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-2, 3, (b, xd, yd, zci), generator=g).double()
+    w = torch.randint(-2, 3, (3, 3, zci, zco), generator=g).double()
+    t = bev_block_sm.conv3x3_tiling(b, xd, yd, zci, zco)
+    assert (t.npx, t.npy) == (-(-xd // 8), -(-yd // 16))
+    assert t.grid == b * t.npx * t.npy * zco // 128
+    assert t.steps == 9 * zci // 64 and t.x_dims == (zci, yd, xd, b)
+    assert t.x_box == (64, 16, 8, 1) and t.w_box == (64, 64)
+    # the kernel takes the geometry as is: 7 pointers, epi, z, the fields
+    assert t.args() == (zci, yd, xd, b, 64, 16, 8, 1, zco, 9 * zci, 64, 64,
+                        t.npx, t.npy, t.ntn, t.steps, t.grid)
+    sig = _build._SIGNATURES["agp_conv3x3"]
+    assert len(sig) == 7 + 2 + len(t.args()) + 1
+    wm = w.reshape(9 * zci, zco)
+    got = torch.full((b, xd, yd, zco), float("nan"), dtype=torch.float64)
+    for blk in range(t.grid):
+        acc = torch.zeros(128, 128, dtype=torch.float64)
+        for step in range(t.steps):
+            xc, wcs = bev_block_sm.conv3x3_coords(t, blk, step)
+            a = _tma_box(x, xc, t.x_box).reshape(128, 64)
+            acc += a @ torch.cat([_tma_box(wm, wc, t.w_box) for wc in wcs],
+                                 dim=1)
+        (_, y0, x0, bb), ((n0, _), _) = bev_block_sm.conv3x3_coords(t, blk, 0)
+        x0, y0 = x0 + 1, y0 + 1  # step 0 is tap (0, 0): offset (-1, -1)
+        nx, ny = min(8, xd - x0), min(16, yd - y0)
+        got[bb, x0:x0 + nx, y0:y0 + ny, n0:n0 + 128] = \
+            acc.reshape(8, 16, 128)[:nx, :ny]
+    want = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    assert torch.equal(got, want.permute(0, 2, 3, 1))
+
+
+def test_k3_width_rule():
+    """K3's conv phases take Zcin in multiples of the 64-channel TMA slab
+    and Zcout in multiples of the 128-channel tile; P1 keeps 32 and 32."""
+    def args(zci, zco):
+        return (torch.zeros(1, 4, 4, zci, dtype=torch.bfloat16),
+                torch.zeros(3, 3, zci, zco), torch.zeros(3, 3, zco, zco))
+
+    assert bev_block_sm.check_block_args("k3", *args(128, 128), 2) == \
+        (1, 4, 4, 128, 128)
+    for zci, zco in ((96, 128), (128, 192), (64, 64)):
+        with pytest.raises(ValueError, match="multiples of the kernel's"):
+            bev_block_sm.check_block_args("k3", *args(zci, zco), 2)
+    assert bev_block_sm.check_block_args("p1", *args(96, 96), 2, None, 32,
+                                         32)[3:] == (96, 96)
+
+
+def _phase_args(zci=128, zco=128, z=2, xy=6, b=2):
+    g = torch.Generator().manual_seed(0)
+    mask = torch.rand(b, xy, xy, z, generator=g) < 0.4
+    x = torch.randn(b, xy, xy, zci, generator=g).to(torch.bfloat16)
+    w = torch.randn(3, 3, zci, zco, generator=g) * 0.05
+    return (x, mask, w, torch.rand(zco, generator=g) + 0.5,
+            torch.randn(zco, generator=g) * 0.1)
+
+
+@pytest.mark.parametrize("pool", [False, True])
+def test_k3_conv_phase_takes_plain_on_cpu(pool):
+    """On CPU tensors ``conv_phase`` is its plain version, even for a
+    strided x, and launches nothing; phase 2's pool is the fp32 masked
+    sum of g."""
+    x, mask, w, s, b = _phase_args()
+    z = 2
+    strided = torch.stack([x, -x], dim=-1)[..., 0]  # non-contiguous, == x
+    ops.reset_launches()
+    got = bev_block_sm.conv_phase(strided, mask, w, s, b, z, pool)
+    want = bev_block_sm.conv_phase_plain(x, mask, w, s, b, z, pool)
+    if pool:
+        g, sums = got
+        assert torch.equal(g, want[0]) and torch.equal(sums, want[1])
+        m = mask.repeat_interleave(g.shape[-1] // z, dim=-1)
+        assert torch.allclose(sums, (g.float() * m).sum(dim=(1, 2)),
+                              rtol=1e-5, atol=1e-4)
+    else:
+        assert torch.equal(got, want)
+    assert sum(ops.launches().values()) == 0
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(x=torch.float32), "bf16 x and bool mask"),
+    (dict(mask=torch.uint8), "bf16 x and bool mask"),
+    (dict(mask_z=4), "conv_phase: x"),
+    (dict(zco=64), "conv_phase: x"),  # phase 2 maps Zcout to Zcout
+    (dict(zci=96, zco=96), "multiples of the kernel's"),
+])
+def test_k3_conv_phase_checks_its_arguments(change, match):
+    """``conv_phase`` rejects, before any dispatch, what its kernel's
+    tensor maps cannot read: a non-bf16 x, a non-bool or misshapen mask, a
+    phase 2 that changes width, widths off the tiles."""
+    x, mask, w, s, b = _phase_args(change.get("zci", 128),
+                                   change.get("zco", 128))
+    if "x" in change:
+        x = x.to(change["x"])
+    if "mask" in change:
+        mask = mask.to(change["mask"])
+    if "mask_z" in change:
+        mask = mask.repeat(1, 1, 1, 2)
+    with pytest.raises(ValueError, match=match):
+        bev_block_sm.conv_phase(x, mask, w, s, b, 2, pool=True)
 
 
 # ----------------------------------------------------------- dispatch rule

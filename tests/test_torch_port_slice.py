@@ -114,7 +114,7 @@ def _tgrid(vox):
 
 def test_host_prep_exactly_equal(world):
     cfg, _, pts, vox, _ = world
-    got = prepare_query_vox(cfg, pts)
+    got = prepare_query_vox(cfg, pts, "cpu")
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(vox.mask))
     np.testing.assert_array_equal(got.feats.numpy(), np.asarray(vox.feats))
     assert (got.z, got.stride) == (vox.z, vox.stride)
@@ -124,7 +124,7 @@ def test_host_prep_exactly_equal(world):
         cfg.model, mm=dataclasses.replace(cfg.model.mm,
                                           voxfe_backend="sparse")))
     want = jax_prepare_query_vox(sparse, pts)
-    got = prepare_query_vox(sparse, pts)
+    got = prepare_query_vox(sparse, pts, "cpu")
     for f in ("coords", "feats", "mask"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)), f)
@@ -132,14 +132,18 @@ def test_host_prep_exactly_equal(world):
 
 @pytest.mark.parametrize("path", ["native", "numpy"])
 def test_host_voxelizer_and_raster_exactly_equal(monkeypatch, path):
-    from agplace_tpu import native
+    from agplace_tpu import native as jax_native
     from agplace_tpu.sparse import bev_grid as jax_bev
     from agplace_tpu.sparse import voxels as jax_vox
+    from agplace_tpu_torch import native
     from agplace_tpu_torch.data import voxels as tv
 
-    if path == "numpy":  # both packages take their numpy fallback
-        monkeypatch.setattr(native, "voxelize_batch_native",
+    if path == "numpy":  # JAX's numpy fallback, the port's plain version
+        monkeypatch.setattr(jax_native, "voxelize_batch_native",
                             lambda *a, **k: None)
+        monkeypatch.setattr(native, "voxelize_batch",
+                            lambda pts, q, cap, radius:
+                            tv.voxelize_plain(pts, q, cap))
     rng = np.random.default_rng(5)
     pts = _points(rng, 3, n=3000)
     pts[0, 2500:] = np.nan  # NaN padding
