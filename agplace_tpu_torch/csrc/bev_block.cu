@@ -67,7 +67,7 @@ extern "C" int agp_block_bm_conv1(const bf16* x, const uint8_t* mask,
                                   int Y, int zc, int z, void* stream) {
   agp::ConvParams p =
       agp::same_conv_params(x, w1, h, B, X, Y, zc, zc, 3, z, s1, b1, mask);
-  return agp::launch_conv<agp::PRO_NONE, agp::EPI_F32_RELU_MASK>(
+  return agp::launch_conv<agp::EPI_F32_RELU_MASK>(
       p, static_cast<cudaStream_t>(stream));
 }
 
@@ -79,7 +79,7 @@ extern "C" int agp_block_bm_conv2_pool(const bf16* h, const uint8_t* mask,
   agp::ConvParams p =
       agp::same_conv_params(h, w2, g, B, X, Y, zc, zc, 3, z, s2, b2, mask);
   p.pool = pool;
-  return agp::launch_conv<agp::PRO_NONE, agp::EPI_F32_POOL>(
+  return agp::launch_conv<agp::EPI_F32_POOL>(
       p, static_cast<cudaStream_t>(stream));
 }
 

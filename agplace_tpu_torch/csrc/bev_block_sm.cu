@@ -82,7 +82,7 @@ extern "C" int agp_block_combine_ds(const bf16* x, const uint8_t* mask,
       agp::same_conv_params(x, wd, out, B, X, Y, zci, zco, 1, z, sd, bd, mask);
   p.g = g;
   p.att = att;
-  return agp::launch_conv<agp::PRO_NONE, agp::EPI_AFFINE_COMBINE>(
+  return agp::launch_conv<agp::EPI_AFFINE_COMBINE>(
       p, static_cast<cudaStream_t>(stream));
 }
 

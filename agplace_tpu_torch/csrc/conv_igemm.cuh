@@ -1,7 +1,6 @@
-// One templated implicit-GEMM convolution with fused prologue/epilogue,
-// shared by the K2 (bev_down.cu), K6 (bev_block.cu) and K3's 1x1 residual
-// combine (bev_block_sm.cu, EPI 2); K4 (bev_head.cu) and P1 use its
-// cp.async helpers.
+// One templated implicit-GEMM convolution with a fused epilogue, shared by
+// K6 (bev_block.cu) and K3's 1x1 residual combine (bev_block_sm.cu, EPI 2);
+// P1 and P2 use its cp.async helpers.
 //
 // Layouts (the port's public layouts): x [B, H, W, Cin] bf16 (NHWC, the
 // z-major fold puts z*C in the channel axis), weights [KH, KW, Cin, Cout]
@@ -14,16 +13,14 @@
 // computes a BM x BN tile with 8 warps (4 x 2), each warp a 32 x 32 patch
 // of nvcuda::wmma bf16 16x16x16 tiles with fp32 accumulation.  The A tile
 // is gathered from x (one 16-byte load per 8 channels; Cin % 32 == 0 keeps
-// a BK slice inside one tap), the B tile from the weight matrix.  Without a
-// prologue both tiles stream through a 3-stage cp.async ring in shared
-// memory, so two K slices are in flight while one feeds the tensor cores;
-// with the prologue (K2's BN0+relu+mask on the A tile) the next slice is
-// fetched into registers while the current one is multiplied.  The fp32
+// a BK slice inside one tap), the B tile from the weight matrix.  Both
+// tiles stream through a 3-stage cp.async ring in shared memory, so two K
+// slices are in flight while one feeds the tensor cores.  The fp32
 // accumulator tile goes through shared memory to an epilogue that works on
 // 8 consecutive output channels per thread (16-byte stores).
 //
-// Rounding points follow the JAX kernels.  The bf16 epilogues (EPI 0, 2,
-// bev_down.py / bev_block_sm.py): the conv result is rounded to bf16, the
+// Rounding points follow the JAX kernels.  The bf16 epilogue (EPI 2,
+// bev_block_sm.py): the conv result is rounded to bf16, the
 // BN eval affine runs in bf16 (one rounding after the multiply, one after
 // the add), relu and the 0/1 mask are exact; scales and biases arrive in
 // fp32 and are rounded to bf16 here, as those Pallas kernels do
@@ -40,9 +37,7 @@
 
 namespace agp {
 
-enum { PRO_NONE = 0, PRO_AFFINE_RELU_MASK = 1 };
 enum {
-  EPI_AFFINE_RELU_MASK = 0,
   EPI_AFFINE_COMBINE = 2,
   EPI_F32_RELU_MASK = 3,  // bf16(relu(acc*s + b) * mask), fp32 affine
   EPI_F32_POOL = 4        // g = bf16(acc*s + b); pool += g * mask
@@ -53,12 +48,6 @@ struct ConvParams {
   const bf16* w;
   bf16* out;
   int B, H, W, Cin, Ho, Wo, Cout, KH, KW, stride, pad;
-  // prologue (PRO_AFFINE_RELU_MASK): per-input-channel BN affine, relu and
-  // the input occupancy mask [B, H, W, in_z]; channel ci lies in z = ci/in_cz
-  const float* pro_scale;
-  const float* pro_bias;
-  const uint8_t* in_mask;
-  int in_z, in_cz;
   // epilogue: per-output-channel BN affine, output mask [B, Ho, Wo, out_z]
   const float* scale;
   const float* bias;
@@ -91,7 +80,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int PRO, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
   using namespace nvcuda;
   constexpr bool kF32 = EPI == EPI_F32_RELU_MASK || EPI == EPI_F32_POOL;
@@ -170,82 +159,36 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
   };
 
   const int KT = K / kBK;
-  if constexpr (PRO == PRO_NONE) {
-    // kStages-deep cp.async ring: tiles kt+1 .. kt+kStages-1 are in flight
-    // while tile kt feeds the tensor cores
-    auto issue = [&](int kt) {
-      bf16* As = ring + (kt % kStages) * kStageElems;
-      bf16* Bs = As + kBM * kLDA;
-      const int k0 = kt * kBK;
-      const int ci0 = k0 % p.Cin;
+  // kStages-deep cp.async ring: tiles kt+1 .. kt+kStages-1 are in flight
+  // while tile kt feeds the tensor cores
+  auto issue = [&](int kt) {
+    bf16* As = ring + (kt % kStages) * kStageElems;
+    bf16* Bs = As + kBM * kLDA;
+    const int k0 = kt * kBK;
+    const int ci0 = k0 % p.Cin;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const long long pix = a_pix(i, k0);
-        cp_async16(As + a_row[i] * kLDA + a_kc[i],
-                   pix >= 0 ? p.x + pix * p.Cin + ci0 + a_kc[i] : p.x,
-                   pix >= 0);
-      }
-      cp_async16(Bs + b_row * kLDB + b_nc, b_ok ? b_src(k0) : p.w, b_ok);
-    };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < KT) issue(s);
-      cp_async_commit();
+    for (int i = 0; i < 2; ++i) {
+      const long long pix = a_pix(i, k0);
+      cp_async16(As + a_row[i] * kLDA + a_kc[i],
+                 pix >= 0 ? p.x + pix * p.Cin + ci0 + a_kc[i] : p.x,
+                 pix >= 0);
     }
-    for (int kt = 0; kt < KT; ++kt) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // tile kt landed; every warp is done with kt-1
-      if (kt + kStages - 1 < KT) issue(kt + kStages - 1);
-      cp_async_commit();
-      const bf16* As = ring + (kt % kStages) * kStageElems;
-      mma_tile(As, As + kBM * kLDA);
-    }
-    cp_async_wait<0>();
-  } else {
-    // the A tile is transformed on the way in (BN0, relu, z-mask), so it
-    // goes through registers: tile kt+1 is fetched while kt is multiplied
-    bf16* As = ring;
-    bf16* Bs = ring + kBM * kLDA;
-    uint4 ra[2], rb;
-    float rmk[2];
-    auto fetch = [&](int k0) {
-      const int ci0 = k0 % p.Cin;
+    cp_async16(Bs + b_row * kLDB + b_nc, b_ok ? b_src(k0) : p.w, b_ok);
+  };
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const long long pix = a_pix(i, k0);
-        ra[i] = make_uint4(0, 0, 0, 0);
-        rmk[i] = 0.0f;
-        if (pix >= 0) {
-          const int ci = ci0 + a_kc[i];
-          ra[i] = *reinterpret_cast<const uint4*>(p.x + pix * p.Cin + ci);
-          rmk[i] = (float)p.in_mask[pix * p.in_z + ci / p.in_cz];
-        }
-      }
-      rb = b_ok ? *reinterpret_cast<const uint4*>(b_src(k0))
-                : make_uint4(0, 0, 0, 0);
-    };
-    fetch(0);
-    for (int kt = 0; kt < KT; ++kt) {
-      const int ci0 = (kt * kBK) % p.Cin;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        bf16* e = reinterpret_cast<bf16*>(&ra[i]);
-        const int ci = ci0 + a_kc[i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float t = rbf(bf2f(e[j]) * rbf(p.pro_scale[ci + j]));
-          t = rbf(t + rbf(p.pro_bias[ci + j]));
-          e[j] = __float2bfloat16_rn(fmaxf(t, 0.0f) * rmk[i]);
-        }
-        *reinterpret_cast<uint4*>(As + a_row[i] * kLDA + a_kc[i]) = ra[i];
-      }
-      *reinterpret_cast<uint4*>(Bs + b_row * kLDB + b_nc) = rb;
-      __syncthreads();
-      if (kt + 1 < KT) fetch((kt + 1) * kBK);
-      mma_tile(As, Bs);
-      __syncthreads();
-    }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) issue(s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt landed; every warp is done with kt-1
+    if (kt + kStages - 1 < KT) issue(kt + kStages - 1);
+    cp_async_commit();
+    const bf16* As = ring + (kt % kStages) * kStageElems;
+    mma_tile(As, As + kBM * kLDA);
+  }
+  cp_async_wait<0>();
   __syncthreads();  // the ring is free: reuse it for the C tile
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -290,7 +233,7 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
     }
     uint4 o;
     bf16* oe = reinterpret_cast<bf16*>(&o);
-    if (EPI == EPI_AFFINE_RELU_MASK || EPI == EPI_F32_RELU_MASK) {
+    if (EPI == EPI_F32_RELU_MASK) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         oe[j] = __float2bfloat16_rn(fmaxf(v[j], 0.0f) * mk);
@@ -384,11 +327,11 @@ inline ConvParams same_conv_params(const bf16* x, const bf16* w, bf16* out,
 }
 
 // Launch helper: grid over (M tiles, N tiles) on `stream`.
-template <int PRO, int EPI>
+template <int EPI>
 cudaError_t launch_conv(const ConvParams& p, cudaStream_t stream) {
   const int M = p.B * p.Ho * p.Wo;
   dim3 grid((M + kBM - 1) / kBM, (p.Cout + kBN - 1) / kBN);
-  conv_igemm_kernel<PRO, EPI><<<grid, kNT, 0, stream>>>(p);
+  conv_igemm_kernel<EPI><<<grid, kNT, 0, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -2,9 +2,11 @@
 + mask, with the full-resolution conv0 activation never written.
 
 Port of ``agplace_tpu/ops/pallas/bev_head.py:fused_head``.  The CUDA kernel
-(``csrc/bev_head.cu``) computes conv0 itself, as an implicit GEMM over the
-occupancy grid, one output parity at a time, keeps each parity's
-activation in shared memory and feeds it straight into the down0 GEMM.
+(``csrc/bev_head.cu``, TMA + wgmma) computes conv0 itself, per output patch
+from one input halo and one output parity at a time, and feeds each chunk
+of the parity's activation from registers straight into the down0 MMA.
+``head_tiling`` is its launch geometry, its one source; ``head_coords`` and
+``head_im2col`` replay its TMA boxes and its im2col on the CPU.
 
 ``head_plain`` is the plain version, with the TPU kernel's rounding
 (``bev_head.py:146-163``): conv0 accumulated in fp32, the BN0 affine in
@@ -17,10 +19,13 @@ two differ by isolated bf16 ulps and neither is the other's plain version.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Tuple
+
 import torch
 
 from agplace_tpu_torch.data.voxels import me_down_align
-from agplace_tpu_torch.ops import _build
+from agplace_tpu_torch.ops import _build, bev_down
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -44,10 +49,136 @@ def head_plain(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     return bg.mask_bev(d, mask_out, zo).to(_BF16), mask_out
 
 
-# the kernel's tiles (csrc/bev_head.cu): conv0 depth k0*k0*Z*C0 padded to
-# a multiple of 16 and at most 128; Z*C1 in {64, 128, 192, 256} and Zo*C2
-# in {64, 128}, with C1 and C2 multiples of 8
-_K0_MAX = 128
+# The kernel's tiles (csrc/bev_head.cu): conv0 k0 in (3, 5) over Z*C0 = 4
+# channels (a cell is 8 bytes of the halo), its depth 4*k0*k0 padded to KP
+# = 64 or 128; the down0 half takes K2's rule (bev_down.check_down0_args)
+# with Z*C1 up to 256 (W0 stays in shared memory), Zo*C2 = 128 (down0's
+# accumulator stays in registers across the four parities) and z <= 4 (Z*C0
+# = 4 channels).  A block owns the 8 x 16 output patch of K2's GEMM; one
+# block per SM (204 KB of shared memory).
+ZC0, MAX_ZC1, MAX_Z = 4, 256, 4
+PATCH_X, PATCH_Y, BLOCK_N, SLAB = 8, 16, 128, 64
+# The halo starts HALO_LEAD cells before the patch along y for every k0
+# (its inner TMA coordinate stays 16-byte aligned), k0 // 2 rows along x
+HALO_LEAD = 2
+
+
+@dataclass(frozen=True)
+class HeadTiling:
+    """Launch geometry of K4 over feats [B, X, Y, 4] with w0 [k0, k0, 4,
+    Z*C1] and wd [2, 2, Z*C1, 128], as the kernel takes it (``args``).  Tile
+    ``i`` is (b * npx + xp) * npy + yp, as K2's; block j takes tiles j, j +
+    grid, ...  Tensor-map dims and boxes are innermost first; the halo box
+    is (x_box[0] / 4 cells of 4 channels, x_box[1] rows)."""
+
+    x_dims: Tuple[int, int, int]  # (Y*4, X, B): feats as [B, X, Y*4]
+    x_box: Tuple[int, int, int]  # ((32 + 2 HALO_LEAD) * 4, 16 + 2h, 1)
+    w0_dims: Tuple[int, int]  # (Z*C1, KP): the zero-padded im2col weight
+    w0_box: Tuple[int, int]  # (64, SLAB)
+    wd_dims: Tuple[int, int]  # (128, 4 * Z*C1)
+    wd_box: Tuple[int, int]  # (64, 64)
+    npx: int
+    npy: int
+    steps: int  # wd ring steps per tile: 4 parities x Z*C1 / 64 chunks
+    tiles: int
+    grid: int
+
+    def args(self) -> Tuple[int, ...]:
+        return (*self.x_dims, *self.x_box, *self.w0_dims, *self.w0_box,
+                *self.wd_dims, *self.wd_box, self.npx, self.npy, self.steps,
+                self.tiles, self.grid)
+
+
+def head_depth(k0: int) -> int:
+    """conv0's im2col depth 4*k0*k0 padded to a multiple of the slab."""
+    return -(-ZC0 * k0 * k0 // SLAB) * SLAB
+
+
+def head_tiling(b: int, x: int, y: int, k0: int, zc1: int, zc2: int,
+                sms: int) -> HeadTiling:
+    """The persistent grid of one block per SM (``sms``: the card's SM
+    count)."""
+    h = k0 // 2
+    xo, yo = x // 2, y // 2
+    npx, npy = -(-xo // PATCH_X), -(-yo // PATCH_Y)
+    tiles = b * npx * npy
+    box0 = (2 * PATCH_Y + 2 * HALO_LEAD) * ZC0
+    return HeadTiling((y * ZC0, x, b), (box0, 2 * PATCH_X + 2 * h, 1),
+                      (zc1, head_depth(k0)), (64, SLAB), (zc2, 4 * zc1),
+                      (64, 64), npx, npy, 4 * zc1 // 64, tiles,
+                      min(tiles, sms))
+
+
+def head_coords(t: HeadTiling, tile: int, k0: int):
+    """The halo box of tile ``tile`` at ((2 yo0 - HALO_LEAD) * 4, 2 xo0 -
+    h, b) (negative or past the map: zeros), and the wd boxes of ring step
+    i at (0, 64 i) and (64, 64 i); returns (halo start, (xo0, yo0, b))."""
+    h = k0 // 2
+    yp, r = tile % t.npy, tile // t.npy
+    xp, b = r % t.npx, r // t.npx
+    xo0, yo0 = xp * PATCH_X, yp * PATCH_Y
+    return ((2 * yo0 - HALO_LEAD) * ZC0, 2 * xo0 - h, b), (xo0, yo0, b)
+
+
+def head_im2col(k0: int, row: int, par: int, t: int):
+    """Where the kernel's im2col puts tap ``t`` = a*k0 + bb of GEMM row
+    ``row`` (patch cell (row // 16, row % 16)) at parity ``par`` = 2 dx +
+    dy: (halo row, halo cell, im2col slab, 16-byte chunk before the
+    swizzle, byte offset in the chunk).  The 4 channels at columns 4t ..
+    4t + 3 are halo cell (2 xi + dx + a, 2 yi + dy + bb + HALO_LEAD -
+    k0 // 2)."""
+    xi, yi = divmod(row, PATCH_Y)
+    dx, dy = divmod(par, 2)
+    a, bb = divmod(t, k0)
+    return (2 * xi + dx + a, 2 * yi + dy + bb + HALO_LEAD - k0 // 2,
+            t // 16, (t % 16) // 2, (t & 1) * 8)
+
+
+def check_head_args(x: int, y: int, zc0: int, k0: int, zc1: int, zc2: int,
+                    z: int):
+    """K4's shape rule: conv0 over Z*C0 = 4 channels with k0 in (3, 5),
+    K2's down0 rule with Z*C1 up to 256, Zo*C2 = 128 and z <= 4."""
+    _build.check(zc0 == ZC0 and k0 in (3, 5) and zc1 <= MAX_ZC1,
+                 f"fused_head: conv0 k0={k0} over Z*C0={zc0} -> Z*C1={zc1} "
+                 f"outside the kernel's tiles (Z*C0 = {ZC0}, k0 in (3, 5), "
+                 f"Z*C1 <= {MAX_ZC1})")
+    bev_down.check_down0_args("fused_head", x, y, zc1, zc2, z,
+                              max_zc1=MAX_ZC1, max_zc2=BLOCK_N, max_z=MAX_Z)
+
+
+def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
+              bias_d, mask_out, *, z: int):
+    """K4's kernel on the card (``head_plain`` on the CPU) with the output
+    mask precomputed: ``fused_head``'s arguments and mask_out [B,X/2,Y/2,Zo]
+    bool.  Returns [B,X/2,Y/2,Zo*C2] bf16."""
+    b, x, y, zc0 = feats.shape
+    k0 = int(w0_folded.shape[0])
+    zc1, zc2 = int(w0_folded.shape[3]), int(wd_folded.shape[3])
+    check_head_args(x, y, zc0, k0, zc1, zc2, z)
+    _build.check(tuple(w0_folded.shape) == (k0, k0, zc0, zc1)
+                 and tuple(wd_folded.shape) == (2, 2, zc1, zc2),
+                 f"fused_head: w0 {tuple(w0_folded.shape)} wd "
+                 f"{tuple(wd_folded.shape)}")
+    bev_down.check_down0_tensors("fused_head", mask, scale0, bias0, scale_d,
+                                 bias_d, mask_out, b, x, y, zc1, zc2, z)
+    ins = (feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
+           bias_d, mask_out)
+    if not _build.on_cuda(*ins):
+        return head_plain(*ins[:-1], z=z)[0]
+    dev = feats.device
+    kk = k0 * k0 * zc0
+    t = head_tiling(b, x, y, k0, zc1, zc2,
+                    torch.cuda.get_device_properties(dev).multi_processor_count)
+    w0p = torch.zeros((t.w0_dims[1], zc1), dtype=_BF16, device=dev)
+    w0p[:kk] = w0_folded.reshape(kk, zc1)
+    out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16, device=dev)
+    _build.call("agp_bev_head", feats.to(_BF16).contiguous(),
+                mask.contiguous(), w0p, scale0.float().contiguous(),
+                bias0.float().contiguous(), wd_folded.to(_BF16).contiguous(),
+                scale_d.float().contiguous(), bias_d.float().contiguous(),
+                mask_out.contiguous(), out, z, me_down_align(z)[2], k0,
+                *t.args())
+    return out
 
 
 def fused_head(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
@@ -58,7 +189,7 @@ def fused_head(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     (feats [B,X/2,Y/2,Zo*C2] bf16, mask_out [B,X/2,Y/2,Zo]).  Gated on
     either device as the TPU kernel is: k0 odd and <= 5, even X and Y that
     need no ME alignment padding (its parity split pairs (2m, 2m+1))."""
-    b, x, y, zc0 = feats.shape
+    _, x, y, _ = feats.shape
     k0 = int(w0_folded.shape[0])
     _build.check(k0 % 2 == 1 and k0 <= 5,
                  f"fused_head: conv0 kernel size {k0} (odd and <= 5)")
@@ -69,29 +200,9 @@ def fused_head(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
            bias_d)
     if not _build.on_cuda(*ins):
         return head_plain(*ins, z=z)
-    zc1, zc2 = int(w0_folded.shape[3]), int(wd_folded.shape[3])
-    lo_z, hi_z, zo = me_down_align(z)
-    kk = k0 * k0 * zc0
-    kp = -(-kk // 16) * 16
-    _build.check(kp <= _K0_MAX and zc1 % 64 == 0 and zc1 <= 256
-                 and zc2 in (64, 128) and zc1 % (8 * z) == 0
-                 and zc2 % (8 * zo) == 0,
-                 f"fused_head: conv0 depth {kk}, widths {zc1}->{zc2} outside "
-                 f"the kernel's tiles")
-    _build.check(tuple(w0_folded.shape) == (k0, k0, zc0, zc1)
-                 and tuple(wd_folded.shape) == (2, 2, zc1, zc2),
-                 f"fused_head: w0 {tuple(w0_folded.shape)} wd "
-                 f"{tuple(wd_folded.shape)}")
-    dev = feats.device
-    w0p = torch.zeros((kp, zc1), dtype=_BF16, device=dev)
-    w0p[:kk] = w0_folded.reshape(kk, zc1)
+    lo_z, hi_z, _ = me_down_align(z)
     mask_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
-    out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16, device=dev)
-    _build.call("agp_bev_head", feats.to(_BF16).contiguous(),
-                mask.contiguous(), w0p, scale0.float().contiguous(),
-                bias0.float().contiguous(), wd_folded.to(_BF16).contiguous(),
-                scale_d.float().contiguous(), bias_d.float().contiguous(),
-                mask_out, out, b, x, y, zc0, k0, kp, zc1, z, zc2, zo)
+    out = head_gemm(*ins, mask_out, z=z)
     fused_head.launches += 1
     return out, mask_out
 

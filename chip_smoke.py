@@ -16,11 +16,19 @@ K6 has no path; only its parity is checked.
 
 1. device check (raises without CUDA) and the card's name / power limit;
 2. kernel build from ``agplace_tpu_torch/csrc`` (one nvcc per source, in
-   parallel, sm_90a), and a check that the library holds wgmma (``HGMMA``
-   in ``cuobjdump -sass``: K3's conv phases);
+   parallel, sm_90a), and a check that each wgmma kernel holds ``HGMMA``
+   in ``cuobjdump -sass``, by function: K3's two conv phases, K2's down0
+   GEMM and K4;
 3. [parity] each kernel against its plain PyTorch version on the card at
    its main-path shapes, with CUDA-event timings of both (median of 20):
-   K1; K2, K4 and P2 at [32,128,128,4]; K3 at its four block shapes at b32
+   K1; K2, K4 and P2 at [32,128,128,4], K2 also at z = 8 (the nuScenes
+   and default configs' widths, Zo*C2 = 256); K2's down0 GEMM alone
+   (``down0_gemm``) and K4's kernel alone (``head_gemm``: the output mask
+   precomputed) at b32 and b128, each against its plain version there (10
+   calls queued per timing), with the GEMM's byte-bound share beside a
+   cuDNN yardstick
+   (``F.conv2d`` of down0 alone on the activated map, bf16, channels_last,
+   stride 2) and K4's TFLOP/s; K3 at its four block shapes at b32
    and b128, each of its two conv phases also against its plain version
    and timed beside a cuDNN yardstick (``F.conv2d``, bf16, channels_last,
    the conv alone; 10 calls queued per timing), with TFLOP/s and share of
@@ -56,7 +64,8 @@ Every phase raises on failure.  The second-to-last line is the per-kernel
 JSON record (``launches`` summed over the three paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the cuDNN conv yardstick for K3's conv
-phases, null for the kernels no single PyTorch call computes), the last
+phases and K2's down0 GEMM, null for the kernels no single PyTorch call
+computes), the last
 line ``{"ok": true, "device": {...}}``.
 """
 
@@ -124,6 +133,11 @@ SLICE_TOL = 5e-2
 # them, HBM3.  Convolutions count the products of the 3-D convs
 # (``conv_flops``), not the folded kernels' structural zeros.
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# The wgmma kernels, by a part of their mangled names: each must hold HGMMA
+SM90_KERNELS = {"K3 conv phase 1": "conv3x3_sm90_kernelILi0E",
+                "K3 conv phase 2": "conv3x3_sm90_kernelILi1E",
+                "K2 down0 GEMM": "down0_sm90_kernel",
+                "K4 fused head": "head_sm90_kernel"}
 
 
 def log(*a):
@@ -286,10 +300,17 @@ def phase_build():
                                         "cuobjdump"), "-sass",
                            _build.LIB_PATH], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    n_hgmma = sass.count("HGMMA")
-    log(f"[build] cuobjdump -sass: {n_hgmma} HGMMA (wgmma) instructions")
-    if n_hgmma == 0:
-        raise AssertionError("the kernel library holds no wgmma")
+    per_fn = {}
+    for section in sass.split("Function : ")[1:]:
+        fn = section.split(None, 1)[0]
+        per_fn[fn] = section.count("HGMMA")
+    log(f"[build] cuobjdump -sass: {sum(per_fn.values())} HGMMA (wgmma) "
+        f"instructions in {sum(1 for n in per_fn.values() if n)} kernels")
+    for label, key in SM90_KERNELS.items():
+        n = sum(c for fn, c in per_fn.items() if key in fn)
+        log(f"  {label}: {n} HGMMA")
+        if n == 0:
+            raise AssertionError(f"{label} ({key}) holds no wgmma")
 
 
 def conv_phases(name, args, z):
@@ -332,6 +353,79 @@ def conv_phases(name, args, z):
             f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}; cuDNN "
             f"conv alone {cudnn:.4f} ms = {flops / cudnn / 1e9:.1f} TFLOP/s")
     return out
+
+
+def stage0_inputs(args, mask):
+    """K2's / K4's arguments with another occupancy grid (the weights and
+    affines of ``args``)."""
+    return (mask.to(torch.bfloat16), mask, *args[2:])
+
+
+def down0_alone(args, mask, z):
+    """K2's down0 GEMM alone (conv0's output precomputed), held to its plain
+    version and timed with 10 calls queued, beside its byte bound and the
+    cuDNN yardstick: ``F.conv2d`` of down0 on the activated map (BN0 + relu
+    + mask applied beforehand), bf16, channels_last, stride 2."""
+    import torch.nn.functional as F
+    from agplace_tpu_torch.data.voxels import me_down_align
+    from agplace_tpu_torch.ops import bev_down
+    from agplace_tpu_torch.sparse import bev_grid as bg
+
+    feats, mask, w0, s0, b0, wd, sd, bd = stage0_inputs(args, mask)
+    k0 = int(w0.shape[0])
+    g0 = bg.bev_conv2d(feats, w0, 1, (k0 // 2,) * 2,
+                       (k0 // 2,) * 2).contiguous()
+    lo_z, hi_z, _ = me_down_align(z)
+    m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
+    wb = wd.to(torch.bfloat16)
+    gemm_args = (g0, mask, s0, b0, wb, sd, bd, m_out)
+    got = bev_down.down0_gemm(*gemm_args, z=z)
+    want, _ = bev_down.down0_plain(g0, mask, s0, b0, wb, sd, bd, z=z)
+    bsz = g0.shape[0]
+    rec = compare(f"K2 down0 GEMM alone b{bsz}", got, want, KSTAGE0_TOL)
+    ms = queued_ms(lambda: bev_down.down0_gemm(*gemm_args, z=z))
+    h = bg.mask_bev(torch.relu(g0 * s0.to(g0.dtype) + b0.to(g0.dtype)),
+                    mask, z)
+    hc = h.permute(0, 3, 1, 2)  # NHWC storage: channels_last NCHW
+    wc = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    cudnn = queued_ms(lambda: F.conv2d(hc, wc, stride=2))
+    bnd = bound(conv_flops(got.shape[0] * got.shape[1] * got.shape[2], wd,
+                           z, 2),
+                nbytes(g0, mask, s0, b0, wb, sd, bd, m_out, got))
+    log(f"  K2 down0 GEMM alone b{bsz}: {ms:.4f} ms; bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
+        f"{bnd['bound_ms'] / ms:.3f} = {nbytes(g0, got) / ms / 1e9:.2f} TB/s "
+        f"of g in + out; cuDNN down0 alone {cudnn:.4f} ms")
+    return dict(ms=ms, cudnn_ms=cudnn, share_of_bound=bnd["bound_ms"] / ms,
+                max_abs_err=rec["max_abs_err"],
+                frac_differ=rec["frac_differ"], **bnd)
+
+
+def head_alone(args, mask, z):
+    """K4's kernel (``head_gemm``: the output mask precomputed) against its
+    plain version, 10 calls queued per timing: TFLOP/s and share of the
+    bf16 peak (the 3-D convs' products, ``conv_flops``)."""
+    from agplace_tpu_torch.data.voxels import me_down_align
+    from agplace_tpu_torch.ops import bev_head
+    from agplace_tpu_torch.sparse import bev_grid as bg
+
+    ins = stage0_inputs(args, mask)
+    lo_z, hi_z, _ = me_down_align(z)
+    m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
+    bsz = mask.shape[0]
+    rec = compare(f"K4 kernel alone b{bsz}", bev_head.head_gemm(
+        *ins, m_out, z=z), bev_head.head_plain(*ins, z=z)[0], KSTAGE0_TOL)
+    ms = queued_ms(lambda: bev_head.head_gemm(*ins, m_out, z=z))
+    cells = mask.shape[0] * mask.shape[1] * mask.shape[2]
+    flops = (conv_flops(cells, ins[2], z, z)
+             + conv_flops(cells // 4, ins[5], z, 2))
+    tflops = flops / ms / 1e9
+    log(f"  K4 kernel alone b{bsz}: {ms:.4f} ms; {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops / (PEAK_BF16 / 1e12):.1f} % of the bf16 peak")
+    return dict(ms=ms, tflops=tflops,
+                share_of_peak=tflops / (PEAK_BF16 / 1e12),
+                max_abs_err=rec["max_abs_err"],
+                frac_differ=rec["frac_differ"])
 
 
 def phase_parity(dev, masks, masks128):
@@ -402,7 +496,30 @@ def phase_parity(dev, masks, masks128):
                    + conv_flops(out.shape[0] * out.shape[1] * out.shape[2],
                                 args[5], z0, 2),
                    nbytes(*args, out, mo))
-    rec.update(stage0, library_ms=None)
+    rec.update(stage0)
+    rec["gemm"] = {f"b{m.shape[0]}": down0_alone(args, m, z0)
+                   for m in (m0, masks128[0])}
+    rec["library_ms"] = rec["gemm"][f"b{m0.shape[0]}"]["cudnn_ms"]
+    # K2 at the widths of nuscenes_config() and the default config (z = 8:
+    # Z*C1 = 512 -> Zo*C2 = 256, two N tiles a patch), on KITTI's occupancy
+    # doubled along z
+    m8, z8 = m0.repeat_interleave(2, dim=-1), 8
+    args8 = (m8.to(torch.bfloat16), m8,
+             fold_w2_stride1(randn(5, 5, 5, 1, c1, std=0.25), z8),
+             *affine(c1, z8),
+             fold_w2_k2s2(randn(2, 2, 2, c1, c1, std=0.09), z8),
+             *affine(c1, 4))
+    out8, mo8 = bev_down.fused_conv0_down0(*args8, z=z8)
+    ref8, mr8 = bev_down.conv0_down0_plain(*args8, z=z8)
+    if not torch.equal(mo8, mr8):
+        raise AssertionError("K2 z=8 output masks differ")
+    rec["z8"] = compare("K2 fused_conv0_down0 z=8 [32,128,128,8]->"
+                        "[32,64,64,256]", out8, ref8, KSTAGE0_TOL)
+    rec["z8"]["ms"] = cuda_ms(lambda: bev_down.fused_conv0_down0(*args8,
+                                                                 z=z8))
+    log(f"  K2 z=8: kernel {rec['z8']['ms']:.4f} ms (the cuDNN conv0 "
+        f"included)")
+    del args8, out8, ref8
     results["fused_conv0_down0"] = rec
 
     # K4 on K2's inputs: conv0 inside the kernel, fp32 epilogues
@@ -418,6 +535,8 @@ def phase_parity(dev, masks, masks128):
         f"{rec['plain_ms']:.4f} ms (fp32 cuDNN convs)")
     rec["vs_k2"] = rounding_apart("K4 vs K2", out4, out)
     rec.update(stage0, library_ms=None)  # K2's function
+    rec["queued"] = {f"b{m.shape[0]}": head_alone(args, m, z0)
+                     for m in (m0, masks128[0])}
     results["fused_head"] = rec
 
     # P2 on K2's inputs: four parity convs, one concat GEMM, K2's rounding
@@ -879,7 +998,8 @@ def main() -> None:
                                                  "plain_ms_by_chunk",
                                                  "chunk3_ms_by_shape",
                                                  "ms_by_shape", "b128",
-                                                 "conv_phases", "probe_ab")
+                                                 "conv_phases", "probe_ab",
+                                                 "gemm", "queued", "z8")
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

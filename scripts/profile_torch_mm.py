@@ -11,8 +11,8 @@ set).  For each configuration and batch it profiles ``--forwards`` forwards
 after warm-up with ``torch.profiler`` and prints the device ms per forward
 of every hand-written kernel (by template: ``conv3x3_sm90_kernel<EPI>`` is
 K3's conv1 for ``<0>`` and conv2 + pool for ``<1>``;
-``conv_igemm_kernel<PRO, EPI>`` is K2 for ``<1, 0>`` and K3's 1x1 +
-combine for ``<0, 2>``), of each class of library kernels,
+``conv_igemm_kernel<2>`` is K3's 1x1 + combine; ``down0_sm90_kernel`` is
+K2, ``head_sm90_kernel`` K4), of each class of library kernels,
 the device total and the launch count; beside it the unprofiled
 back-to-back ms per forward (CUDA events, median of 5 runs of
 ``--forwards`` forwards), so total / back-to-back is the device's busy
@@ -36,7 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import IMAGE, card, cuda_ms, lidar, seed_bn  # noqa: E402
 
 _OWN = re.compile(r"(conv3x3_sm90_kernel<[^>]*>|conv_igemm_kernel<[^>]*>"
-                  r"|ode_euler_kernel|bev_head_kernel"
+                  r"|ode_euler_kernel|head_sm90_kernel"
+                  r"|down0_sm90_kernel"
                   r"|stem_pool_kernel|eca_kernel|combine_id_kernel"
                   r"|combine_kernel|halo_conv3x3_kernel<[^>]*>"
                   r"|down_concat_kernel)")

@@ -14,7 +14,9 @@ import dataclasses
 import pytest
 import torch
 
-from agplace_tpu_torch import kitti360_config, ops
+from agplace_tpu_torch import kitti360_config, nuscenes_config, ops, \
+    synthetic_config
+from agplace_tpu_torch.data.voxels import me_down_align
 from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
                                    bev_head, ode_step, probe_block_sm_v2,
                                    probe_down_v2, stem_pool)
@@ -93,26 +95,84 @@ def test_k1_kernel_matches_plain(cuda, act):
 
 def _stage0_args(g, b, xy, c1, dev, k0=5, z=4):
     """Occupancy [b, xy, xy, z] as the BEV stage 0's input, conv0 k0 x k0,
-    widths Z*C1 -> 2*C1, from the generator ``g``."""
+    widths Z*C1 -> Zo*C1, from the generator ``g``."""
     mask = (torch.rand(b, xy, xy, z, generator=g) < 0.3).to(dev)
     w0 = fold_w2_stride1(torch.randn(k0, k0, k0, 1, c1, generator=g) * .25, z)
     s0, b0 = _affine(g, c1, z, dev)
     wd = fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .09, z)
     return (mask.to(torch.bfloat16), mask, w0.to(dev), s0, b0, wd.to(dev),
-            *_affine(g, c1, 2, dev))
+            *_affine(g, c1, me_down_align(z)[2], dev))
 
 
 @pytest.mark.cuda
-def test_k2_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("b,xy", [(2, 32), (3, 20), (3, 32), (5, 128)])
+def test_k2_kernel_matches_plain(cuda, b, xy):
+    """KITTI widths (Z*C1 = 256 -> Zo*C2 = 128); 10 x 10 and 16 x 16 output
+    cells leave ragged 8 x 16 patches; 5 x 128 x 128 has 160 tiles, more
+    than the card's SMs, so persistent blocks walk more than one."""
     z = 4
-    args = _stage0_args(_gen(), 2, 32, 64, cuda)
+    args = _stage0_args(_gen(), b, xy, 64, cuda)
     ops.reset_launches()
     with torch.inference_mode():
         got, m1 = bev_down.fused_conv0_down0(*args, z=z)
         want, m2 = bev_down.conv0_down0_plain(*args, z=z)
     assert torch.equal(m1, m2) and got.dtype == torch.bfloat16
     _close_bf16(got, want, STAGE0_FRAC_DIFFER)
+    mf = m1.repeat_interleave(64, dim=-1)
+    assert bool((got[~mf] == 0).all())
     assert bev_down.fused_conv0_down0.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z,b,xy", [(8, 3, 20), (8, 2, 64), (16, 2, 32)])
+def test_k2_kernel_matches_plain_on_wider_maps(cuda, z, b, xy):
+    """The other presets' stage-0 widths, c1 = 64: nuScenes and the default
+    config at z = 8 (Z*C1 = 512 -> Zo*C2 = 256, two N tiles), the
+    synthetic config at z = 16 (1024 -> 512, four N tiles)."""
+    zo = me_down_align(z)[2]
+    args = _stage0_args(_gen(), b, xy, 64, cuda, z=z)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got, m1 = bev_down.fused_conv0_down0(*args, z=z)
+        want, m2 = bev_down.conv0_down0_plain(*args, z=z)
+    assert torch.equal(m1, m2) and got.shape[-1] == zo * 64
+    _close_bf16(got, want, STAGE0_FRAC_DIFFER)
+    mf = m1.repeat_interleave(64, dim=-1)
+    assert bool((got[~mf] == 0).all()) and bool((got != 0).any())
+    assert bev_down.fused_conv0_down0.launches == 1
+
+
+def _conv0(args):
+    """conv0's bare output of the stage-0 arguments, as K2's wrapper
+    computes it."""
+    from agplace_tpu_torch.sparse.bev_grid import bev_conv2d
+
+    k0 = int(args[2].shape[0])
+    return bev_conv2d(args[0], args[2], 1, (k0 // 2,) * 2,
+                      (k0 // 2,) * 2).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k2", "k4"])
+def test_stage0_item_with_empty_mask_gives_exact_zeros(cuda, kernel):
+    z = 4
+    args = _stage0_args(_gen(), 3, 20, 64, cuda)
+    mask = args[1].clone()
+    mask[1] = False  # item 1: no occupied cell
+    args = (mask.to(torch.bfloat16), mask, *args[2:])
+    fn = bev_down.fused_conv0_down0 if kernel == "k2" else bev_head.fused_head
+    with torch.inference_mode():
+        out, _ = fn(*args, z=z)
+    assert bool((out[1] == 0).all()) and bool((out[0] != 0).any())
+
+
+@pytest.mark.cuda
+def test_stage0_kernels_raise_on_widths_off_their_tiles(cuda):
+    # c1 = 32 at z = 4: Z*C1 = 128 -> Zo*C2 = 64, not the 128-channel tile
+    args = _stage0_args(_gen(), 2, 16, 32, cuda, 3)
+    for fn in (bev_down.fused_conv0_down0, bev_head.fused_head):
+        with pytest.raises(ValueError, match="outside the kernel's tiles"):
+            fn(*args, z=4)
 
 
 def _block_args(g, cin, c, xy, z, dev, b=3):
@@ -220,11 +280,12 @@ def test_k3_kernel_raises_on_widths_off_its_tiles(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,xy,k0,c1", [(2, 32, 5, 64), (3, 20, 3, 64),
-                                        (2, 16, 3, 32)])
+                                        (3, 32, 5, 64), (5, 128, 5, 64)])
 def test_k4_kernel_matches_plain(cuda, b, xy, k0, c1):
-    """KITTI widths (c1=64 at z=4: Z*C1 = 256, Zo*C2 = 128) and narrower
-    ones (128 -> 64); 3 x 10 x 10 output cells leave a ragged last tile of
-    the 64-cell blocks."""
+    """KITTI widths (c1=64 at z=4: Z*C1 = 256, Zo*C2 = 128) at k0 = 5 and
+    3; 10 x 10 and 16 x 16 output cells leave ragged 8 x 16 patches;
+    5 x 128 x 128 has 160 tiles, more than the card's SMs, so persistent
+    blocks walk more than one."""
     z = 4
     args = _stage0_args(_gen(), b, xy, c1, cuda, k0)
     ops.reset_launches()
@@ -319,7 +380,11 @@ def test_p2_kernel_matches_plain(cuda, b, xy, c1):
     with torch.inference_mode():
         got, m1 = probe_down_v2.fused_down_concat(*args, z=z)
         want, m2 = probe_down_v2.down_concat_plain(*args, z=z)
-        k2, m3 = bev_down.fused_conv0_down0(*args, z=z)
+        # K2's kernel where its tiles take the widths (c1 = 64), else its
+        # plain version (the same rounding points)
+        k2_fn = (bev_down.fused_conv0_down0 if c1 == 64
+                 else bev_down.conv0_down0_plain)
+        k2, m3 = k2_fn(*args, z=z)
     assert torch.equal(m1, m2) and torch.equal(m1, m3)
     assert got.dtype == torch.bfloat16
     _close_bf16(got, want, STAGE0_FRAC_DIFFER)
@@ -327,7 +392,7 @@ def test_p2_kernel_matches_plain(cuda, b, xy, c1):
     mf = m1.repeat_interleave(c1, dim=-1)
     assert bool((got[~mf] == 0).all())
     assert probe_down_v2.fused_down_concat.launches == 1
-    assert bev_down.fused_conv0_down0.launches == 1
+    assert bev_down.fused_conv0_down0.launches == int(c1 == 64)
 
 
 @pytest.mark.cuda
@@ -394,6 +459,38 @@ def test_fused_mm_forward_on_card_counts_kernels_and_matches_cpu(cuda):
                               "fused_eca_block": 0,
                               "fused_eca_block_concat": 0,
                               "fused_down_concat": 0}
+    for k, v in want.items():
+        err = float((got[k].cpu() - v).abs().max())
+        assert err <= 5e-2 * float(v.abs().max()), (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,z", [("nuscenes", 8), ("synthetic", 16)])
+def test_mm_forward_of_other_presets_on_card(cuda, preset, z):
+    """The MM forward of nuscenes_config() (and the default config's z = 8)
+    and synthetic_config() (z = 16) at their full widths, the BEV grid cut
+    to 32 x 32 cells: K2 takes their stage 0 (Zo*C2 = 256 and 512), and the
+    embeddings match the CPU run of the same module."""
+    from agplace_tpu_torch.infer import build_towers
+
+    cfg = nuscenes_config() if preset == "nuscenes" else synthetic_config()
+    assert cfg.model.mm.vox_grid_extent[2] == z
+    mm_cfg = dataclasses.replace(cfg.model.mm, vox_grid_extent=(32, 32, z))
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, mm=mm_cfg, compute_dtype="bfloat16"))
+    mm, _ = build_towers(cfg, "cpu", _gen())
+    g = _gen()
+    img = torch.randn(2, 64, 64, 3, generator=g)
+    mask = torch.rand(2, 32, 32, z, generator=g) < 0.3
+    with torch.inference_mode():
+        want = mm(img, BEVGrid(feats=mask.float(), mask=mask, z=z))
+        mm.to(cuda)
+        ops.reset_launches()
+        got = mm(img.to(cuda), BEVGrid(feats=mask.float().to(cuda),
+                                       mask=mask.to(cuda), z=z))
+    launches = ops.launches()
+    assert launches["fused_conv0_down0"] == 1 and launches["fused_head"] == 0
+    assert launches["fused_euler_ode"] == 3
     for k, v in want.items():
         err = float((got[k].cpu() - v).abs().max())
         assert err <= 5e-2 * float(v.abs().max()), (k, err)

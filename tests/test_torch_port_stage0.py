@@ -1,0 +1,338 @@
+"""The BEV stage-0 kernels' launch geometry, replayed on the CPU.
+
+K2's down0 GEMM (``csrc/bev_down.cu``) and K4's fused head
+(``csrc/bev_head.cu``) take every tensor-map box, patch and im2col index
+from ``ops/bev_down.down0_tiling`` and ``ops/bev_head.head_tiling``; the
+kernels run only on the card (``test_torch_port_cuda.py``).  Here the boxes
+are gathered from small integer tensors as TMA reads them (zero outside the
+tensor) and multiplied in float64, so every sum is exact: K2's replay must
+give the k2s2 down0 conv, K4's halo + im2col replay conv0's im2col and
+conv0 itself at every parity.  The shape rules raise with a message, and
+the plain versions keep their results.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from agplace_tpu_torch import ops
+from agplace_tpu_torch.ops import _build, bev_down, bev_head
+from agplace_tpu_torch.sparse import bev_grid as bg
+
+torch.set_num_threads(1)
+
+
+def _tma_box(src, start, box):
+    """A TMA box of ``src`` as the hardware reads it: dims, ``start`` and
+    ``box`` innermost first; cells outside ``src`` (negative or past the
+    end) read zero.  Returns the box outermost first."""
+    out = torch.zeros(box[::-1], dtype=src.dtype)
+    s_src, s_out = [], []
+    for dim, s0, n in zip(src.shape[::-1], start, box):
+        lo, hi = max(s0, 0), max(min(s0 + n, dim), max(s0, 0))
+        s_src.append(slice(lo, hi))
+        s_out.append(slice(lo - s0, hi - s0))
+    out[tuple(s_out[::-1])] = src[tuple(s_src[::-1])]
+    return out
+
+
+def _ints(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-2, 3, shape, generator=g).double()
+
+
+# --------------------------------------------------------------------- K2
+def _replay_down0(b, x, y, zc1, zc2, sms):
+    """Walk ``down0_tiling``'s tiles block by block as the persistent
+    kernel does; per tile and K step one zero-filled box of the 5-D view of
+    g times the two wd boxes of the tile's 128 output channels,
+    accumulated over the steps, must give the k2s2 down0 conv exactly."""
+    g0 = _ints((b, x, y, zc1), 0)
+    wd = _ints((2, 2, zc1, zc2), 1)
+    t = bev_down.down0_tiling(b, x, y, zc1, zc2, sms)
+    xo, yo = x // 2, y // 2
+    assert t.g_dims == (2 * zc1, yo, 2, xo, b)
+    assert t.g_box == (64, 16, 1, 8, 1) and t.w_box == (64, 64)
+    assert t.w_dims == (zc2, 4 * zc1) and t.steps == 4 * zc1 // 64
+    assert (t.npx, t.npy, t.nn) == (-(-xo // 8), -(-yo // 16), zc2 // 128)
+    assert t.tiles == b * t.npx * t.npy * t.nn
+    assert t.grid == min(t.tiles, sms)
+    # the kernel takes the geometry as is: 9 pointers, z, zo, the fields
+    assert len(_build._SIGNATURES["agp_bev_down"]) == 9 + 2 + len(t.args()) + 1
+    view = g0.reshape(b, xo, 2, yo, 2 * zc1)  # [B, Xo, 2, Yo, 2*Z*C1]
+    wm = wd.reshape(4 * zc1, zc2)
+    got = torch.full((b, xo, yo, zc2), float("nan"), dtype=torch.float64)
+    for blk in range(t.grid):
+        for tile in range(blk, t.tiles, t.grid):
+            acc = torch.zeros(128, 128, dtype=torch.float64)
+            for step in range(t.steps):
+                gc, wcs = bev_down.down0_coords(t, tile, step)
+                a = _tma_box(view, gc, t.g_box).reshape(128, 64)
+                acc += a @ torch.cat([_tma_box(wm, wc, t.w_box)
+                                      for wc in wcs], dim=1)
+            (_, yo0, _, xo0, bb), ((n0, _), _) = bev_down.down0_coords(
+                t, tile, 0)
+            nx, ny = min(8, xo - xo0), min(16, yo - yo0)
+            assert torch.isnan(got[bb, xo0:xo0 + nx, yo0:yo0 + ny,
+                                   n0:n0 + 128]).all()  # each cell once
+            got[bb, xo0:xo0 + nx, yo0:yo0 + ny, n0:n0 + 128] = acc.reshape(
+                8, 16, 128)[:nx, :ny]
+    want = F.conv2d(g0.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1), stride=2)
+    assert torch.equal(got, want.permute(0, 2, 3, 1))
+
+
+@pytest.mark.parametrize("b,x,y,zc1", [(3, 20, 36, 64), (1, 16, 32, 128),
+                                       (2, 4, 8, 256), (1, 34, 18, 64)])
+def test_k2_down0_tiling_covers_the_conv(b, x, y, zc1):
+    """Zo*C2 = 128 (KITTI-360's): ragged patches (Xo not a multiple of 8,
+    Yo not of 16) and B = 3 included, blocks walking several tiles."""
+    _replay_down0(b, x, y, zc1, 128, sms=4)
+
+
+@pytest.mark.parametrize("b,x,y,zc1,zc2", [(2, 18, 34, 512, 256),
+                                           (1, 20, 20, 1024, 512)])
+def test_k2_down0_tiling_covers_the_conv_over_n_tiles(b, x, y, zc1, zc2):
+    """The z = 8 and z = 16 presets' widths: Zo*C2 / 128 N tiles per
+    patch, each with its own wd boxes and output channels."""
+    _replay_down0(b, x, y, zc1, zc2, sms=3)
+
+
+def test_k2_tap_order_is_the_folds():
+    """Step k's wd rows k0 = 64 k lie in tap (dx, dy) = divmod(k0 // Z*C1,
+    2), which is the [2, 2, ...] fold's (dx, dy) in row-major order; the g
+    box of that step starts at view column dy * Z*C1 and view row dx."""
+    zc1 = 128
+    t = bev_down.down0_tiling(1, 16, 32, zc1, 128, sms=132)
+    wd = bg.fold_w2_k2s2(_ints((2, 2, 2, zc1 // 2, 64), 2), 2)
+    wm = wd.reshape(4 * zc1, 128)
+    for step in range(t.steps):
+        (c, _, dx, _, _), ((_, k0), _) = bev_down.down0_coords(t, 0, step)
+        tap, c0 = divmod(k0, zc1)
+        assert (dx, c // zc1) == divmod(tap, 2) and c % zc1 == c0
+        assert torch.equal(wm[k0:k0 + 64], wd[dx, tap % 2, c0:c0 + 64])
+
+
+def test_k2_persistent_grid_visits_every_tile_once():
+    t = bev_down.down0_tiling(32, 128, 128, 256, 128, sms=132)
+    assert t.tiles == 32 * 8 * 4 and t.grid == 132
+    seen = sorted(tile for blk in range(t.grid)
+                  for tile in range(blk, t.tiles, t.grid))
+    assert seen == list(range(t.tiles))
+    assert bev_down.down0_tiling(1, 16, 16, 64, 128, sms=132).grid == 1
+
+
+@pytest.mark.parametrize("x,y,zc1,zc2,z,match", [
+    (20, 19, 256, 128, 4, "not even"),
+    (20, 20, 96, 128, 4, "outside the kernel's tiles"),   # Z*C1 % 64
+    (20, 20, 256, 64, 4, "outside the kernel's tiles"),   # Zo*C2 % 128
+    (20, 20, 2048, 128, 4, "outside the kernel's tiles"),  # above 1024
+    (20, 20, 512, 128, 32, "outside the kernel's tiles"),  # z > 16
+    (20, 20, 320, 128, 5, "outside the kernel's tiles"),  # Zo = 3, C2 odd
+])
+def test_k2_shape_rule_raises(x, y, zc1, zc2, z, match):
+    with pytest.raises(ValueError, match=match):
+        bev_down.check_down0_args("k2", x, y, zc1, zc2, z)
+
+
+@pytest.mark.parametrize("zc2", [640, 1024])
+def test_k2_shape_rule_bounds_the_n_tiles(zc2):
+    """Zo*C2 up to 512: the down BN's affine is staged in shared memory."""
+    bev_down.check_down0_args("k2", 20, 20, 64, 512, 4)
+    with pytest.raises(ValueError, match="up to 512"):
+        bev_down.check_down0_args("k2", 20, 20, 1024, zc2, 4)
+
+
+def _stage0_cpu_args(z=4, c1=64, b=2, xy=8, k0=3):
+    g = torch.Generator().manual_seed(0)
+    zo = bev_down.me_down_align(z)[2]
+    mask = torch.rand(b, xy, xy, z, generator=g) < 0.3
+    w0 = bg.fold_w2_stride1(torch.randn(k0, k0, k0, 1, c1, generator=g), z)
+    wd = bg.fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .1, z)
+    s0 = torch.rand(z * c1, generator=g) + .5
+    b0 = torch.randn(z * c1, generator=g) * .1
+    sd = torch.rand(zo * c1, generator=g) + .5
+    bd = torch.randn(zo * c1, generator=g) * .1
+    return mask, w0, s0, b0, wd, sd, bd
+
+
+@pytest.mark.parametrize("bad", ["mask_out_shape", "mask_out_dtype",
+                                 "mask_dtype", "scale0", "bias_d"])
+@pytest.mark.parametrize("kernel", ["k2", "k4"])
+def test_stage0_gemms_check_masks_and_affines(kernel, bad):
+    """The kernels read both masks and all four affines in full: a wrong
+    shape, dtype or length raises before dispatch instead of reading out
+    of bounds."""
+    z = 4
+    mask, w0, s0, b0, wd, sd, bd = _stage0_cpu_args(z)
+    feats = mask.to(torch.bfloat16)
+    m_out = bg.mask_down(mask, (0, 0), (0, 0), (0, 0))
+    if bad == "mask_out_shape":
+        m_out = m_out[..., :1]
+    elif bad == "mask_out_dtype":
+        m_out = m_out.to(torch.uint8)
+    elif bad == "mask_dtype":
+        mask = mask.to(torch.uint8)
+    elif bad == "scale0":
+        s0 = s0[:-2]
+    else:
+        bd = torch.cat([bd, bd])
+    with pytest.raises(ValueError, match="mask|affines"):
+        if kernel == "k2":
+            g0 = bg.bev_conv2d(feats, w0, 1, (1, 1), (1, 1))
+            bev_down.down0_gemm(g0, mask, s0, b0, wd, sd, bd, m_out, z=z)
+        else:
+            bev_head.head_gemm(feats, mask, w0, s0, b0, wd, sd, bd, m_out,
+                               z=z)
+
+
+def test_k2_down0_gemm_checks_then_takes_plain_on_cpu():
+    """``down0_gemm`` applies its shape rule before dispatch; on CPU
+    tensors it is ``down0_plain``, and ``conv0_down0_plain`` is conv0
+    followed by it."""
+    g = torch.Generator().manual_seed(0)
+    b, xy, z, c1 = 2, 8, 4, 64
+    mask = torch.rand(b, xy, xy, z, generator=g) < 0.3
+    feats = mask.to(torch.bfloat16)
+    w0 = bg.fold_w2_stride1(torch.randn(3, 3, 3, 1, c1, generator=g), z)
+    wd = bg.fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .1, z)
+    s0 = torch.rand(z * c1, generator=g) + .5
+    b0 = torch.randn(z * c1, generator=g) * .1
+    sd = torch.rand(2 * c1, generator=g) + .5
+    bd = torch.randn(2 * c1, generator=g) * .1
+    g0 = bg.bev_conv2d(feats, w0, 1, (1, 1), (1, 1))
+    ops.reset_launches()
+    want, m_want = bev_down.conv0_down0_plain(feats, mask, w0, s0, b0, wd,
+                                              sd, bd, z=z)
+    got = bev_down.down0_gemm(g0, mask, s0, b0, wd, sd, bd, m_want, z=z)
+    assert torch.equal(got, want)
+    assert torch.equal(m_want, bg.mask_down(mask, (0, 0), (0, 0), (0, 0)))
+    assert sum(ops.launches().values()) == 0
+    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+        bev_down.down0_gemm(g0[..., :96], mask, s0[:96], b0[:96],
+                            wd[:, :, :96], sd, bd, m_want, z=z)
+
+
+# --------------------------------------------------------------------- K4
+@pytest.mark.parametrize("b,x,y,k0", [(3, 20, 20, 5), (2, 16, 36, 3),
+                                      (1, 32, 32, 5), (1, 4, 40, 3)])
+def test_k4_halo_and_im2col_replay_conv0(b, x, y, k0):
+    """Per tile one zero-filled halo box of feats [B, X, Y*4]; per parity
+    the kernel's im2col of the patch's 128 rows from it equals conv0's
+    im2col at the parity's cells (border zeros included), its padded depth
+    stays zero, and times the zero-padded W0 it gives conv0 exactly."""
+    zc1 = 64
+    h = k0 // 2
+    feats = _ints((b, x, y, 4), 3)
+    w0 = _ints((k0, k0, 4, zc1), 4)
+    t = bev_head.head_tiling(b, x, y, k0, zc1, 128, sms=132)
+    kp = bev_head.head_depth(k0)
+    assert t.x_dims == (y * 4, x, b) and t.x_box[1:] == (16 + 2 * h, 1)
+    assert t.x_box[0] == 144  # 36 cells of 4 channels: 288 bytes
+    # the inner start is 16-byte aligned (8 bf16) at every tile
+    assert all(bev_head.head_coords(t, i, k0)[0][0] % 8 == 0
+               for i in range(t.tiles))
+    assert t.w0_dims == (zc1, kp) and kp in (64, 128) and 4 * k0 * k0 <= kp
+    assert t.wd_dims == (128, 4 * zc1) and t.steps == 4 * zc1 // 64
+    assert len(_build._SIGNATURES["agp_bev_head"]) == 10 + 3 + len(t.args()) + 1
+    w0p = torch.zeros(kp, zc1, dtype=torch.float64)
+    w0p[:4 * k0 * k0] = w0.reshape(-1, zc1)
+    padded = F.pad(feats, (0, 0, h, h, h, h))  # conv0's zero padding
+    conv0 = F.conv2d(feats.permute(0, 3, 1, 2), w0.permute(3, 2, 0, 1),
+                     padding=h).permute(0, 2, 3, 1)
+    view = feats.reshape(b, x, y * 4)
+    xo, yo = x // 2, y // 2
+    for tile in range(t.tiles):
+        start, (xo0, yo0, bb) = bev_head.head_coords(t, tile, k0)
+        halo = _tma_box(view, start, t.x_box)[0]  # [16 + 2h, box0]
+        for par in range(4):
+            dx, dy = divmod(par, 2)
+            col = torch.zeros(128, kp, dtype=torch.float64)
+            for row in range(128):
+                for tap in range(k0 * k0):
+                    hx, hy, slab, chunk, off = bev_head.head_im2col(
+                        k0, row, par, tap)
+                    k = slab * 64 + chunk * 8 + off // 2
+                    assert k == 4 * tap and off in (0, 8)
+                    col[row, k:k + 4] = halo[hx, 4 * hy:4 * hy + 4]
+            for row in range(128):
+                ox, oy = xo0 + row // 16, yo0 + row % 16
+                if ox >= xo or oy >= yo:
+                    continue  # the kernel stores no such row
+                cx, cy = 2 * ox + dx, 2 * oy + dy
+                want = padded[bb, cx:cx + k0, cy:cy + k0].reshape(-1)
+                assert torch.equal(col[row, :4 * k0 * k0], want)
+                assert not col[row, 4 * k0 * k0:].any()
+                assert torch.equal(col[row] @ w0p, conv0[bb, cx, cy])
+
+
+def test_k4_head_gemm_takes_plain_on_cpu():
+    """``head_gemm`` (K4's kernel with the output mask given) is
+    ``head_plain`` on CPU tensors, checks its shape rule first, and
+    ``fused_head`` is it plus the output mask; nothing launches."""
+    g = torch.Generator().manual_seed(0)
+    b, xy, z, c1 = 2, 8, 4, 64
+    mask = torch.rand(b, xy, xy, z, generator=g) < 0.3
+    args = (mask.to(torch.bfloat16), mask,
+            bg.fold_w2_stride1(torch.randn(5, 5, 5, 1, c1, generator=g), z),
+            torch.rand(z * c1, generator=g) + .5,
+            torch.randn(z * c1, generator=g) * .1,
+            bg.fold_w2_k2s2(torch.randn(2, 2, 2, c1, c1, generator=g) * .1,
+                            z),
+            torch.rand(2 * c1, generator=g) + .5,
+            torch.randn(2 * c1, generator=g) * .1)
+    ops.reset_launches()
+    want, m_out = bev_head.fused_head(*args, z=z)
+    assert torch.equal(bev_head.head_gemm(*args, m_out, z=z), want)
+    assert torch.equal(want, bev_head.head_plain(*args, z=z)[0])
+    assert sum(ops.launches().values()) == 0
+    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+        bev_head.head_gemm(*args[:5], args[5][..., :64], *(a[:64] for a in
+                                                         args[6:]),
+                           m_out, z=z)
+
+
+def test_k4_persistent_grid_is_one_block_per_sm():
+    t = bev_head.head_tiling(32, 128, 128, 5, 256, 128, sms=132)
+    assert t.tiles == 1024 and t.grid == 132
+    assert t.x_box == (144, 20, 1)  # the 5.8 KB halo of KITTI
+    assert bev_head.head_tiling(1, 8, 8, 5, 256, 128, sms=132).grid == 1
+
+
+@pytest.mark.parametrize("zc0,k0,zc1,zc2,z,match", [
+    (8, 5, 256, 128, 4, "Z\\*C0 = 4"),
+    (4, 7, 256, 128, 4, "k0 in \\(3, 5\\)"),
+    (4, 5, 512, 128, 4, "Z\\*C1 <= 256"),
+    (4, 3, 128, 64, 4, "outside the kernel's tiles"),  # Zo*C2 = 64
+    (4, 5, 160, 128, 4, "outside the kernel's tiles"),  # Z*C1 % 64
+    (4, 5, 256, 256, 4, "outside the kernel's tiles"),  # Zo*C2 > 128
+    (4, 5, 256, 128, 8, "outside the kernel's tiles"),  # z > 4
+])
+def test_k4_shape_rule_raises(zc0, k0, zc1, zc2, z, match):
+    with pytest.raises(ValueError, match=match):
+        bev_head.check_head_args(32, 32, zc0, k0, zc1, zc2, z)
+
+
+def test_stage0_kitti_widths_pass_both_rules():
+    bev_down.check_down0_args("k2", 128, 128, 256, 128, 4)
+    bev_head.check_head_args(128, 128, 4, 5, 256, 128, 4)
+    bev_head.check_head_args(20, 20, 4, 3, 256, 128, 4)
+    assert np.array_equal(bev_head.head_tiling(3, 20, 20, 3, 256, 128,
+                                               sms=132).args(),
+                          (80, 20, 3, 144, 18, 1, 256, 64, 64, 64, 128, 1024,
+                           64, 64, 2, 1, 16, 6, 6))
+
+
+@pytest.mark.parametrize("preset", ["default", "nuscenes", "synthetic"])
+def test_k2_rule_takes_every_presets_stage0(preset):
+    """K2 is the default stage 0 of every preset: the widths its conv0 and
+    down0 fold to (Z*C1 = z * planes[0] -> Zo*C2 = Zo * planes[0]) at the
+    preset's grid pass its rule."""
+    from agplace_tpu_torch import config
+
+    cfg = {"default": config.Config(), "nuscenes": config.nuscenes_config(),
+           "synthetic": config.synthetic_config()}[preset].model.mm
+    x, y, z = cfg.vox_grid_extent
+    c1 = cfg.voxfe_planes[0]
+    bev_down.check_down0_args("k2", x, y, z * c1,
+                              bev_down.me_down_align(z)[2] * c1, z)
