@@ -3,32 +3,86 @@
 // Replaces the TPU kernel agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode
 // (_ode_kernel, forward only; the custom-VJP backward is a later port).
 // Computes n_steps Euler steps x <- x + dt * act(x W + b) for x [B, D] fp32,
-// W [D, D] fp32 ([in, out] layout), b [D].
+// W [D, D] fp32 ([in, out] layout), b [D], D = 256 (stg2fuse_dim at every
+// preset).
 //
 // What bounds it on the H100: latency, not bytes or FLOPs.  At the slice
-// shape (B=32, D=256, 10 steps) the whole chain is 42 MFLOP, and an unfused
-// chain is 30 dependent launches.  W in fp32 is 256 KB, more than the
-// 227 KB of shared memory a block may hold, so the TPU design (W resident
-// in VMEM) does not carry over.
-//
-// Design: rows of x are independent, so each block owns a tile of ROWS
-// rows and runs all n_steps inside one launch, with its states in shared
-// memory (double-buffered: step t reads one buffer, writes the other, and
-// a __syncthreads() separates steps).  W streams from global memory, where
-// it stays L2-resident across steps and blocks.  Each step is a chain of
-// dependent L2 loads, so the dot products are split four ways over k: a
-// thread owns one output column and a quarter of the k range (coalesced W
-// reads across columns), partial sums meet in shared memory and are added
-// in a fixed order.  fp32 FMA throughout; the activation is a template
-// parameter.
-#include "common.cuh"
+// shape (B = 32, 10 steps) the chain is 42 MFLOP and 0.3 MB, under a
+// microsecond of work at the card's rates, but the steps are dependent.
+// The TPU design keeps W resident in VMEM; W in fp32 is 256 KB, more than
+// the 227 KB of shared memory one block may hold, so here W is resident
+// across the shared memory of a thread-block cluster instead:
+//   * a cluster of kCluster blocks owns a tile of kRows rows of x; block r
+//     of the cluster holds W's column slice [:, kCols r, kCols (r + 1))
+//     (32 KB at kCluster = 8) and b's slice, loaded once per launch with
+//     16-byte loads, all in flight together;
+//   * each block keeps the tile's whole state [kRows, D] in two shared
+//     buffers; kSplit threads share an output (row, column), each summing
+//     a kDim / kSplit slice of k with four partial sums, and a butterfly of
+//     shuffles adds the slices (every lane gets the same bits); the update
+//     x + dt * act(.) keeps the reference's two roundings (no fma).  The k
+//     slices of W lie kDim / kSplit rows apart, padded so that a warp's
+//     loads hit 32 distinct banks;
+//   * the new value goes into the *next* buffer of every block of the
+//     cluster through distributed shared memory, as asynchronous stores
+//     (st.async, the kSplit lanes of an output sharing the peers) that
+//     each count their bytes on the receiving block's mbarrier of that
+//     buffer, and the step ends when this block's next buffer has all its
+//     bytes: no cluster-wide barrier per step (plain remote stores and one
+//     cluster barrier per step measured slower: PERF.md).  With two
+//     buffers no block can overwrite a state another block still reads;
+//   * at the end each block writes its column slice of its rows.
+// Rows are independent, so kRows is small enough that b32 already spreads
+// over several clusters.  The cluster size, kRows and kSplit were chosen by
+// timing (scripts/ablate_torch_ode.py, the AGP_ODE_* switches below).
+// fp32 FMA throughout; the activation is a template parameter.  The launch
+// geometry comes from the wrapper (ops/ode_step.py: ode_tiling), its one
+// source; the host side here only checks it against the compiled
+// constants.
+#include <cooperative_groups.h>
+
+#include "sm90.cuh"
+
+// Ablation switches, the shipped values unless set with -D: blocks per
+// cluster (2, 4, 8 or 16), rows per cluster, threads per output (1, 2 or
+// 4)
+#ifndef AGP_ODE_CLUSTER
+#define AGP_ODE_CLUSTER 8
+#endif
+#ifndef AGP_ODE_ROWS
+#define AGP_ODE_ROWS 4
+#endif
+#ifndef AGP_ODE_SPLIT
+#define AGP_ODE_SPLIT 2
+#endif
 
 namespace {
 
-constexpr int kRows = 4;
-constexpr int kCols = 256;               // output columns per pass
-constexpr int kSplit = 4;                // k split of each dot product
-constexpr int kThreads = kCols * kSplit;
+namespace cg = cooperative_groups;
+using agp::mbar_expect_tx;
+using agp::mbar_init;
+using agp::mbar_wait;
+using agp::smem_u32;
+
+constexpr int kDim = 256;
+constexpr int kCluster = AGP_ODE_CLUSTER;
+constexpr int kRows = AGP_ODE_ROWS;
+constexpr int kSplit = AGP_ODE_SPLIT;
+constexpr int kCols = kDim / kCluster;  // W's columns held by one block
+constexpr int kThreads = kCols * kRows * kSplit;
+constexpr int kLaneCols = 32 / kSplit;  // a warp: kLaneCols x kSplit lanes
+constexpr int kSeg = kDim / kSplit;     // k rows of one lane's slice
+// W's slice in shared memory: kSplit segments of [kSeg][kCols], each
+// kPad floats after the last, so that lane (column c, slice s) reads bank
+// (c + kPad s) mod 32: distinct over a warp
+constexpr int kPad = kSplit > 1 ? kLaneCols : 0;
+constexpr int kSegStride = kSeg * kCols + kPad;
+static_assert(kDim % kCluster == 0 && kCols % kLaneCols == 0 &&
+                  32 % kSplit == 0 && kThreads <= 1024 && kSeg % 4 == 0,
+              "cluster / row tile / split off the block's limits");
+// W's slice, b's slice, the states [2][kRows][kDim]
+constexpr int kSmemBytes =
+    (kSplit * kSegStride + kCols + 2 * kRows * kDim) * (int)sizeof(float);
 
 template <int ACT>
 __device__ __forceinline__ float act_fn(float v) {
@@ -38,90 +92,193 @@ __device__ __forceinline__ float act_fn(float v) {
   return v;                                     // id
 }
 
+// the shared::cluster address of shared::cta address `addr` in block `rank`
+// of the cluster
+__device__ __forceinline__ uint32_t map_cluster(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// store v at shared::cluster address `addr`, counted as 4 bytes on the
+// mbarrier at shared::cluster address `bar` (of the same block)
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
 template <int ACT>
 __global__ void __launch_bounds__(kThreads)
 ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ out,
-                 int batch, int dim, int n_steps, float dt) {
-  extern __shared__ float sh[];  // [2][kRows][dim] states
-  __shared__ float part[kSplit][kRows][kCols];
-  float* cur = sh;
-  float* nxt = sh + kRows * dim;
-  const int r0 = blockIdx.x * kRows;
+                 int batch, int n_steps, float dt) {
+  extern __shared__ __align__(16) float sh[];
+  // per state buffer: one arrival (this block's expect_tx) and the bytes
+  // the cluster's blocks store into it
+  __shared__ __align__(8) uint64_t full[2];
+  float* ws = sh;                          // kSplit x [kSeg][kCols], padded
+  float* bs = ws + kSplit * kSegStride;    // [kCols]
+  float* state = bs + kCols;               // [2][kRows][kDim]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int r0 = (blockIdx.x / kCluster) * kRows;
   const int rows = min(kRows, batch - r0);
-  const int col = threadIdx.x % kCols, q = threadIdx.x / kCols;
-  for (int i = threadIdx.x; i < kRows * dim; i += blockDim.x) {
-    const int r = i / dim;
-    cur[i] = r < rows ? x[(size_t)(r0 + r) * dim + (i - r * dim)] : 0.0f;
+  const int c0 = rank * kCols;
+  const int tid = threadIdx.x;
+  // W's slice and the tile's rows as 16-byte loads, all of a thread's
+  // issued before any is stored: one round trip to L2, not one per load
+  constexpr int kW4 = kDim * kCols / 4;  // float4s of the slice
+  constexpr int kW4PerThread = (kW4 + kThreads - 1) / kThreads;
+  float4 wv[kW4PerThread];
+#pragma unroll
+  for (int u = 0; u < kW4PerThread; ++u) {
+    const int i = tid + u * kThreads, k = i / (kCols / 4);
+    if (i < kW4)
+      wv[u] = reinterpret_cast<const float4*>(w + (size_t)k * kDim + c0)
+          [i - k * (kCols / 4)];
   }
-  __syncthreads();
+  constexpr int kX4 = kRows * kDim / 4;  // float4s of the state
+  constexpr int kX4PerThread = (kX4 + kThreads - 1) / kThreads;
+  float4 xin[kX4PerThread];
+#pragma unroll
+  for (int u = 0; u < kX4PerThread; ++u) {
+    const int i = tid + u * kThreads, r = i / (kDim / 4);
+    xin[u] = i < kX4 && r < rows
+                 ? reinterpret_cast<const float4*>(x + (size_t)(r0 + r) *
+                                                           kDim)[i - r * (kDim / 4)]
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kW4PerThread; ++u) {
+    const int i = tid + u * kThreads, k = i / (kCols / 4);
+    if (i < kW4)
+      *reinterpret_cast<float4*>(ws + (k / kSeg) * kSegStride +
+                                 (k % kSeg) * kCols +
+                                 4 * (i - k * (kCols / 4))) = wv[u];
+  }
+#pragma unroll
+  for (int u = 0; u < kX4PerThread; ++u)
+    if (tid + u * kThreads < kX4)
+      reinterpret_cast<float4*>(state)[tid + u * kThreads] = xin[u];
+  if (tid < kCols) bs[tid] = b[c0 + tid];
+  if (tid == 0) {
+    mbar_init(smem_u32(&full[0]), 1);
+    mbar_init(smem_u32(&full[1]), 1);
+    agp::mbar_init_fence();
+  }
+  // every block of the cluster is running (its shared memory and barriers
+  // may be written) and its own loads are done
+  cluster.sync();
+
+  // warp w, lane l: slice s = l / kLaneCols of output (row r, column jl)
+  const int warp = tid / 32, lane = tid & 31;
+  const int s = lane / kLaneCols;
+  const int jl = (warp % (kCols / kLaneCols)) * kLaneCols + lane % kLaneCols;
+  const int r = warp / (kCols / kLaneCols), j = c0 + jl;
+  const float bj = bs[jl];
+  const float* wsl = ws + s * kSegStride + jl;  // W[s kSeg + k][j]
+  // this output in the state of the blocks q = s, s + kSplit, ... of the
+  // cluster (the slices' lanes share the stores)
+  constexpr int kPeers = (kCluster + kSplit - 1) / kSplit;
+  uint32_t peer_x[kPeers], peer_bar[kPeers];
+#pragma unroll
+  for (int p = 0; p < kPeers; ++p) {
+    const int q = (s + p * kSplit) % kCluster;
+    peer_x[p] = map_cluster(smem_u32(state + r * kDim + j), q);
+    peer_bar[p] = map_cluster(smem_u32(&full[0]), q);
+  }
+  int cur = 0;
   for (int step = 0; step < n_steps; ++step) {
-    for (int j0 = 0; j0 < dim; j0 += kCols) {
-      const int j = j0 + col;
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-      if (j < dim) {
-        for (int k = q; k < dim; k += kSplit) {
-          const float wk = w[(size_t)k * dim + j];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            acc[r] = fmaf(cur[r * dim + k], wk, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) part[q][r][col] = acc[r];
-      __syncthreads();
-      if (q == 0 && j < dim) {
-        const float bj = b[j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float s = part[0][r][col];
-#pragma unroll
-          for (int t = 1; t < kSplit; ++t) s += part[t][r][col];
-          const float f = act_fn<ACT>(s + bj);
-          // x + dt*f with two roundings, as the reference (no FMA)
-          nxt[r * dim + j] = __fadd_rn(cur[r * dim + j], __fmul_rn(dt, f));
-        }
-      }
-      __syncthreads();
+    const float* xr = state + cur * kRows * kDim + r * kDim;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+    for (int k = 0; k < kSeg; k += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(xr + s * kSeg + k);
+      acc[0] = fmaf(xv.x, wsl[(k + 0) * kCols], acc[0]);
+      acc[1] = fmaf(xv.y, wsl[(k + 1) * kCols], acc[1]);
+      acc[2] = fmaf(xv.z, wsl[(k + 2) * kCols], acc[2]);
+      acc[3] = fmaf(xv.w, wsl[(k + 3) * kCols], acc[3]);
     }
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
+    float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+#pragma unroll
+    for (int o = kLaneCols; o < 32; o <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float f = act_fn<ACT>(sum + bj);
+    // x + dt*f with two roundings, as the reference (no FMA)
+    const float v = __fadd_rn(xr[j], __fmul_rn(dt, f));
+    const int nb = cur ^ 1;
+    // the next buffer of every block, each store counted on that block's
+    // barrier of the buffer; then wait until this block's next buffer
+    // holds all kRows x D values (its (step / 2)-th fill).  A block can
+    // only write a peer's buffer nb for step + 2 once every block has
+    // sent its step + 1 values, so once every block has read buffer nb
+    if (tid == 0)
+      mbar_expect_tx(smem_u32(&full[nb]), kRows * kDim * (int)sizeof(float));
+#pragma unroll
+    for (int p = 0; p < kPeers; ++p)
+      if (s + p * kSplit < kCluster)
+        st_async(peer_x[p] + nb * kRows * kDim * (int)sizeof(float), v,
+                 peer_bar[p] + nb * (int)sizeof(uint64_t));
+    mbar_wait(smem_u32(&full[nb]), (step / 2) & 1);
+    cur = nb;
   }
-  for (int i = threadIdx.x; i < rows * dim; i += blockDim.x) {
-    const int r = i / dim;
-    out[(size_t)(r0 + r) * dim + (i - r * dim)] = cur[i];
-  }
+  if (s == 0 && r < rows)
+    out[(size_t)(r0 + r) * kDim + j] = state[cur * kRows * kDim + r * kDim + j];
+  // no block leaves while a peer's stores to it may be in flight
+  cluster.sync();
 }
 
 template <int ACT>
 cudaError_t launch(const float* x, const float* w, const float* b, float* out,
-                   int batch, int dim, int n_steps, float dt,
+                   int batch, int n_steps, float dt, int grid,
                    cudaStream_t stream) {
-  const size_t smem = 2 * kRows * (size_t)dim * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(ode_euler_kernel<ACT>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
-  const int grid = (batch + kRows - 1) / kRows;
-  ode_euler_kernel<ACT><<<grid, kThreads, smem, stream>>>(x, w, b, out, batch,
-                                                         dim, n_steps, dt);
+  auto kernel = ode_euler_kernel<ACT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err == cudaSuccess && kCluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, w, b, out, batch, n_steps, dt);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The geometry arguments are the fields of the wrapper's OdeTiling in order:
+// rows per cluster, blocks per cluster, row tiles, blocks.
 extern "C" int agp_ode_euler(const float* x, const float* w, const float* b,
                              float* out, int batch, int dim, int n_steps,
-                             float dt, int act, void* stream) {
+                             float dt, int act, int rows, int cluster,
+                             int tiles, int grid, void* stream) {
+  if (dim != kDim || rows != kRows || cluster != kCluster || batch < 1 ||
+      tiles != (batch + kRows - 1) / kRows || grid != tiles * kCluster ||
+      n_steps < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (act) {
-    case 0: return launch<0>(x, w, b, out, batch, dim, n_steps, dt, s);
-    case 1: return launch<1>(x, w, b, out, batch, dim, n_steps, dt, s);
-    case 2: return launch<2>(x, w, b, out, batch, dim, n_steps, dt, s);
-    default: return launch<3>(x, w, b, out, batch, dim, n_steps, dt, s);
+    case 0: return launch<0>(x, w, b, out, batch, n_steps, dt, grid, s);
+    case 1: return launch<1>(x, w, b, out, batch, n_steps, dt, grid, s);
+    case 2: return launch<2>(x, w, b, out, batch, n_steps, dt, grid, s);
+    default: return launch<3>(x, w, b, out, batch, n_steps, dt, grid, s);
   }
 }

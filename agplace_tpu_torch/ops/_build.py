@@ -29,7 +29,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
-    "agp_ode_euler": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # batch, dim, n_steps, dt, act, then the 4 fields of ode_step.OdeTiling
+    "agp_ode_euler": [_P] * 4 + [_I] * 3 + [_F] + [_I] * 5 + [_P],
     # z, zo, then the 20 fields of bev_down.Down0Tiling
     "agp_bev_down": [_P] * 9 + [_I] * 22 + [_P],
     # epi, z, then the 17 fields of bev_block_sm.Conv3x3Tiling
@@ -38,8 +39,8 @@ _SIGNATURES = {
     "agp_block_combine_ds": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
     "agp_block_combine_id": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # z, zo, k0, then the 19 fields of bev_head.HeadTiling
-    "agp_bev_head": [_P] * 10 + [_I] * 22 + [_P],
+    # z, zo, k0, Z*C0, then the 22 fields of bev_head.HeadTiling
+    "agp_bev_head": [_P] * 10 + [_I] * 26 + [_P],
     "agp_stem_pool": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "agp_block_bm_conv1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "agp_block_bm_conv2_pool": [_P, _P, _P, _P, _P, _P, _P,

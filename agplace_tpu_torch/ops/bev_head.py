@@ -5,8 +5,9 @@ Port of ``agplace_tpu/ops/pallas/bev_head.py:fused_head``.  The CUDA kernel
 (``csrc/bev_head.cu``, TMA + wgmma) computes conv0 itself, per output patch
 from one input halo and one output parity at a time, and feeds each chunk
 of the parity's activation from registers straight into the down0 MMA.
-``head_tiling`` is its launch geometry, its one source; ``head_coords`` and
-``head_im2col`` replay its TMA boxes and its im2col on the CPU.
+``head_tiling`` is its launch geometry, its one source; ``head_coords``,
+``head_step`` and ``head_im2col`` replay its TMA boxes, its ring steps and
+its im2col on the CPU.
 
 ``head_plain`` is the plain version, with the TPU kernel's rounding
 (``bev_head.py:146-163``): conv0 accumulated in fp32, the BN0 affine in
@@ -49,101 +50,143 @@ def head_plain(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     return bg.mask_bev(d, mask_out, zo).to(_BF16), mask_out
 
 
-# The kernel's tiles (csrc/bev_head.cu): conv0 k0 in (3, 5) over Z*C0 = 4
-# channels (a cell is 8 bytes of the halo), its depth 4*k0*k0 padded to KP
-# = 64 or 128; the down0 half takes K2's rule (bev_down.check_down0_args)
-# with Z*C1 up to 256 (W0 stays in shared memory), Zo*C2 = 128 (down0's
-# accumulator stays in registers across the four parities) and z <= 4 (Z*C0
-# = 4 channels).  A block owns the 8 x 16 output patch of K2's GEMM; one
-# block per SM (204 KB of shared memory).
-ZC0, MAX_ZC1, MAX_Z = 4, 256, 4
+# The kernel's tiles (csrc/bev_head.cu): conv0 k0 in (3, 5) over Z*C0 in
+# ZC0S channels, its im2col depth k0*k0*Z*C0 padded to KP, a multiple of
+# the slab (64 to 448); the down0 half takes K2's rule
+# (bev_down.check_down0_args: Z*C1 up to 1024, Zo*C2 a multiple of the
+# 128-channel N tile up to 512, z <= 16), every preset's stage 0.  A block
+# owns the 8 x 16 output patch of K2's GEMM and one N tile; one block per
+# SM.  W0 stays in shared memory at Z*C0 = 4, Z*C1 <= RESIDENT_ZC1 and one
+# N tile (KITTI-360's widths), else it streams through the kernel's ring in
+# (64 x W0_STREAM_ROWS) boxes.
+ZC0S = (4, 8, 16)
+RESIDENT_ZC1 = 256
 PATCH_X, PATCH_Y, BLOCK_N, SLAB = 8, 16, 128, 64
+W0_STREAM_ROWS = 128
 # The halo starts HALO_LEAD cells before the patch along y for every k0
-# (its inner TMA coordinate stays 16-byte aligned), k0 // 2 rows along x
+# (at Z*C0 = 4 its inner TMA coordinate stays 16-byte aligned), k0 // 2
+# rows along x; it is HALO_CELLS cells wide
 HALO_LEAD = 2
+HALO_CELLS = 2 * PATCH_Y + 2 * HALO_LEAD
 
 
 @dataclass(frozen=True)
 class HeadTiling:
-    """Launch geometry of K4 over feats [B, X, Y, 4] with w0 [k0, k0, 4,
-    Z*C1] and wd [2, 2, Z*C1, 128], as the kernel takes it (``args``).  Tile
-    ``i`` is (b * npx + xp) * npy + yp, as K2's; block j takes tiles j, j +
-    grid, ...  Tensor-map dims and boxes are innermost first; the halo box
-    is (x_box[0] / 4 cells of 4 channels, x_box[1] rows)."""
+    """Launch geometry of K4 over feats [B, X, Y, Z*C0] with w0 [k0, k0,
+    Z*C0, Z*C1] and wd [2, 2, Z*C1, Zo*C2], as the kernel takes it
+    (``args``).  Tile ``i`` is ((b * npx + xp) * npy + yp) * nn + n, as
+    K2's: a patch's N tiles are adjacent; block j takes tiles j, j + grid,
+    ...  Tensor-map dims and boxes are innermost first; the halo box holds
+    HALO_CELLS cells of Z*C0 channels per row, 16 + 2h rows."""
 
-    x_dims: Tuple[int, int, int]  # (Y*4, X, B): feats as [B, X, Y*4]
-    x_box: Tuple[int, int, int]  # ((32 + 2 HALO_LEAD) * 4, 16 + 2h, 1)
-    w0_dims: Tuple[int, int]  # (Z*C1, KP): the zero-padded im2col weight
-    w0_box: Tuple[int, int]  # (64, SLAB)
-    wd_dims: Tuple[int, int]  # (128, 4 * Z*C1)
+    x_dims: Tuple[int, int, int, int]  # (Y*4, X, B, 1) or (Z*C0, Y, X, B)
+    x_box: Tuple[int, int, int, int]  # (144, 16+2h, 1, 1), (Z*C0, 36, 16+2h, 1)
+    w0_dims: Tuple[int, int]  # (Z*C1, rows): the zero-padded im2col weight
+    w0_box: Tuple[int, int]  # (64, SLAB) resident, (64, 128) streamed
+    wd_dims: Tuple[int, int]  # (Zo*C2, 4 * Z*C1)
     wd_box: Tuple[int, int]  # (64, 64)
     npx: int
     npy: int
-    steps: int  # wd ring steps per tile: 4 parities x Z*C1 / 64 chunks
+    nn: int  # N tiles: Zo*C2 / BLOCK_N
+    steps: int  # ring steps per tile (head_step)
     tiles: int
     grid: int
 
+    @property
+    def resident(self) -> bool:
+        """W0 loaded once per block (else streamed per chunk)."""
+        return self.w0_box[1] == SLAB
+
     def args(self) -> Tuple[int, ...]:
         return (*self.x_dims, *self.x_box, *self.w0_dims, *self.w0_box,
-                *self.wd_dims, *self.wd_box, self.npx, self.npy, self.steps,
-                self.tiles, self.grid)
+                *self.wd_dims, *self.wd_box, self.npx, self.npy, self.nn,
+                self.steps, self.tiles, self.grid)
 
 
-def head_depth(k0: int) -> int:
-    """conv0's im2col depth 4*k0*k0 padded to a multiple of the slab."""
-    return -(-ZC0 * k0 * k0 // SLAB) * SLAB
+def head_depth(k0: int, zc0: int) -> int:
+    """conv0's im2col depth k0*k0*Z*C0 padded to a multiple of the slab."""
+    return -(-zc0 * k0 * k0 // SLAB) * SLAB
 
 
-def head_tiling(b: int, x: int, y: int, k0: int, zc1: int, zc2: int,
-                sms: int) -> HeadTiling:
+def head_tiling(b: int, x: int, y: int, k0: int, zc0: int, zc1: int,
+                zc2: int, sms: int) -> HeadTiling:
     """The persistent grid of one block per SM (``sms``: the card's SM
     count)."""
     h = k0 // 2
     xo, yo = x // 2, y // 2
-    npx, npy = -(-xo // PATCH_X), -(-yo // PATCH_Y)
-    tiles = b * npx * npy
-    box0 = (2 * PATCH_Y + 2 * HALO_LEAD) * ZC0
-    return HeadTiling((y * ZC0, x, b), (box0, 2 * PATCH_X + 2 * h, 1),
-                      (zc1, head_depth(k0)), (64, SLAB), (zc2, 4 * zc1),
-                      (64, 64), npx, npy, 4 * zc1 // 64, tiles,
-                      min(tiles, sms))
+    npx, npy, nn = -(-xo // PATCH_X), -(-yo // PATCH_Y), zc2 // BLOCK_N
+    tiles = b * npx * npy * nn
+    rows = 2 * PATCH_X + 2 * h
+    if zc0 == 4:  # 8-byte cells: the view [B, X, Y*4, 1]
+        x_dims, x_box = (y * 4, x, b, 1), (HALO_CELLS * 4, rows, 1, 1)
+    else:  # the view [B, X, Y, Z*C0], channels innermost
+        x_dims, x_box = (zc0, y, x, b), (zc0, HALO_CELLS, rows, 1)
+    kp, nch = head_depth(k0, zc0), zc1 // 64
+    if zc0 == 4 and zc1 <= RESIDENT_ZC1 and zc2 == BLOCK_N:
+        w0_dims, w0_box, steps = (zc1, kp), (64, SLAB), 4 * nch
+    else:
+        nw0 = -(-kp // W0_STREAM_ROWS)
+        w0_dims, w0_box = (zc1, nw0 * W0_STREAM_ROWS), (64, W0_STREAM_ROWS)
+        steps = 4 * nch * (nw0 + 1)
+    return HeadTiling(x_dims, x_box, w0_dims, w0_box, (zc2, 4 * zc1),
+                      (64, 64), npx, npy, nn, steps, tiles, min(tiles, sms))
 
 
 def head_coords(t: HeadTiling, tile: int, k0: int):
-    """The halo box of tile ``tile`` at ((2 yo0 - HALO_LEAD) * 4, 2 xo0 -
-    h, b) (negative or past the map: zeros), and the wd boxes of ring step
-    i at (0, 64 i) and (64, 64 i); returns (halo start, (xo0, yo0, b))."""
+    """The halo box of tile ``tile``: at ((2 yo0 - HALO_LEAD) * 4, 2 xo0 -
+    h, b, 0) of the [B, X, Y*4, 1] view, or (0, 2 yo0 - HALO_LEAD, 2 xo0 -
+    h, b) of [B, X, Y, Z*C0] (negative or past the map: zeros); returns
+    (halo start, (xo0, yo0, b, n0)), n0 the tile's first output channel."""
     h = k0 // 2
-    yp, r = tile % t.npy, tile // t.npy
+    n0, r = (tile % t.nn) * BLOCK_N, tile // t.nn
+    yp, r = r % t.npy, r // t.npy
     xp, b = r % t.npx, r // t.npx
     xo0, yo0 = xp * PATCH_X, yp * PATCH_Y
-    return ((2 * yo0 - HALO_LEAD) * ZC0, 2 * xo0 - h, b), (xo0, yo0, b)
+    y0 = 2 * yo0 - HALO_LEAD
+    start = ((y0 * 4, 2 * xo0 - h, b, 0) if t.x_box[0] == HALO_CELLS * 4
+             else (0, y0, 2 * xo0 - h, b))
+    return start, (xo0, yo0, b, n0)
 
 
-def head_im2col(k0: int, row: int, par: int, t: int):
+def head_step(t: HeadTiling, tile: int, i: int):
+    """Ring step ``i`` of tile ``tile``: ("w0", par, c, (col, row)) for a
+    streamed W0 box (conv0 chunk c's 64 columns, 128 rows from ``row``) or
+    ("wd", par, c, ((n0, k), (n0 + 64, k))) for the two wd boxes of chunk
+    (par, c) (rows k = par * Z*C1 + 64 c of the N tile's 128 columns)."""
+    zc1, nch = t.w0_dims[0], t.w0_dims[0] // 64
+    n0 = (tile % t.nn) * BLOCK_N
+    per = 1 if t.resident else t.steps // (4 * nch)
+    j, r = divmod(i, per)
+    par, c = divmod(j, nch)
+    if r < per - 1:
+        return "w0", par, c, (64 * c, W0_STREAM_ROWS * r)
+    k = par * zc1 + 64 * c
+    return "wd", par, c, ((n0, k), (n0 + 64, k))
+
+
+def head_im2col(k0: int, zc0: int, row: int, par: int, t: int):
     """Where the kernel's im2col puts tap ``t`` = a*k0 + bb of GEMM row
     ``row`` (patch cell (row // 16, row % 16)) at parity ``par`` = 2 dx +
-    dy: (halo row, halo cell, im2col slab, 16-byte chunk before the
-    swizzle, byte offset in the chunk).  The 4 channels at columns 4t ..
-    4t + 3 are halo cell (2 xi + dx + a, 2 yi + dy + bb + HALO_LEAD -
-    k0 // 2)."""
+    dy: (halo row, halo cell, [(im2col slab, 16-byte chunk before the
+    swizzle, byte offset in the chunk) of each of its Z*C0 / 4 8-byte
+    words]).  The Z*C0 channels at columns Z*C0 t .. Z*C0 (t + 1) - 1 are
+    halo cell (2 xi + dx + a, 2 yi + dy + bb + HALO_LEAD - k0 // 2)."""
     xi, yi = divmod(row, PATCH_Y)
     dx, dy = divmod(par, 2)
     a, bb = divmod(t, k0)
-    return (2 * xi + dx + a, 2 * yi + dy + bb + HALO_LEAD - k0 // 2,
-            t // 16, (t % 16) // 2, (t & 1) * 8)
+    words = [(cb >> 7, (cb >> 4) & 7, cb & 15)
+             for cb in range(2 * zc0 * t, 2 * zc0 * (t + 1), 8)]
+    return (2 * xi + dx + a, 2 * yi + dy + bb + HALO_LEAD - k0 // 2, words)
 
 
 def check_head_args(x: int, y: int, zc0: int, k0: int, zc1: int, zc2: int,
                     z: int):
-    """K4's shape rule: conv0 over Z*C0 = 4 channels with k0 in (3, 5),
-    K2's down0 rule with Z*C1 up to 256, Zo*C2 = 128 and z <= 4."""
-    _build.check(zc0 == ZC0 and k0 in (3, 5) and zc1 <= MAX_ZC1,
-                 f"fused_head: conv0 k0={k0} over Z*C0={zc0} -> Z*C1={zc1} "
-                 f"outside the kernel's tiles (Z*C0 = {ZC0}, k0 in (3, 5), "
-                 f"Z*C1 <= {MAX_ZC1})")
-    bev_down.check_down0_args("fused_head", x, y, zc1, zc2, z,
-                              max_zc1=MAX_ZC1, max_zc2=BLOCK_N, max_z=MAX_Z)
+    """K4's shape rule: conv0 over Z*C0 in ZC0S channels with k0 in (3, 5),
+    then K2's down0 rule (every preset's stage 0)."""
+    _build.check(zc0 in ZC0S and k0 in (3, 5),
+                 f"fused_head: conv0 k0={k0} over Z*C0={zc0} outside the "
+                 f"kernel's tiles (Z*C0 in {ZC0S}, k0 in (3, 5))")
+    bev_down.check_down0_args("fused_head", x, y, zc1, zc2, z)
 
 
 def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
@@ -167,7 +210,7 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
         return head_plain(*ins[:-1], z=z)[0]
     dev = feats.device
     kk = k0 * k0 * zc0
-    t = head_tiling(b, x, y, k0, zc1, zc2,
+    t = head_tiling(b, x, y, k0, zc0, zc1, zc2,
                     torch.cuda.get_device_properties(dev).multi_processor_count)
     w0p = torch.zeros((t.w0_dims[1], zc1), dtype=_BF16, device=dev)
     w0p[:kk] = w0_folded.reshape(kk, zc1)
@@ -176,7 +219,7 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
                 mask.contiguous(), w0p, scale0.float().contiguous(),
                 bias0.float().contiguous(), wd_folded.to(_BF16).contiguous(),
                 scale_d.float().contiguous(), bias_d.float().contiguous(),
-                mask_out.contiguous(), out, z, me_down_align(z)[2], k0,
+                mask_out.contiguous(), out, z, me_down_align(z)[2], k0, zc0,
                 *t.args())
     return out
 

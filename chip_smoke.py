@@ -10,6 +10,8 @@ card and checks every hand-written kernel of the port:
 * the fused-stem / fused-head configuration (``bev_pallas_head``,
   ``stem_pallas`` and ``db.stem_pallas`` set): K4 replaces K2, and K5 runs
   the stem tail of both ResNet towers;
+* ``nuscenes_config()`` with ``bev_pallas_head`` set: K4 at the z = 8
+  widths, in one MM forward at the full grid;
 * the two probe entry points (``scripts/probe_torch_down_v2.py`` and
   ``scripts/probe_torch_block_sm_v2.py``): P2 against K2 and P1 against K3.
 K6 has no path; only its parity is checked.
@@ -21,14 +23,18 @@ K6 has no path; only its parity is checked.
    GEMM and K4;
 3. [parity] each kernel against its plain PyTorch version on the card at
    its main-path shapes, with CUDA-event timings of both (median of 20):
-   K1; K2, K4 and P2 at [32,128,128,4], K2 also at z = 8 (the nuScenes
-   and default configs' widths, Zo*C2 = 256); K2's down0 GEMM alone
-   (``down0_gemm``) and K4's kernel alone (``head_gemm``: the output mask
-   precomputed) at b32 and b128, each against its plain version there (10
-   calls queued per timing), with the GEMM's byte-bound share beside a
+   K1 at B = 32 and 128 and the ragged 1 and 33, relu and tanh (timed at
+   32 and 128, also by the profiler's device time, ``device_ms``: its
+   launch is shorter than the host's enqueue); K2, K4 and P2 at [32,128,128,4], K2 also at z = 8 (the
+   nuScenes and default configs' widths, Zo*C2 = 256); K2's down0 GEMM
+   alone (``down0_gemm``) and K4's kernel alone (``head_gemm``: the output
+   mask precomputed) at b32 and b128, K4 alone also at the z = 8 widths
+   ([32,128,128,8] -> 256) and the z = 16 widths (``synthetic_config()``:
+   [32,32,32,16] -> 512), each against its plain version there (10 calls
+   queued per timing), with the GEMM's byte-bound share beside a
    cuDNN yardstick
    (``F.conv2d`` of down0 alone on the activated map, bf16, channels_last,
-   stride 2) and K4's TFLOP/s; K3 at its four block shapes at b32
+   stride 2) and K4's TFLOP/s and bound; K3 at its four block shapes at b32
    and b128, each of its two conv phases also against its plain version
    and timed beside a cuDNN yardstick (``F.conv2d``, bf16, channels_last,
    the conv alone; 10 calls queued per timing), with TFLOP/s and share of
@@ -39,9 +45,9 @@ K6 has no path; only its parity is checked.
    (isolated ulp flips of the summation order) in at most 1e-3 (K2, K4,
    P2) or 0.15 (K3, K6, P1) of the non-zero outputs; P2 is held to K2 and
    P1 to K3's plain version within the same limits (the same rounding
-   points); K4 against K2 and K6 against K3's plain version, on the same
-   inputs, must differ in more than 0.25 (their rounding points differ),
-   so a kernel with the other's rounding fails;
+   points); K4 against K2 (at z = 4 and 8) and K6 against K3's plain
+   version, on the same inputs, must differ in more than 0.25 (their
+   rounding points differ), so a kernel with the other's rounding fails;
 4. [serving] the default path: a 512-tile aerial gallery and three search
    requests (1, 7 and 32 queries, k=5); [serving-fused] the fused path: its
    own 128-tile gallery and three requests.  Each checks shapes, a planted
@@ -52,7 +58,10 @@ K6 has no path; only its parity is checked.
    ``infer_batch_size`` (32): ceil(tiles / 32) tower forwards, and each
    request of <= 32 queries is one MM forward;
 5. [slice] / [slice-fused] 4 query embeddings on the card vs the same module
-   and weights on the CPU (plain versions);
+   and weights on the CPU (plain versions); [nuscenes-fused] one MM forward
+   of ``nuscenes_config()`` with ``bev_pallas_head`` set at its full 128 x
+   128 x 8 grid, batch 2: exact launch counts (K1 x3, K3 x4, K4 x1) and
+   the embeddings against the CPU run;
 6. [timing] MM forward of both configurations at batch 32 and 128
    (synchronised latency and back-to-back throughput), on the same inputs;
 7. [probe] the probe entry points' ``run()`` at b32: the stage-0 A/B (P2
@@ -61,7 +70,7 @@ K6 has no path; only its parity is checked.
    counts: one P2 or P1 launch per v2 call, one K2 or K3 per v1 call.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
-JSON record (``launches`` summed over the three paths, split in
+JSON record (``launches`` summed over the four paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the cuDNN conv yardstick for K3's conv
 phases and K2's down0 GEMM, null for the kernels no single PyTorch call
@@ -177,6 +186,25 @@ def queued_ms(fn, n: int = 10) -> float:
         for _ in range(n):
             fn()
     return cuda_ms(calls) / n
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Mean device time per call of ``fn``'s kernels (``torch.profiler``
+    over ``n`` calls after one warm-up): for a kernel shorter than the
+    host's enqueue of one call, whose CUDA-event timings are the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return total / 1e3 / n
 
 
 def lidar(rng, n: int) -> np.ndarray:
@@ -404,7 +432,8 @@ def down0_alone(args, mask, z):
 def head_alone(args, mask, z):
     """K4's kernel (``head_gemm``: the output mask precomputed) against its
     plain version, 10 calls queued per timing: TFLOP/s and share of the
-    bf16 peak (the 3-D convs' products, ``conv_flops``)."""
+    bf16 peak (the 3-D convs' products, ``conv_flops``), the bound of the
+    same work and the plain version's time."""
     from agplace_tpu_torch.data.voxels import me_down_align
     from agplace_tpu_torch.ops import bev_head
     from agplace_tpu_torch.sparse import bev_grid as bg
@@ -412,25 +441,33 @@ def head_alone(args, mask, z):
     ins = stage0_inputs(args, mask)
     lo_z, hi_z, _ = me_down_align(z)
     m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
-    bsz = mask.shape[0]
-    rec = compare(f"K4 kernel alone b{bsz}", bev_head.head_gemm(
-        *ins, m_out, z=z), bev_head.head_plain(*ins, z=z)[0], KSTAGE0_TOL)
+    bsz, x, y = mask.shape[:3]
+    shape = f"[{bsz},{x},{y},{z}]->{ins[5].shape[3]}"
+    got = bev_head.head_gemm(*ins, m_out, z=z)
+    rec = compare(f"K4 kernel alone {shape}", got,
+                  bev_head.head_plain(*ins, z=z)[0], KSTAGE0_TOL)
     ms = queued_ms(lambda: bev_head.head_gemm(*ins, m_out, z=z))
-    cells = mask.shape[0] * mask.shape[1] * mask.shape[2]
+    pms = cuda_ms(lambda: bev_head.head_plain(*ins, z=z))
+    cells = bsz * x * y
     flops = (conv_flops(cells, ins[2], z, z)
              + conv_flops(cells // 4, ins[5], z, 2))
+    bnd = bound(flops, nbytes(*ins, m_out, got))
     tflops = flops / ms / 1e9
-    log(f"  K4 kernel alone b{bsz}: {ms:.4f} ms; {tflops:.1f} TFLOP/s = "
-        f"{100 * tflops / (PEAK_BF16 / 1e12):.1f} % of the bf16 peak")
-    return dict(ms=ms, tflops=tflops,
+    log(f"  K4 kernel alone {shape}: {ms:.4f} ms; {tflops:.1f} TFLOP/s = "
+        f"{100 * tflops / (PEAK_BF16 / 1e12):.1f} % of the bf16 peak; bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
+        f"{bnd['bound_ms'] / ms:.3f}; plain {pms:.4f} ms")
+    return dict(ms=ms, plain_ms=pms, tflops=tflops,
                 share_of_peak=tflops / (PEAK_BF16 / 1e12),
+                share_of_bound=bnd["bound_ms"] / ms,
                 max_abs_err=rec["max_abs_err"],
-                frac_differ=rec["frac_differ"])
+                frac_differ=rec["frac_differ"], **bnd)
 
 
-def phase_parity(dev, masks, masks128):
-    """Each kernel vs its plain version at its main-path shapes (b32; K3
-    also at b128)."""
+def phase_parity(dev, masks, masks128, mask16):
+    """Each kernel vs its plain version at its main-path shapes (b32; K1,
+    K2's GEMM, K3 and K4 also at b128; K2 and K4 also at the z = 8 widths,
+    K4 at the z = 16 widths on ``mask16``)."""
     from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
                                        bev_head, ode_step, probe_block_sm_v2,
                                        probe_down_v2, stem_pool)
@@ -448,26 +485,37 @@ def phase_parity(dev, masks, masks128):
         return s.repeat(z).to(dev), b.repeat(z).to(dev)
 
     results = {}
-    # K1: x [32, 256] fp32, 10 Euler steps; relu (the slice) and tanh
-    x = randn(32, 256)
+    # K1: x [B, 256] fp32, 10 Euler steps, relu (the slice) and tanh, at
+    # the serving batches 32 and 128 and at ragged ones (1, 33: a last row
+    # tile of one row); timed at 32 and 128 (relu)
     w, b = randn(256, 256, std=1 / 16), randn(256, std=0.1)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
-          "frac_differ": 0.0}
-    for act in ("relu", "tanh"):
-        args = (x, w, b, 10, 0.1, act)
-        rec = compare(f"K1 fused_euler_ode {act} [32,256]",
-                      ode_step.fused_euler_ode(*args),
-                      ode_step.euler_ode_plain(*args), K1_TOL)
+    k1 = {"max_abs_err": 0.0, "frac_differ": 0.0, "library_ms": None}
+    for bsz in (32, 128, 1, 33):
+        x = randn(bsz, 256)
+        for act in ("relu", "tanh"):
+            args = (x, w, b, 10, 0.1, act)
+            rec = compare(f"K1 fused_euler_ode {act} [{bsz},256]",
+                          ode_step.fused_euler_ode(*args),
+                          ode_step.euler_ode_plain(*args), K1_TOL)
+            k1["max_abs_err"] = max(k1["max_abs_err"], rec["max_abs_err"])
+            k1["frac_differ"] = max(k1["frac_differ"], rec["frac_differ"])
+        if bsz not in (32, 128):
+            continue
+        args = (x, w, b, 10, 0.1, "relu")
         ms = cuda_ms(lambda: ode_step.fused_euler_ode(*args))
         pms = cuda_ms(lambda: ode_step.euler_ode_plain(*args))
-        log(f"  K1 {act}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        if act == "relu":
-            k1.update(ms=ms, plain_ms=pms)
-        k1["max_abs_err"] = max(k1["max_abs_err"], rec["max_abs_err"])
-        k1["frac_differ"] = max(k1["frac_differ"], rec["frac_differ"])
-    # 10 steps of x @ W (fp32, outside the tensor cores); x, W, b read once
-    k1.update(bound(10 * 2.0 * x.shape[0] * w.numel(), nbytes(x, w, b, x),
-                    PEAK_FP32), library_ms=None)
+        qms = queued_ms(lambda: ode_step.fused_euler_ode(*args))
+        dms = device_ms(lambda: ode_step.fused_euler_ode(*args))
+        log(f"  K1 relu b{bsz}: kernel {ms:.4f} ms ({qms:.4f} ms with 10 "
+            f"calls queued, {dms:.4f} ms of device time), plain "
+            f"{pms:.4f} ms")
+        tag = "" if bsz == 32 else "_b128"
+        k1.update({f"ms{tag}": ms, f"plain_ms{tag}": pms,
+                   f"queued_ms{tag}": qms, f"device_ms{tag}": dms})
+        if bsz == 32:  # 10 steps of x @ W (fp32, outside the tensor
+            # cores); x, W, b read once, the result written once
+            k1.update(bound(10 * 2.0 * bsz * w.numel(), nbytes(x, w, b, x),
+                            PEAK_FP32))
     results["fused_euler_ode"] = k1
 
     # K2 at b32 KITTI: [32,128,128,4] occupancy, conv0 5x5 -> 4x64, down0
@@ -519,7 +567,7 @@ def phase_parity(dev, masks, masks128):
                                                                  z=z8))
     log(f"  K2 z=8: kernel {rec['z8']['ms']:.4f} ms (the cuDNN conv0 "
         f"included)")
-    del args8, out8, ref8
+    del ref8
     results["fused_conv0_down0"] = rec
 
     # K4 on K2's inputs: conv0 inside the kernel, fp32 epilogues
@@ -537,6 +585,21 @@ def phase_parity(dev, masks, masks128):
     rec.update(stage0, library_ms=None)  # K2's function
     rec["queued"] = {f"b{m.shape[0]}": head_alone(args, m, z0)
                      for m in (m0, masks128[0])}
+    # K4 at the widths of the z = 8 presets (nuscenes_config(), Config():
+    # Z*C0 = 8, Z*C1 = 512 -> Zo*C2 = 256, two N tiles, W0 streamed) on
+    # K2's z = 8 inputs, and of the z = 16 preset (synthetic_config():
+    # 32 x 32 x 16, 1024 -> 512, four N tiles) on its voxelized clouds
+    rec["z8"] = head_alone(args8, m8, z8)
+    rec["z8"]["vs_k2"] = rounding_apart(
+        "K4 vs K2 z=8", bev_head.fused_head(*args8, z=z8)[0], out8)
+    del args8, out8
+    z16 = mask16.shape[-1]
+    args16 = (mask16.to(torch.bfloat16), mask16,
+              fold_w2_stride1(randn(5, 5, 5, 1, c1, std=0.25), z16),
+              *affine(c1, z16),
+              fold_w2_k2s2(randn(2, 2, 2, c1, c1, std=0.09), z16),
+              *affine(c1, z16 // 2))
+    rec["z16"] = head_alone(args16, mask16, z16)
     results["fused_head"] = rec
 
     # P2 on K2's inputs: four parity convs, one concat GEMM, K2's rounding
@@ -830,6 +893,59 @@ def phase_slice_parity(cfg, mm, cpu_mm, requests, dev, label):
         raise AssertionError("GPU embedding disagrees with the CPU run")
 
 
+def phase_nuscenes_fused(dev):
+    """One MM forward of ``nuscenes_config()`` with ``bev_pallas_head`` set,
+    in bf16 at its full widths and its full 128 x 128 x 8 grid, batch 2:
+    K4 takes the z = 8 stage 0 (Z*C0 = 8 -> Zo*C2 = 256).  Exact launch
+    counts (reset just before the forward, read just after it): K1 x3, K3
+    x4, K4 x1, nothing else; the embeddings match the CPU run of the same
+    module and weights."""
+    import dataclasses
+
+    from agplace_tpu_torch import nuscenes_config, ops
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.infer import build_towers
+
+    cfg = nuscenes_config()
+    mc = dataclasses.replace(cfg.model.mm, bev_pallas_head=True)
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, mm=mc, compute_dtype="bfloat16"))
+    rng = np.random.default_rng(7)
+    mm, _ = build_towers(cfg, "cpu", torch.Generator().manual_seed(0))
+    seed_bn(mm, rng)
+    cpu_mm = copy.deepcopy(mm)
+    mm.to(dev)
+    images = rng.standard_normal((2, IMAGE, IMAGE, 3)).astype(np.float32)
+    points = lidar(rng, 2)
+    vox = prepare_query_vox(cfg, points, dev)
+    if tuple(vox.mask.shape[1:]) != tuple(mc.vox_grid_extent):
+        raise AssertionError(f"nuScenes grid {tuple(vox.mask.shape)}")
+    with torch.inference_mode():
+        ops.reset_launches()  # ---- the path: one MM forward
+        gpu = mm(torch.from_numpy(images).to(dev), vox)["embedding"]
+        torch.cuda.synchronize()
+        counts = ops.launches()  # ---- read just after the path
+        cpu = cpu_mm(torch.from_numpy(images),
+                     prepare_query_vox(cfg, points, "cpu"))["embedding"]
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_euler_ode=3, fused_eca_block_sm=4, fused_head=1)
+    log(f"[nuscenes-fused] launches {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    gpu = gpu.cpu()
+    err = float((gpu - cpu).abs().max())
+    scale = float(cpu.abs().max())
+    ok = (gpu.shape == (2, 256) and bool(torch.isfinite(gpu).all())
+          and err <= SLICE_TOL * scale)
+    log(f"[nuscenes-fused] GPU vs CPU embedding (2 queries, grid "
+        f"{'x'.join(map(str, mc.vox_grid_extent))}): max_abs_err={err:.4g} "
+        f"(scale {scale:.4g}, tol {SLICE_TOL} x scale) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("nuScenes GPU embedding disagrees with the CPU")
+    return counts
+
+
 def phase_timing(cfg, models, dev, name):
     """MM forward of each configuration on the same inputs, in the order
     A B B A per batch size (the voxel grid does not depend on the flags)."""
@@ -911,7 +1027,7 @@ def main() -> None:
 
     # the port first: outside a checkout of the repository this fails
     # before anything is printed
-    from agplace_tpu_torch import kitti360_config
+    from agplace_tpu_torch import kitti360_config, synthetic_config
     from agplace_tpu_torch.data.voxels import prepare_query_vox
     from agplace_tpu_torch.sparse.bev_grid import mask_down
 
@@ -934,9 +1050,10 @@ def main() -> None:
         masks[bsz] = [prepare_query_vox(cfg, lidar(rng, bsz), dev).mask]
         for pz in ((0, 0), (1, 1), (1, 1)):  # ME z pairing at z=4, then 2
             masks[bsz].append(mask_down(masks[bsz][-1], (0, 0), (0, 0), pz))
+    mask16 = prepare_query_vox(synthetic_config(), lidar(rng, 32), dev).mask
     log("[parity] kernel vs plain on the card (b32 main-path shapes)")
     with torch.inference_mode():
-        parity = phase_parity(dev, masks[32], masks[128])
+        parity = phase_parity(dev, masks[32], masks[128], mask16)
 
     # ---- the default path: K1, K2, K3
     mm, cpu_mm, requests, counts = phase_serving(cfg, dev, N_TILES,
@@ -951,6 +1068,8 @@ def main() -> None:
         cfg_f, dev, N_TILES_FUSED, "serving-fused")
     phase_slice_parity(cfg_f, mm_f, cpu_mm_f, requests_f, dev,
                        "slice-fused")
+    # ---- nuScenes with the fused head at its full grid: K1, K3, K4
+    counts_n = phase_nuscenes_fused(dev)
     phase_timing(cfg, {"default": mm, "fused": mm_f}, dev, name)
     # ---- the probe entry points: P2 vs K2, P1 vs K3
     with torch.inference_mode():
@@ -983,9 +1102,11 @@ def main() -> None:
     }
     kernels = [dict({"name": k, "route": "cuda", "source": src,
                      "replaces": rep,
-                     "launches": counts[k] + counts_f[k] + counts_p[k],
+                     "launches": (counts[k] + counts_f[k] + counts_n[k]
+                                  + counts_p[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
+                                          "nuscenes_fused": counts_n[k],
                                           "probe": counts_p[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
@@ -999,7 +1120,13 @@ def main() -> None:
                                                  "chunk3_ms_by_shape",
                                                  "ms_by_shape", "b128",
                                                  "conv_phases", "probe_ab",
-                                                 "gemm", "queued", "z8")
+                                                 "gemm", "queued", "z8",
+                                                 "z16", "ms_b128",
+                                                 "plain_ms_b128",
+                                                 "queued_ms",
+                                                 "queued_ms_b128",
+                                                 "device_ms",
+                                                 "device_ms_b128")
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,7 +20,8 @@ persistent grid (every block slot of the SMs filled):
   shipped with four).
 
 and ``csrc/bev_head.cu`` (K4) with its ``AGP_HEAD_SKIP`` bits on the
-occupancy grid of the same shapes (conv0 5x5 over Z*C0 = 4): ``no_im2col``
+occupancy grid of the same shapes (conv0 5x5 over Z*C0 = 4, the resident
+instance): ``no_im2col``
 (the im2col copies), ``no_conv0_mma``, ``no_down0_mma``, ``no_epilogue``
 (the BN0 arithmetic: the accumulator goes to down0 as it is),
 ``no_wd_load``, ``no_mma`` (both GEMMs).
@@ -157,7 +158,7 @@ def head_ms(libs, record, bsz, mask, sms, stream):
     w0 = fold_w2_stride1(torch.randn(k0, k0, k0, 1, 64, generator=g) * 0.25,
                          z)
     wdf = fold_w2_k2s2(torch.randn(2, 2, 2, 64, 64, generator=g) * 0.09, z)
-    t = bev_head.head_tiling(bsz, xy, xy, k0, 256, 128, sms)
+    t = bev_head.head_tiling(bsz, xy, xy, k0, 4, 256, 128, sms)
     w0p = torch.zeros(t.w0_dims[1], 256, dtype=torch.bfloat16, device=dev)
     w0p[:k0 * k0 * 4] = w0.reshape(-1, 256).to(dev, torch.bfloat16)
     wdb = wdf.to(dev, torch.bfloat16).contiguous()
@@ -177,7 +178,7 @@ def head_ms(libs, record, bsz, mask, sms, stream):
                 feats.data_ptr(), mask.data_ptr(), w0p.data_ptr(),
                 ones.data_ptr(), zeros.data_ptr(), wdb.data_ptr(),
                 ones.data_ptr(), zeros.data_ptr(), m_out.data_ptr(),
-                out.data_ptr(), z, 2, k0, *t.args(), stream)
+                out.data_ptr(), z, 2, k0, 4, *t.args(), stream)
             if err != 0:
                 raise RuntimeError(f"head {variant}: CUDA error {err}")
         ms = queued_ms(run)

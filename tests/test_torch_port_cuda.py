@@ -93,6 +93,32 @@ def test_k1_kernel_matches_plain(cuda, act):
     assert ode_step.fused_euler_ode.launches == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("batch", [1, 32, 33, 128])
+def test_k1_kernel_matches_plain_at_batches(cuda, batch, act):
+    """The serving batches (32, 128: 4 and 16 clusters of 8 rows) and
+    ragged ones (1, 33: a last tile of 1 row)."""
+    g = _gen()
+    x = torch.randn(batch, 256, generator=g).to(cuda)
+    w = (torch.randn(256, 256, generator=g) / 16).to(cuda)
+    b = (torch.randn(256, generator=g) * 0.1).to(cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = ode_step.fused_euler_ode(x, w, b, 10, 0.1, act)
+        want = ode_step.euler_ode_plain(x, w, b, 10, 0.1, act)
+    torch.testing.assert_close(got, want, **K1_TOL)
+    assert ode_step.fused_euler_ode.launches == 1
+
+
+@pytest.mark.cuda
+def test_k1_kernel_raises_off_its_width(cuda):
+    x = torch.randn(4, 128, device=cuda)
+    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+        ode_step.fused_euler_ode(x, torch.zeros(128, 128, device=cuda),
+                                 torch.zeros(128, device=cuda))
+
+
 def _stage0_args(g, b, xy, c1, dev, k0=5, z=4):
     """Occupancy [b, xy, xy, z] as the BEV stage 0's input, conv0 k0 x k0,
     widths Z*C1 -> Zo*C1, from the generator ``g``."""
@@ -303,6 +329,31 @@ def test_k4_kernel_matches_plain(cuda, b, xy, k0, c1):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("z,b,xy,k0,c1", [(8, 3, 20, 5, 64), (8, 2, 64, 3, 64),
+                                          (16, 2, 32, 5, 64),
+                                          (16, 1, 20, 3, 64),
+                                          (4, 2, 32, 5, 128)])
+def test_k4_kernel_matches_plain_on_wider_maps(cuda, z, b, xy, k0, c1):
+    """The other presets' stage-0 widths with ``bev_pallas_head``: z = 8
+    (Z*C0 = 8, Z*C1 = 512 -> Zo*C2 = 256, two N tiles), z = 16 (16, 1024
+    -> 512, four N tiles), and Z*C1 = 512 at z = 4: W0 streamed through
+    the ring.  K2's rounding points still differ on most outputs."""
+    zo = me_down_align(z)[2]
+    args = _stage0_args(_gen(), b, xy, c1, cuda, k0, z=z)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got, m1 = bev_head.fused_head(*args, z=z)
+        want, m2 = bev_head.head_plain(*args, z=z)
+        k2, _ = bev_down.conv0_down0_plain(*args, z=z)
+    assert torch.equal(m1, m2) and got.shape[-1] == zo * c1
+    _close_bf16(got, want, STAGE0_FRAC_DIFFER)
+    assert _frac_differ(got, k2) >= ROUNDING_MIN_DIFFER
+    mf = m1.repeat_interleave(c1, dim=-1)
+    assert bool((got[~mf] == 0).all()) and bool((got != 0).any())
+    assert bev_head.fused_head.launches == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c", [(2, 64, 64, 64), (3, 14, 12, 8)])
 def test_k5_kernel_matches_plain(cuda, b, h, w, c):
     g = _gen()
@@ -465,17 +516,21 @@ def test_fused_mm_forward_on_card_counts_kernels_and_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head", [False, True])
 @pytest.mark.parametrize("preset,z", [("nuscenes", 8), ("synthetic", 16)])
-def test_mm_forward_of_other_presets_on_card(cuda, preset, z):
+def test_mm_forward_of_other_presets_on_card(cuda, preset, z, head):
     """The MM forward of nuscenes_config() (and the default config's z = 8)
     and synthetic_config() (z = 16) at their full widths, the BEV grid cut
-    to 32 x 32 cells: K2 takes their stage 0 (Zo*C2 = 256 and 512), and the
-    embeddings match the CPU run of the same module."""
+    to 32 x 32 cells: K2 takes their stage 0 (Zo*C2 = 256 and 512), or K4
+    with ``bev_pallas_head`` set; every kernel of the path launches as
+    often as the forward calls it, and the embeddings match the CPU run of
+    the same module."""
     from agplace_tpu_torch.infer import build_towers
 
     cfg = nuscenes_config() if preset == "nuscenes" else synthetic_config()
     assert cfg.model.mm.vox_grid_extent[2] == z
-    mm_cfg = dataclasses.replace(cfg.model.mm, vox_grid_extent=(32, 32, z))
+    mm_cfg = dataclasses.replace(cfg.model.mm, vox_grid_extent=(32, 32, z),
+                                 bev_pallas_head=head)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, mm=mm_cfg, compute_dtype="bfloat16"))
     mm, _ = build_towers(cfg, "cpu", _gen())
@@ -488,9 +543,45 @@ def test_mm_forward_of_other_presets_on_card(cuda, preset, z):
         ops.reset_launches()
         got = mm(img.to(cuda), BEVGrid(feats=mask.float().to(cuda),
                                        mask=mask.to(cuda), z=z))
-    launches = ops.launches()
-    assert launches["fused_conv0_down0"] == 1 and launches["fused_head"] == 0
-    assert launches["fused_euler_ode"] == 3
+    assert ops.launches() == {"fused_euler_ode": 3,
+                              "fused_conv0_down0": int(not head),
+                              "fused_eca_block_sm": 4,
+                              "fused_head": int(head),
+                              "fused_affine_relu_maxpool": 0,
+                              "fused_eca_block": 0,
+                              "fused_eca_block_concat": 0,
+                              "fused_down_concat": 0}
+    for k, v in want.items():
+        err = float((got[k].cpu() - v).abs().max())
+        assert err <= 5e-2 * float(v.abs().max()), (k, err)
+
+
+@pytest.mark.cuda
+def test_nuscenes_fused_mm_forward_at_its_full_grid(cuda):
+    """nuscenes_config() with ``bev_pallas_head`` set at its full 128 x 128
+    x 8 grid, one query: K4 takes the z = 8 stage 0 on the main path, with
+    exact launch counts, and the embedding matches the CPU run."""
+    from agplace_tpu_torch.infer import build_towers
+
+    cfg = nuscenes_config()
+    mm_cfg = dataclasses.replace(cfg.model.mm, bev_pallas_head=True)
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, mm=mm_cfg, compute_dtype="bfloat16"))
+    assert cfg.model.mm.vox_grid_extent == (128, 128, 8)
+    mm, _ = build_towers(cfg, "cpu", _gen())
+    g = _gen()
+    img = torch.randn(1, 64, 64, 3, generator=g)
+    mask = torch.rand(1, 128, 128, 8, generator=g) < 0.05
+    with torch.inference_mode():
+        want = mm(img, BEVGrid(feats=mask.float(), mask=mask, z=8))
+        mm.to(cuda)
+        ops.reset_launches()
+        got = mm(img.to(cuda), BEVGrid(feats=mask.float().to(cuda),
+                                       mask=mask.to(cuda), z=8))
+    counts = ops.launches()
+    assert counts == dict(counts, fused_head=1, fused_conv0_down0=0,
+                          fused_eca_block_sm=4, fused_euler_ode=3)
+    assert sum(counts.values()) == 8
     for k, v in want.items():
         err = float((got[k].cpu() - v).abs().max())
         assert err <= 5e-2 * float(v.abs().max()), (k, err)

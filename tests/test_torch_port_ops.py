@@ -54,6 +54,49 @@ def test_k1_plain_matches_pallas(act):
     assert ode_step.fused_euler_ode.launches == 0
 
 
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("batch", [1, 33])
+def test_k1_path_matches_pallas_at_ragged_batch(batch, act):
+    """The port's K1 path at the model's width D = 256 and a batch that
+    leaves a ragged row tile (``ode_tiling``: 8 rows a cluster) against
+    JAX's ``fused_euler_ode``."""
+    rng = np.random.default_rng(batch)
+    x = rng.standard_normal((batch, 256)).astype(np.float32)
+    w = (rng.standard_normal((256, 256)) / 16).astype(np.float32)
+    b = (rng.standard_normal(256) * 0.1).astype(np.float32)
+    want = jax_ode.fused_euler_ode(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(b), 10, 0.1, act)
+    assert ode_step.ode_tiling(batch, 256).tiles * ode_step.ROWS > batch
+    ops.reset_launches()
+    got = ode_step.fused_euler_ode(_t(x), _t(w), _t(b), 10, 0.1, act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_FP32)
+    assert ode_step.fused_euler_ode.launches == 0
+
+
+@pytest.mark.parametrize("batch", [1, 2, 31, 32, 33, 128, 129])
+def test_k1_tiling_covers_every_row_and_column_once(batch):
+    """Each (row, column) of x is computed and written by exactly one block
+    of ``ode_tiling``'s grid; a cluster's blocks share its rows and split
+    W's columns; the kernel takes the geometry as is."""
+    t = ode_step.ode_tiling(batch, ode_step.DIM)
+    assert t.grid == t.tiles * t.cluster and t.tiles == -(-batch // t.rows)
+    assert len(_build._SIGNATURES["agp_ode_euler"]) == 4 + 5 + len(t.args()) + 1
+    seen = np.zeros((batch, ode_step.DIM), np.int64)
+    for blk in range(t.grid):
+        rows, cols = ode_step.ode_block(t, blk, batch)
+        assert len(cols) == ode_step.DIM // t.cluster
+        same = ode_step.ode_block(t, blk - blk % t.cluster, batch)[0]
+        assert rows == same  # the cluster's rows
+        seen[rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("batch,dim", [(32, 128), (32, 512), (0, 256)])
+def test_k1_tiling_refuses_other_widths(batch, dim):
+    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+        ode_step.ode_tiling(batch, dim)
+
+
 # --------------------------------------------------------------------- K2
 def _grid(rng, b, xy, z, c0, density=0.3):
     mask = rng.uniform(size=(b, xy, xy, z)) < density

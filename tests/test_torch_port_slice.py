@@ -14,11 +14,13 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from agplace_tpu.config import kitti360_config
+from agplace_tpu.config import (kitti360_config, nuscenes_config,
+                                synthetic_config)
 from agplace_tpu.data.base import prepare_query_vox as jax_prepare_query_vox
 from agplace_tpu.models.dbvanilla2d import DBVanilla2D as JaxDB
 from agplace_tpu.models.fusion import FuseBlockToShallow as JaxFuse
 from agplace_tpu.models.mm import MM as JaxMM
+from agplace_tpu.sparse import bev_grid as jax_bev
 from agplace_tpu.sparse.bev_grid import BEVGrid as JaxGrid
 from agplace_tpu_torch.data.voxels import prepare_query_vox
 from agplace_tpu_torch.models.dbvanilla2d import DBVanilla2D
@@ -225,9 +227,49 @@ def test_stage1_fusion_matches(world):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_mm_all_keys_match(world, dtype):
-    cfg, img, _, vox, v = world
+# The presets the MM is held to JAX at, each with its BEV grid cut to 32 x
+# 32 cells at its own z: KITTI-360 (z = 4, the ``world`` above), nuScenes
+# and the default config (z = 8), the synthetic config (z = 16), and
+# nuScenes with ``bev_pallas_head`` set (K4 at z = 8; JAX's Pallas path with
+# ``_pallas_backend_ok`` patched to True, as the JAX package's tests do).
+# The other presets take PRESET_IMG px images: the image branch is the
+# same module at every preset, and the BEV branch is what differs.
+PRESETS = {"nuscenes": (nuscenes_config, False),
+           "synthetic": (synthetic_config, False),
+           "nuscenes_head": (nuscenes_config, True)}
+PRESET_IMG = 32
+
+
+@pytest.fixture(scope="module")
+def preset_world(request):
+    if request.param == "kitti360":
+        cfg, img, _, vox, v = request.getfixturevalue("world")
+        return False, cfg, img, vox, v
+    make, head = PRESETS[request.param]
+    cfg = make()
+    z = cfg.model.mm.vox_grid_extent[2]
+    mm = dataclasses.replace(cfg.model.mm, vox_grid_extent=GRID[:2] + (z,),
+                             bev_pallas_head=head)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, mm=mm))
+    rng = np.random.default_rng(0)
+    img = rng.standard_normal((B, PRESET_IMG, PRESET_IMG, 3)).astype(
+        np.float32)
+    vox = jax_prepare_query_vox(cfg, _points(rng, B))
+    mm_j = JaxMM(config=cfg.model.mm, train=False)
+    v = _randomize(jax.jit(mm_j.init)(jax.random.PRNGKey(0), img, vox), rng)
+    return head, cfg, img, vox, v
+
+
+@pytest.mark.parametrize("preset_world,dtype", [
+    ("kitti360", "float32"), ("kitti360", "bfloat16"),
+    ("nuscenes", "float32"), ("nuscenes", "bfloat16"),
+    ("synthetic", "float32"), ("synthetic", "bfloat16"),
+    ("nuscenes_head", "bfloat16")], indirect=["preset_world"],
+    scope="module")
+def test_mm_all_keys_match(preset_world, dtype, monkeypatch):
+    head, cfg, img, vox, v = preset_world
+    if head:
+        monkeypatch.setattr(jax_bev, "_pallas_backend_ok", lambda: True)
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
                 else (jnp.bfloat16, torch.bfloat16))
     mm_j = JaxMM(config=cfg.model.mm, train=False, dtype=jdt)
@@ -236,6 +278,7 @@ def test_mm_all_keys_match(world, dtype):
     ops.reset_launches()
     with torch.inference_mode():
         got = mm(torch.from_numpy(img), _tgrid(vox))
+    assert np.asarray(vox.mask).shape[-1] == cfg.model.mm.vox_grid_extent[2]
     assert sorted(got) == sorted(KEYS) == sorted(want)
     for k in KEYS:
         assert got[k].dtype == torch.float32, k

@@ -214,56 +214,156 @@ def test_k2_down0_gemm_checks_then_takes_plain_on_cpu():
 
 
 # --------------------------------------------------------------------- K4
-@pytest.mark.parametrize("b,x,y,k0", [(3, 20, 20, 5), (2, 16, 36, 3),
-                                      (1, 32, 32, 5), (1, 4, 40, 3)])
-def test_k4_halo_and_im2col_replay_conv0(b, x, y, k0):
-    """Per tile one zero-filled halo box of feats [B, X, Y*4]; per parity
-    the kernel's im2col of the patch's 128 rows from it equals conv0's
-    im2col at the parity's cells (border zeros included), its padded depth
-    stays zero, and times the zero-padded W0 it gives conv0 exactly."""
+def _halo_view(feats, t):
+    """feats as the tensor map views it, outermost first: [1, B, X, Y*4]
+    at Z*C0 = 4 (8-byte cells), else [B, X, Y, Z*C0] itself."""
+    b, x, y, zc0 = feats.shape
+    return feats.reshape(1, b, x, y * 4) if zc0 == 4 else feats
+
+
+def _head_im2col(halo, k0, zc0, kp, par):
+    """The kernel's im2col of one parity from the halo [rows, 36, Z*C0],
+    through ``head_im2col``'s word placement: [128, kp]."""
+    col = torch.zeros(128, kp, dtype=torch.float64)
+    for row in range(128):
+        for tap in range(k0 * k0):
+            hx, hy, words = bev_head.head_im2col(k0, zc0, row, par, tap)
+            assert len(words) == zc0 // 4
+            for w, (slab, chunk, off) in enumerate(words):
+                k = slab * 64 + chunk * 8 + off // 2
+                assert k == zc0 * tap + 4 * w and off in (0, 8)
+                col[row, k:k + 4] = halo[hx, hy, 4 * w:4 * w + 4]
+    return col
+
+
+@pytest.mark.parametrize("b,x,y,k0,zc0", [
+    (3, 20, 20, 5, 4), (2, 16, 36, 3, 4), (1, 32, 32, 5, 4), (1, 4, 40, 3, 4),
+    (2, 20, 20, 5, 8), (1, 16, 36, 3, 8), (1, 20, 20, 5, 16),
+    (1, 4, 40, 3, 16)])
+def test_k4_halo_and_im2col_replay_conv0(b, x, y, k0, zc0):
+    """Per tile one zero-filled halo box of feats ([B, X, Y*4] at Z*C0 = 4,
+    [B, X, Y, Z*C0] at 8 and 16); per parity the kernel's im2col of the
+    patch's 128 rows from it equals conv0's im2col at the parity's cells
+    (border zeros included), its padded depth stays zero, and times the
+    zero-padded W0 it gives conv0 exactly."""
     zc1 = 64
     h = k0 // 2
-    feats = _ints((b, x, y, 4), 3)
-    w0 = _ints((k0, k0, 4, zc1), 4)
-    t = bev_head.head_tiling(b, x, y, k0, zc1, 128, sms=132)
-    kp = bev_head.head_depth(k0)
-    assert t.x_dims == (y * 4, x, b) and t.x_box[1:] == (16 + 2 * h, 1)
-    assert t.x_box[0] == 144  # 36 cells of 4 channels: 288 bytes
-    # the inner start is 16-byte aligned (8 bf16) at every tile
-    assert all(bev_head.head_coords(t, i, k0)[0][0] % 8 == 0
-               for i in range(t.tiles))
-    assert t.w0_dims == (zc1, kp) and kp in (64, 128) and 4 * k0 * k0 <= kp
-    assert t.wd_dims == (128, 4 * zc1) and t.steps == 4 * zc1 // 64
-    assert len(_build._SIGNATURES["agp_bev_head"]) == 10 + 3 + len(t.args()) + 1
+    feats = _ints((b, x, y, zc0), 3)
+    w0 = _ints((k0, k0, zc0, zc1), 4)
+    t = bev_head.head_tiling(b, x, y, k0, zc0, zc1, 128, sms=132)
+    kp = bev_head.head_depth(k0, zc0)
+    cells = 2 * bev_head.PATCH_Y + 2 * bev_head.HALO_LEAD
+    if zc0 == 4:  # 36 cells of 4 channels: 288 bytes
+        assert t.x_dims == (y * 4, x, b, 1)
+        assert t.x_box == (cells * 4, 16 + 2 * h, 1, 1)
+        # the inner start is 16-byte aligned (8 bf16) at every tile
+        assert all(bev_head.head_coords(t, i, k0)[0][0] % 8 == 0
+                   for i in range(t.tiles))
+    else:  # channels innermost: within TMA's 256-element box limit
+        assert t.x_dims == (zc0, y, x, b)
+        assert t.x_box == (zc0, cells, 16 + 2 * h, 1)
+        assert all(bev_head.head_coords(t, i, k0)[0][0] == 0
+                   for i in range(t.tiles))
+    assert max(t.x_box) <= 256
+    assert kp % 64 == 0 and zc0 * k0 * k0 <= kp < zc0 * k0 * k0 + 64
+    assert t.w0_dims[0] == zc1 and t.w0_dims[1] >= kp
+    assert t.resident == (zc0 == 4)
+    assert t.wd_dims == (128, 4 * zc1)
+    assert len(_build._SIGNATURES["agp_bev_head"]) == 10 + 4 + len(t.args()) + 1
     w0p = torch.zeros(kp, zc1, dtype=torch.float64)
-    w0p[:4 * k0 * k0] = w0.reshape(-1, zc1)
+    w0p[:zc0 * k0 * k0] = w0.reshape(-1, zc1)
     padded = F.pad(feats, (0, 0, h, h, h, h))  # conv0's zero padding
     conv0 = F.conv2d(feats.permute(0, 3, 1, 2), w0.permute(3, 2, 0, 1),
                      padding=h).permute(0, 2, 3, 1)
-    view = feats.reshape(b, x, y * 4)
+    view = _halo_view(feats, t)
     xo, yo = x // 2, y // 2
     for tile in range(t.tiles):
-        start, (xo0, yo0, bb) = bev_head.head_coords(t, tile, k0)
-        halo = _tma_box(view, start, t.x_box)[0]  # [16 + 2h, box0]
+        start, (xo0, yo0, bb, n0) = bev_head.head_coords(t, tile, k0)
+        assert n0 == 0
+        halo = _tma_box(view, start, t.x_box).reshape(16 + 2 * h, cells, zc0)
         for par in range(4):
             dx, dy = divmod(par, 2)
-            col = torch.zeros(128, kp, dtype=torch.float64)
-            for row in range(128):
-                for tap in range(k0 * k0):
-                    hx, hy, slab, chunk, off = bev_head.head_im2col(
-                        k0, row, par, tap)
-                    k = slab * 64 + chunk * 8 + off // 2
-                    assert k == 4 * tap and off in (0, 8)
-                    col[row, k:k + 4] = halo[hx, 4 * hy:4 * hy + 4]
+            col = _head_im2col(halo, k0, zc0, kp, par)
             for row in range(128):
                 ox, oy = xo0 + row // 16, yo0 + row % 16
                 if ox >= xo or oy >= yo:
                     continue  # the kernel stores no such row
                 cx, cy = 2 * ox + dx, 2 * oy + dy
                 want = padded[bb, cx:cx + k0, cy:cy + k0].reshape(-1)
-                assert torch.equal(col[row, :4 * k0 * k0], want)
-                assert not col[row, 4 * k0 * k0:].any()
+                assert torch.equal(col[row, :zc0 * k0 * k0], want)
+                assert not col[row, zc0 * k0 * k0:].any()
                 assert torch.equal(col[row] @ w0p, conv0[bb, cx, cy])
+
+
+@pytest.mark.parametrize("b,x,y,k0,zc0,zc1,zc2", [
+    (2, 20, 20, 5, 4, 256, 128),   # KITTI-360's widths: W0 resident
+    (1, 16, 34, 3, 4, 512, 128),   # Z*C1 > 256: W0 streamed at Z*C0 = 4
+    (1, 16, 32, 5, 4, 256, 256),   # two N tiles: W0 streamed at Z*C0 = 4
+    (1, 20, 20, 5, 8, 512, 256),   # the z = 8 presets': 2 N tiles
+    (1, 16, 32, 5, 16, 1024, 512),  # the z = 16 preset's: 4 N tiles
+])
+def test_k4_ring_replays_conv0_and_down0(b, x, y, k0, zc0, zc1, zc2):
+    """The whole K4 walk replayed in float64 on small integers (every sum
+    exact): per tile the halo and per parity the im2col as above; per
+    (parity, 64-channel chunk) conv0 from W0's boxes (resident: loaded
+    once, ``head_tiling``'s w0 box; streamed: the ring's ``head_step``
+    boxes of 128 rows, the MMAs stopping at kp), the activation (relu:
+    head_plain's BN0 affine and rounding left out, they are elementwise)
+    times the chunk's two wd boxes of the tile's N tile from the ring; the
+    blocks of the persistent grid together write every output cell and
+    channel once, equal to down0(relu(conv0)), the function head_plain
+    computes."""
+    h = k0 // 2
+    feats = _ints((b, x, y, zc0), 5)
+    w0 = _ints((k0, k0, zc0, zc1), 6)
+    wd = _ints((2, 2, zc1, zc2), 7)
+    t = bev_head.head_tiling(b, x, y, k0, zc0, zc1, zc2, sms=3)
+    kp, nch = bev_head.head_depth(k0, zc0), zc1 // 64
+    assert t.nn == zc2 // 128 and t.tiles == b * t.npx * t.npy * t.nn
+    assert t.resident == (zc0 == 4 and zc1 <= 256 and zc2 == 128)
+    w0p = torch.zeros(t.w0_dims[1], zc1, dtype=torch.float64)
+    w0p[:zc0 * k0 * k0] = w0.reshape(-1, zc1)
+    wm = wd.reshape(4 * zc1, zc2)
+    act = torch.relu(F.conv2d(feats.permute(0, 3, 1, 2),
+                              w0.permute(3, 2, 0, 1), padding=h))
+    want = F.conv2d(act, wd.permute(3, 2, 0, 1), stride=2).permute(0, 2, 3, 1)
+    view = _halo_view(feats, t)
+    cells = 2 * bev_head.PATCH_Y + 2 * bev_head.HALO_LEAD
+    xo, yo = x // 2, y // 2
+    got = torch.full((b, xo, yo, zc2), float("nan"), dtype=torch.float64)
+    cols = {}  # a patch's im2col, the same for each of its N tiles
+    for blk in range(t.grid):
+        for tile in range(blk, t.tiles, t.grid):
+            start, (xo0, yo0, bb, n0) = bev_head.head_coords(t, tile, k0)
+            if start not in cols:
+                halo = _tma_box(view, start, t.x_box).reshape(
+                    16 + 2 * h, cells, zc0)
+                cols[start] = [_head_im2col(halo, k0, zc0, kp, par)
+                               for par in range(4)]
+            acc_d = torch.zeros(128, 128, dtype=torch.float64)
+            acc0 = torch.zeros(128, 64, dtype=torch.float64)
+            for i in range(t.steps):
+                kind, par, c, boxes = bev_head.head_step(t, tile, i)
+                if kind == "w0":  # streamed: 128 rows of chunk c's columns
+                    col0, row0 = boxes
+                    box = _tma_box(w0p, boxes, t.w0_box)
+                    hi = min(row0 + 128, kp)
+                    acc0 += cols[start][par][:, row0:hi] @ box[:hi - row0]
+                    continue
+                if t.resident:  # W0 loaded once, as SLAB-row boxes
+                    acc0 = sum(cols[start][par][:, r:r + 64]
+                               @ _tma_box(w0p, (64 * c, r), t.w0_box)
+                               for r in range(0, kp, 64))
+                assert [wc[1] for wc in boxes] == [par * zc1 + 64 * c] * 2
+                acc_d += torch.relu(acc0) @ torch.cat(
+                    [_tma_box(wm, wc, t.wd_box) for wc in boxes], dim=1)
+                acc0 = torch.zeros(128, 64, dtype=torch.float64)
+            nx, ny = min(8, xo - xo0), min(16, yo - yo0)
+            assert torch.isnan(got[bb, xo0:xo0 + nx, yo0:yo0 + ny,
+                                   n0:n0 + 128]).all()  # each once
+            got[bb, xo0:xo0 + nx, yo0:yo0 + ny, n0:n0 + 128] = acc_d.reshape(
+                8, 16, 128)[:nx, :ny]
+    assert torch.equal(got, want)
 
 
 def test_k4_head_gemm_takes_plain_on_cpu():
@@ -293,20 +393,20 @@ def test_k4_head_gemm_takes_plain_on_cpu():
 
 
 def test_k4_persistent_grid_is_one_block_per_sm():
-    t = bev_head.head_tiling(32, 128, 128, 5, 256, 128, sms=132)
+    t = bev_head.head_tiling(32, 128, 128, 5, 4, 256, 128, sms=132)
     assert t.tiles == 1024 and t.grid == 132
-    assert t.x_box == (144, 20, 1)  # the 5.8 KB halo of KITTI
-    assert bev_head.head_tiling(1, 8, 8, 5, 256, 128, sms=132).grid == 1
+    assert t.x_box == (144, 20, 1, 1)  # the 5.8 KB halo of KITTI
+    assert bev_head.head_tiling(1, 8, 8, 5, 4, 256, 128, sms=132).grid == 1
 
 
 @pytest.mark.parametrize("zc0,k0,zc1,zc2,z,match", [
-    (8, 5, 256, 128, 4, "Z\\*C0 = 4"),
+    (12, 5, 256, 128, 4, "Z\\*C0 in \\(4, 8, 16\\)"),
     (4, 7, 256, 128, 4, "k0 in \\(3, 5\\)"),
-    (4, 5, 512, 128, 4, "Z\\*C1 <= 256"),
+    (4, 5, 2048, 128, 4, "up to 1024"),  # Z*C1 > 1024
     (4, 3, 128, 64, 4, "outside the kernel's tiles"),  # Zo*C2 = 64
     (4, 5, 160, 128, 4, "outside the kernel's tiles"),  # Z*C1 % 64
-    (4, 5, 256, 256, 4, "outside the kernel's tiles"),  # Zo*C2 > 128
-    (4, 5, 256, 128, 8, "outside the kernel's tiles"),  # z > 4
+    (8, 5, 512, 192, 8, "outside the kernel's tiles"),  # Zo*C2 % 128
+    (4, 5, 256, 128, 32, "outside the kernel's tiles"),  # z > 16
 ])
 def test_k4_shape_rule_raises(zc0, k0, zc1, zc2, z, match):
     with pytest.raises(ValueError, match=match):
@@ -317,10 +417,10 @@ def test_stage0_kitti_widths_pass_both_rules():
     bev_down.check_down0_args("k2", 128, 128, 256, 128, 4)
     bev_head.check_head_args(128, 128, 4, 5, 256, 128, 4)
     bev_head.check_head_args(20, 20, 4, 3, 256, 128, 4)
-    assert np.array_equal(bev_head.head_tiling(3, 20, 20, 3, 256, 128,
+    assert np.array_equal(bev_head.head_tiling(3, 20, 20, 3, 4, 256, 128,
                                                sms=132).args(),
-                          (80, 20, 3, 144, 18, 1, 256, 64, 64, 64, 128, 1024,
-                           64, 64, 2, 1, 16, 6, 6))
+                          (80, 20, 3, 1, 144, 18, 1, 1, 256, 64, 64, 64, 128,
+                           1024, 64, 64, 2, 1, 1, 16, 6, 6))
 
 
 @pytest.mark.parametrize("preset", ["default", "nuscenes", "synthetic"])
@@ -336,3 +436,40 @@ def test_k2_rule_takes_every_presets_stage0(preset):
     c1 = cfg.voxfe_planes[0]
     bev_down.check_down0_args("k2", x, y, z * c1,
                               bev_down.me_down_align(z)[2] * c1, z)
+
+
+@pytest.mark.parametrize("k0", [3, 5])
+@pytest.mark.parametrize("preset", ["kitti360", "default", "nuscenes",
+                                    "synthetic"])
+def test_k4_rule_takes_every_presets_stage0(preset, k0):
+    """With ``bev_pallas_head`` set, K4 takes each preset's stage 0: conv0
+    over Z*C0 = z occupancy channels (C0 = 1) to Z*C1 = z * planes[0],
+    down0 to Zo*C2 = Zo * planes[0], at the preset's grid; the tiling
+    picks the resident instance at KITTI-360's widths only."""
+    from agplace_tpu_torch import config
+
+    cfg = {"kitti360": config.kitti360_config(), "default": config.Config(),
+           "nuscenes": config.nuscenes_config(),
+           "synthetic": config.synthetic_config()}[preset].model.mm
+    x, y, z = cfg.vox_grid_extent
+    c1 = cfg.voxfe_planes[0]
+    zo = bev_down.me_down_align(z)[2]
+    bev_head.check_head_args(x, y, z, k0, z * c1, zo * c1, z)
+    t = bev_head.head_tiling(32, x, y, k0, z, z * c1, zo * c1, sms=132)
+    assert t.resident == (z == 4) and t.nn == zo * c1 // 128
+    assert max(t.x_box) <= 256 and t.w0_box[1] <= 256
+
+
+@pytest.mark.parametrize("zc0", [4, 8, 16])
+@pytest.mark.parametrize("zc2", [128, 256, 384, 512])
+def test_k4_rule_takes_the_wider_widths(zc0, zc2):
+    """Z*C0 in (4, 8, 16), Z*C1 up to 1024 and Zo*C2 any multiple of 128
+    up to 512 pass; everything K4 took before (Z*C0 = 4, Z*C1 <= 256,
+    Zo*C2 = 128, z <= 4) still does."""
+    for k0 in (3, 5):
+        bev_head.check_head_args(32, 32, zc0, k0, 1024, zc2, 16)
+        bev_head.check_head_args(32, 32, zc0, k0, 512, zc2, 8)
+    for zc1, z in ((64, 1), (128, 2), (192, 3), (256, 4), (256, 2)):
+        bev_head.check_head_args(20, 20, 4, 5, zc1, 128, z)
+    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+        bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 64, 16)
