@@ -4,12 +4,15 @@
 // fused_eca_block (_block_kernel), the r3 batch-major form of K3 that no
 // model path calls.  Like K3 (bev_block_sm.cu), CUDA blocks cannot carry
 // the per-item ECA pool from the second conv to the attention multiply, so
-// the block runs as phases on the shared implicit GEMM, here with its fp32
-// epilogues:
-//   1. h   = bf16(relu(conv3x3(x)*s1 + b1) * mask)       (conv_igemm, EPI 3)
-//   2. g   = bf16(conv3x3(h)*s2 + b2); pool += g * mask  (conv_igemm, EPI 4)
+// the block runs as phases, with fp32 epilogues:
+//   1. h   = bf16(relu(conv3x3(x)*s1 + b1) * mask)
+//   2. g   = bf16(conv3x3(h)*s2 + b2); pool += g * mask
 //   3. att = sigmoid(conv1d_k(sum_z pool / count)), fp32 (eca.cuh)
 //   4. out = bf16(relu(g*att + x) * mask), fp32, one round (combine_kernel)
+// Phases 1 and 2 are instances 2 and 3 of K3's TMA + wgmma conv kernel
+// (conv3x3_sm90.cu, launched through agp_conv3x3) where Z*C is a multiple
+// of 128; at the narrower widths its tiles do not divide (Z*C = 32, 64, 96,
+// ...) they are the wmma implicit GEMM below (conv_igemm, EPI 3 and 4).
 // These are the rounding points of bev_block.py:78-124, which differ from
 // K3's: the affines run in fp32 on the fp32 accumulator, the attention is
 // never rounded, and the residual combine rounds once.

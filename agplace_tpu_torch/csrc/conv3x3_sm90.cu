@@ -1,5 +1,6 @@
-// K3's two 3x3 conv phases for Hopper: TMA loads into a 128-byte-swizzled
-// shared-memory ring and wgmma from shared memory, warp-specialised.
+// The 3x3 conv phases of K3 and K6 for Hopper: TMA loads into a
+// 128-byte-swizzled shared-memory ring and wgmma from shared memory,
+// warp-specialised.
 //
 // Replaces, for the TPU kernel agplace_tpu/ops/pallas/bev_block_sm.py:
 // fused_eca_block_sm (_block_kernel), the two conv3x3 + BN epilogues of the
@@ -10,6 +11,15 @@
 //   phase 1 (EPI 0): h = relu(bf16(bf16(bf16(acc)*s1) + b1)) * mask
 //   phase 2 (EPI 1): g = bf16(bf16(bf16(acc)*s2) + b2); pool[b, c] += the
 //                    masked sum of g (one atomic per channel per block)
+// K6 (agplace_tpu/ops/pallas/bev_block.py: fused_eca_block, bev_block.cu)
+// computes the same two convs with the fp32 epilogues of bev_block.py:78-
+// 104: the affine in fp32 on the unrounded accumulator with unrounded
+// scale and bias, a multiply and an add each rounded to fp32:
+//   phase 1 (EPI 2): h = bf16(relu(acc*s1 + b1) * mask)
+//   phase 2 (EPI 3): g = bf16(acc*s2 + b2); pool[b, c] += the masked sum of
+//                    the rounded g
+// The four instances share the main loop; only the scale / bias load and
+// the epilogue form differ, chosen at compile time.
 //
 // What bounds it: tensor-core work.  At the main-path shapes (z = 2 after
 // down0, where the folded 3x3x3 kernels are dense) a phase is 19-39 GFLOP
@@ -94,6 +104,13 @@ struct Conv3x3Params {
   int npx, npy, ntn, steps;  // patch grid, N tiles, K steps
 };
 
+// the epilogue form of each instance: K3's bf16 forms, K6's fp32 forms
+template <int EPI>
+constexpr int kStore = EPI == 0   ? STORE_BF16_RELU_MASK
+                       : EPI == 1 ? STORE_BF16_POOL
+                       : EPI == 2 ? STORE_F32_RELU_MASK
+                                  : STORE_F32_POOL;
+
 template <int EPI>
 __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
     conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap tmap_x,
@@ -117,9 +134,10 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
   const int b = r / p.npx;
   const int x0 = xp * kPatchX, y0 = yp * kPatchY, n0 = nt * kBN;
 
-  if (tid < kBN) {
-    s_sc[tid] = rbf(p.scale[n0 + tid]);
-    s_bi[tid] = rbf(p.bias[n0 + tid]);
+  if (tid < kBN) {  // the bf16 forms round scale and bias, the fp32 don't
+    const float sc = p.scale[n0 + tid], bi = p.bias[n0 + tid];
+    s_sc[tid] = EPI < 2 ? rbf(sc) : sc;
+    s_bi[tid] = EPI < 2 ? rbf(bi) : bi;
   }
   if (tid == 0) {
     ring_init<kStages>(full, empty);
@@ -168,8 +186,8 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
       [&] { fence_regs(acc); });
 
   const TileOut o = {p.out, p.mask, p.X, p.Y, p.cout, p.z};
-  store_tile<EPI == 0 ? STORE_BF16_RELU_MASK : STORE_BF16_POOL>(
-      acc, o, b, x0, y0, n0, s_sc, s_bi, warp, lane, red, p.pool);
+  store_tile<kStore<EPI>>(acc, o, b, x0, y0, n0, s_sc, s_bi, warp, lane,
+                          red, p.pool);
 }
 
 template <int EPI>
@@ -191,10 +209,10 @@ int launch(const bf16* x, const bf16* w, const cuuint64_t (&xd)[4],
 
 }  // namespace
 
-// One conv phase: EPI 0 (pool null) or EPI 1.  The geometry arguments are
-// the fields of the wrapper's Conv3x3Tiling in order: x dims (Zcin, Y, X, B)
-// and box, w dims (Zcout, 9*Zcin) and box, innermost first, then the patch
-// grid, the K steps and the number of blocks.
+// One conv phase: EPI 0 or 2 (pool null), EPI 1 or 3.  The geometry
+// arguments are the fields of the wrapper's Conv3x3Tiling in order: x dims
+// (Zcin, Y, X, B) and box, w dims (Zcout, 9*Zcin) and box, innermost first,
+// then the patch grid, the K steps and the number of blocks.
 extern "C" int agp_conv3x3(const bf16* x, const uint8_t* mask, const bf16* w,
                            const float* scale, const float* bias, bf16* out,
                            float* pool, int epi, int z, int xd0, int xd1,
@@ -211,6 +229,11 @@ extern "C" int agp_conv3x3(const bf16* x, const uint8_t* mask, const bf16* w,
   const Conv3x3Params p = {mask, scale, bias, out, pool, xd2, xd1, xd0, wd0,
                            z, npx, npy, ntn, steps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return epi == 0 ? launch<0>(x, w, xd, xb, wd, wb, grid, p, s)
-                  : launch<1>(x, w, xd, xb, wd, wb, grid, p, s);
+  switch (epi) {
+    case 0: return launch<0>(x, w, xd, xb, wd, wb, grid, p, s);
+    case 1: return launch<1>(x, w, xd, xb, wd, wb, grid, p, s);
+    case 2: return launch<2>(x, w, xd, xb, wd, wb, grid, p, s);
+    case 3: return launch<3>(x, w, xd, xb, wd, wb, grid, p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

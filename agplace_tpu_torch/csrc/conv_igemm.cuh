@@ -1,6 +1,7 @@
 // One templated implicit-GEMM convolution with a fused epilogue, shared by
-// K6 (bev_block.cu) and K3's 1x1 residual combine (bev_block_sm.cu, EPI 2);
-// P1 and P2 use its cp.async helpers.
+// K6's conv phases at the widths the TMA + wgmma kernel's tiles do not
+// divide (bev_block.cu, EPI 3-4) and K3's 1x1 residual combine
+// (bev_block_sm.cu, EPI 2); P1 and P2 use its cp.async helpers.
 //
 // Layouts (the port's public layouts): x [B, H, W, Cin] bf16 (NHWC, the
 // z-major fold puts z*C in the channel axis), weights [KH, KW, Cin, Cout]

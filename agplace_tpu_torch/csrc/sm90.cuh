@@ -1,8 +1,10 @@
-// The Hopper main loop shared by the port's TMA + wgmma kernels: K3's two
-// 3x3 conv phases (conv3x3_sm90.cu), K2's down0 GEMM (bev_down.cu) and K4's
-// fused head (bev_head.cu).
+// The Hopper main loop shared by the port's TMA + wgmma kernels: the 3x3
+// conv phases of K3 and K6 (conv3x3_sm90.cu), K2's down0 GEMM (bev_down.cu)
+// and K4's fused head (bev_head.cu); K5 (stem_pool.cu) uses its mbarrier
+// and bulk-copy primitives.
 //
-// * mbarrier, TMA (cp.async.bulk.tensor, 2-D to 5-D boxes) and wgmma
+// * mbarrier, TMA (cp.async.bulk.tensor, 2-D to 5-D boxes; cp.async.bulk,
+//   1-D) and wgmma
 //   primitives in raw PTX (sm_90a): the shared-memory matrix descriptor of
 //   the 128-byte swizzle, m64n128k16 with A from shared memory (SS) or from
 //   registers (RS), m64n64k16 SS, ldmatrix, and the register fences that
@@ -15,7 +17,7 @@
 //   producer fills the next tile's first stages while the consumers are in
 //   the current tile's epilogue;
 // * the register epilogue of an m64n128 accumulator tile whose 128 rows are
-//   an 8 (x) x 16 (y) patch of output cells (store_tile), in the three
+//   an 8 (x) x 16 (y) patch of output cells (store_tile), in the four
 //   rounding forms the JAX kernels use;
 // * host side: cuTensorMapEncodeTiled, reached through
 //   cudaGetDriverEntryPoint (no -lcuda), for dense bf16 tensors.
@@ -135,6 +137,17 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map
       "[%7];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16) contiguous bytes from global
+// to shared memory, both 16-byte aligned, counted on barrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -351,7 +364,8 @@ __device__ __forceinline__ void ring_consume(uint64_t* full, uint64_t* empty,
 enum {
   STORE_BF16_RELU_MASK = 0,  // relu(bf16(bf16(bf16(acc)*s) + b)) * mask
   STORE_BF16_POOL = 1,       // g = bf16(bf16(bf16(acc)*s) + b); pool += g*mask
-  STORE_F32_RELU_MASK = 2    // bf16(relu(acc*s + b) * mask), fp32 affine
+  STORE_F32_RELU_MASK = 2,   // bf16(relu(acc*s + b) * mask), fp32 affine
+  STORE_F32_POOL = 3         // g = bf16(acc*s + b), fp32 affine; pool += g*mask
 };
 
 // Where an output tile goes: a [B, X, Y, cout] bf16 map with its occupancy
@@ -368,9 +382,9 @@ struct TileOut {
 // in acc[4 j + 2 h + c]; row 16 q + t of the tile is patch cell (q, t), so
 // consumer warp `warp` (0-7) owns patch row `warp`.  s_sc / s_bi are the
 // tile's 128 scales and biases (bf16-rounded for the bf16 forms).
-// STORE_BF16_POOL also reduces the masked sum of the tile's channels into
-// pool [B, cout] (one atomic per channel; named barrier 1 over the
-// consumers, `red` [8][128] of shared scratch).
+// The two pool forms also reduce the masked sum of the tile's (rounded)
+// channels into pool [B, cout] (one atomic per channel; named barrier 1
+// over the consumers, `red` [8][128] of shared scratch).
 template <int EPI>
 __device__ __forceinline__ void store_tile(const float (&acc)[64],
                                            const TileOut& o, int b, int x0,
@@ -378,6 +392,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
                                            const float* s_bi, int warp,
                                            int lane, float (*red)[kTileN],
                                            float* pool) {
+  constexpr bool kPool = EPI == STORE_BF16_POOL || EPI == STORE_F32_POOL;
   const int ox = x0 + warp;
   const int cz = o.cout / o.z;
   size_t m[2];
@@ -402,12 +417,15 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
       if (EPI == STORE_F32_RELU_MASK) {
         v0 = __fadd_rn(__fmul_rn(a0, s_sc[nl]), s_bi[nl]);
         v1 = __fadd_rn(__fmul_rn(a1, s_sc[nl + 1]), s_bi[nl + 1]);
+      } else if (EPI == STORE_F32_POOL) {  // g is a bf16 map
+        v0 = rbf(__fadd_rn(__fmul_rn(a0, s_sc[nl]), s_bi[nl]));
+        v1 = rbf(__fadd_rn(__fmul_rn(a1, s_sc[nl + 1]), s_bi[nl + 1]));
       } else {
         v0 = rbf(rbf(rbf(a0) * s_sc[nl]) + s_bi[nl]);
         v1 = rbf(rbf(rbf(a1) * s_sc[nl + 1]) + s_bi[nl + 1]);
       }
       __nv_bfloat162 r;
-      if (EPI == STORE_BF16_POOL) {
+      if (kPool) {
         r.x = __float2bfloat16_rn(v0);
         r.y = __float2bfloat16_rn(v1);
         ps0 += v0 * mk;
@@ -418,7 +436,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
       }
       *reinterpret_cast<__nv_bfloat162*>(o.out + m[h] * o.cout + n) = r;
     }
-    if (EPI == STORE_BF16_POOL) {
+    if (kPool) {
       // lanes with the same lane%4 hold the same channels: reduce over the
       // warp's 16 cells, then over the 8 warps in shared memory
 #pragma unroll
@@ -432,7 +450,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
       }
     }
   }
-  if (EPI == STORE_BF16_POOL) {
+  if (kPool) {
     named_sync(1, kConsumers);
     const int t = warp * 32 + lane;
     if (t < kTileN) {

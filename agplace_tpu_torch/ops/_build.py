@@ -41,7 +41,8 @@ _SIGNATURES = {
     "agp_block_combine_id": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # z, zo, k0, Z*C0, then the 22 fields of bev_head.HeadTiling
     "agp_bev_head": [_P] * 10 + [_I] * 26 + [_P],
-    "agp_stem_pool": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # B, H, W, C, then the 9 fields of stem_pool.StemPoolTiling
+    "agp_stem_pool": [_P] * 4 + [_I] * 13 + [_P],
     "agp_block_bm_conv1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "agp_block_bm_conv2_pool": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P],
@@ -161,6 +162,15 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
         raise RuntimeError("the CUDA kernels are forward-only: call them "
                            "under torch.inference_mode() / no_grad()")
     return True
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` dense and 16-byte aligned, for a kernel's vector loads and
+    bulk copies: ``t`` itself when it is, else a copy (a contiguous view
+    at an odd storage offset is copied too)."""
+    if t.data_ptr() % 16 == 0:
+        return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def check(cond: bool, msg: str) -> None:

@@ -30,6 +30,9 @@ _BF16 = torch.bfloat16
 # item (128 GEMM rows) and BLOCK_N output channels; each K step is one tap
 # of a SLAB-channel slab (one 128-byte row of bf16 per cell).
 PATCH_X, PATCH_Y, BLOCK_N, SLAB = 8, 16, 128, 64
+# The kernel's instances (its EPI): K3's bf16 epilogues (phase 1: relu and
+# mask; phase 2: the masked pool), then K6's fp32 ones
+EPI_BF16_RELU_MASK, EPI_BF16_POOL, EPI_F32_RELU_MASK, EPI_F32_POOL = range(4)
 
 
 @dataclass(frozen=True)
@@ -163,14 +166,25 @@ def conv_phase(x, mask, w, scale, bias, z: int, pool: bool):
     _check_widths("conv_phase", zci, zco, z, SLAB, BLOCK_N)
     if not _build.on_cuda(x, mask, w, scale, bias):
         return conv_phase_plain(x, mask, w, scale, bias, z, pool)
+    return conv3x3_launch(x, mask, w, scale, bias,
+                          EPI_BF16_POOL if pool else EPI_BF16_RELU_MASK, z)
+
+
+def conv3x3_launch(x, mask, w, scale, bias, epi: int, z: int):
+    """Launch instance ``epi`` of ``csrc/conv3x3_sm90.cu`` on CUDA tensors
+    whose shapes and widths the caller checked (K3's ``conv_phase``, K6's
+    ``fused_eca_block``).  Returns the [B, X, Y, Zcout] bf16 map, and for
+    the pool instances also its fp32 masked sums [B, Zcout]."""
+    b, xd, yd, zci = x.shape
+    zco = int(w.shape[3])
     t = conv3x3_tiling(b, xd, yd, zci, zco)
     out = torch.empty((b, xd, yd, zco), dtype=_BF16, device=x.device)
+    pool = epi in (EPI_BF16_POOL, EPI_F32_POOL)
     sums = (torch.zeros((b, zco), dtype=torch.float32, device=x.device)
             if pool else None)
-    _build.call("agp_conv3x3", x.contiguous(), mask.contiguous(),
+    _build.call("agp_conv3x3", _build.aligned(x), mask.contiguous(),
                 w.to(_BF16).contiguous(), scale.float().contiguous(),
-                bias.float().contiguous(), out, sums, int(pool), z,
-                *t.args())
+                bias.float().contiguous(), out, sums, epi, z, *t.args())
     return (out, sums) if pool else out
 
 

@@ -80,9 +80,7 @@ def fused_euler_ode(x, w, b, n_steps: int = 10, dt: float = 0.1,
                  "fused_euler_ode: fp32 x, w, b required")
     _build.check(w.shape == (dim, dim) and b.shape == (dim,),
                  f"fused_euler_ode: bad shapes {x.shape} {w.shape} {b.shape}")
-    # dense, and 16-byte aligned for the kernel's vector loads
-    x, w, b = (a.contiguous() if a.data_ptr() % 16 == 0 else a.clone(
-        memory_format=torch.contiguous_format) for a in (x, w, b))
+    x, w, b = map(_build.aligned, (x, w, b))
     out = torch.empty_like(x)
     _build.call("agp_ode_euler", x, w, b, out, batch, dim, int(n_steps),
                 float(dt), ACTS[act], *t.args())

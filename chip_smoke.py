@@ -19,8 +19,8 @@ K6 has no path; only its parity is checked.
 1. device check (raises without CUDA) and the card's name / power limit;
 2. kernel build from ``agplace_tpu_torch/csrc`` (one nvcc per source, in
    parallel, sm_90a), and a check that each wgmma kernel holds ``HGMMA``
-   in ``cuobjdump -sass``, by function: K3's two conv phases, K2's down0
-   GEMM and K4;
+   in ``cuobjdump -sass``, by function: K3's and K6's two conv phases
+   each, K2's down0 GEMM and K4;
 3. [parity] each kernel against its plain PyTorch version on the card at
    its main-path shapes, with CUDA-event timings of both (median of 20):
    K1 at B = 32 and 128 and the ragged 1 and 33, relu and tanh (timed at
@@ -39,9 +39,15 @@ K6 has no path; only its parity is checked.
    and timed beside a cuDNN yardstick (``F.conv2d``, bf16, channels_last,
    the conv alone; 10 calls queued per timing), with TFLOP/s and share of
    bound; P1 at
-   K3's four b32 shapes at chunks 1, 3 and 9; K5 at [32,128,128,64] and
-   [128,128,128,64] plus an all-negative case; K6 at [32,64,64,128] and
-   [32,16,16,512].  A bf16 kernel may differ from its plain version
+   K3's four b32 shapes at chunks 1, 3 and 9; K5 bit-equal at
+   [32,128,128,64] and [128,128,128,64] (timed also by ``device_ms``,
+   beside ``F.max_pool2d`` alone on the activated map), an all-negative
+   case, a view at storage offset 1, a ragged last band ([32,100,64,64]),
+   rows split into column tiles ([1,8,512,64]), C = 8 and (3,14,12,8); K6
+   at [32,64,64,128] and [32,16,16,512] (timed also by ``device_ms``; its
+   two conv phases on the Hopper kernel each against its plain version,
+   timed beside cuDNN's convs), and at Z*C = 64 and 96 (the wmma implicit
+   GEMM), zero off the mask.  A bf16 kernel may differ from its plain version
    (isolated ulp flips of the summation order) in at most 1e-3 (K2, K4,
    P2) or 0.15 (K3, K6, P1) of the non-zero outputs; P2 is held to K2 and
    P1 to K3's plain version within the same limits (the same rounding
@@ -72,9 +78,10 @@ K6 has no path; only its parity is checked.
 Every phase raises on failure.  The second-to-last line is the per-kernel
 JSON record (``launches`` summed over the four paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
-inputs by ``bound``; ``library_ms`` the cuDNN conv yardstick for K3's conv
-phases and K2's down0 GEMM, null for the kernels no single PyTorch call
-computes), the last
+inputs by ``bound``; ``library_ms`` the yardstick for part of the work
+where there is one: cuDNN's convs for K3's and K6's conv phases and K2's
+down0 GEMM, ``F.max_pool2d`` for K5; null for the kernels no single PyTorch
+call computes), the last
 line ``{"ok": true, "device": {...}}``.
 """
 
@@ -145,6 +152,8 @@ PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 # The wgmma kernels, by a part of their mangled names: each must hold HGMMA
 SM90_KERNELS = {"K3 conv phase 1": "conv3x3_sm90_kernelILi0E",
                 "K3 conv phase 2": "conv3x3_sm90_kernelILi1E",
+                "K6 conv phase 1": "conv3x3_sm90_kernelILi2E",
+                "K6 conv phase 2": "conv3x3_sm90_kernelILi3E",
                 "K2 down0 GEMM": "down0_sm90_kernel",
                 "K4 fused head": "head_sm90_kernel"}
 
@@ -381,6 +390,40 @@ def conv_phases(name, args, z):
             f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}; cuDNN "
             f"conv alone {cudnn:.4f} ms = {flops / cudnn / 1e9:.1f} TFLOP/s")
     return out
+
+
+def k6_conv_phases(name, args, z):
+    """K6's two conv phases on the Hopper kernel (instances 2 and 3) at one
+    block shape, each against its plain version (``bm_conv_phase_plain``:
+    the fp32 epilogues), timed together by the profiler's device time beside
+    the cuDNN yardstick (``F.conv2d`` of both, bf16, channels_last, the
+    convs alone; 10 calls queued per timing)."""
+    import torch.nn.functional as F
+    from agplace_tpu_torch.ops import bev_block, bev_block_sm as bsm
+
+    x, mask, w1, w2, s1, b1, s2, b2 = args[:8]
+    h = bsm.conv3x3_launch(x, mask, w1, s1, b1, bsm.EPI_F32_RELU_MASK, z)
+    g, pool = bsm.conv3x3_launch(h, mask, w2, s2, b2, bsm.EPI_F32_POOL, z)
+    g_want, pool_want = bev_block.bm_conv_phase_plain(h, mask, w2, s2, b2,
+                                                      z, pool=True)
+    compare(f"K6 conv phase 1 {name}", h, bev_block.bm_conv_phase_plain(
+        x, mask, w1, s1, b1, z, pool=False), KCONV_TOL)
+    compare(f"K6 conv phase 2 {name}", g, g_want, KCONV_TOL)
+    compare(f"K6 conv phase 2 pool {name}", pool, pool_want, KPOOL_TOL)
+
+    def both():
+        hh = bsm.conv3x3_launch(x, mask, w1, s1, b1, bsm.EPI_F32_RELU_MASK, z)
+        bsm.conv3x3_launch(hh, mask, w2, s2, b2, bsm.EPI_F32_POOL, z)
+
+    xc, hc = x.permute(0, 3, 1, 2), h.permute(0, 3, 1, 2)  # channels_last
+    wc1, wc2 = (w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for w in (w1, w2))
+    cudnn = queued_ms(lambda: (F.conv2d(xc, wc1, padding=1),
+                               F.conv2d(hc, wc2, padding=1)))
+    dms = device_ms(both)
+    log(f"  K6 conv phases {name}: {dms:.4f} ms of device time; cuDNN convs "
+        f"alone {cudnn:.4f} ms")
+    return dict(device_ms=dms, cudnn_ms=cudnn)
 
 
 def stage0_inputs(args, mask):
@@ -620,30 +663,65 @@ def phase_parity(dev, masks, masks128, mask16):
     rec.update(stage0, library_ms=None)  # K2's function
     results["fused_down_concat"] = rec
 
-    # K5: the stem conv output at b32 and b128 (256 px images)
+    # K5: the stem conv output at b32 and b128 (256 px images), timed by
+    # CUDA events and by the profiler's device time beside the yardstick
+    # for part of its work, F.max_pool2d alone on the activated bf16 map in
+    # channels-last; bit-equal also at a ragged last band, rows split into
+    # column tiles, C = 8, an odd item count and a misaligned view
+    import torch.nn.functional as F
+
     b32 = masks[0].shape[0]
     hw = IMAGE // 2  # the stem conv's output
-    for bsz in (b32, 4 * b32):
-        x = (randn(bsz, hw, hw, 64) * 2).to(torch.bfloat16)
-        sc = (torch.rand(64, generator=g) + 0.5).to(dev)
-        bi = randn(64, std=0.5)
-        shape = f"[{bsz},{hw},{hw},64]->[{bsz},{hw // 2},{hw // 2},64]"
+    k5 = {"max_abs_err": 0.0, "frac_differ": 0.0}
+    for i, (bsz, h, w, c) in enumerate((
+            (b32, hw, hw, 64), (4 * b32, hw, hw, 64), (b32, 100, 64, 64),
+            (1, 8, 512, 64), (2, 16, 16, 8), (3, 14, 12, 8))):
+        x = (randn(bsz, h, w, c) * 2).to(torch.bfloat16)
+        sc = (torch.rand(c, generator=g) + 0.5).to(dev)
+        bi = randn(c, std=0.5)
+        shape = f"[{bsz},{h},{w},{c}]->[{bsz},{h // 2},{w // 2},{c}]"
         rec = compare(f"K5 fused_affine_relu_maxpool {shape}",
                       stem_pool.fused_affine_relu_maxpool(x, sc, bi),
                       stem_pool.stem_pool_plain(x, sc, bi), EXACT)
-        if bsz == b32:  # every pre-relu value negative: exactly zero
+        k5["max_abs_err"] = max(k5["max_abs_err"], rec["max_abs_err"])
+        if i > 1:  # the b32 and b128 stem shapes are timed
+            continue
+        if i == 0:  # every pre-relu value negative: exactly zero
             xn, bn = -x.abs(), -bi.abs() - 0.5
             neg = stem_pool.fused_affine_relu_maxpool(xn, sc, bn)
             compare(f"K5 negative-bias {shape}", neg,
                     stem_pool.stem_pool_plain(xn, sc, bn), EXACT)
             if bool(neg.any()):
                 raise AssertionError("K5 negative-bias case is not zero")
+            # a contiguous view 2 bytes past 16-byte alignment: copied
+            xo = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+            compare(f"K5 at storage offset 1 {shape}",
+                    stem_pool.fused_affine_relu_maxpool(xo, sc, bi),
+                    stem_pool.stem_pool_plain(x, sc, bi), EXACT)
         ms = cuda_ms(lambda: stem_pool.fused_affine_relu_maxpool(x, sc, bi))
+        dms = device_ms(lambda: stem_pool.fused_affine_relu_maxpool(x, sc,
+                                                                    bi))
         pms = cuda_ms(lambda: stem_pool.stem_pool_plain(x, sc, bi))
-        log(f"  K5 b{bsz}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        if bsz == b32:  # bytes: the map in, the pooled map out
-            k5 = dict(rec, ms=ms, plain_ms=pms, library_ms=None,
-                      **bound(0.0, nbytes(x, sc, bi) + x.numel() // 2))
+        y = stem_pool.stem_pool_plain(x, torch.ones_like(sc),
+                                      torch.zeros_like(bi))
+        ycl = y.permute(0, 3, 1, 2)  # NHWC storage: channels_last NCHW
+        lms = cuda_ms(lambda: F.max_pool2d(ycl, 3, 2, 1))
+        ldms = device_ms(lambda: F.max_pool2d(ycl, 3, 2, 1))
+        # bytes: the map in, the pooled map out
+        bnd = bound(0.0, nbytes(x, sc, bi) + x.numel() // 2)
+        log(f"  K5 b{bsz}: kernel {ms:.4f} ms ({dms:.4f} ms of device "
+            f"time; bound {bnd['bound_ms']:.4f} ms, share "
+            f"{bnd['bound_ms'] / dms:.3f} = "
+            f"{(nbytes(x) + x.numel() // 2) / dms / 1e9:.2f} TB/s), plain "
+            f"{pms:.4f} ms; F.max_pool2d alone on the activated map "
+            f"{lms:.4f} ms ({ldms:.4f} ms of device time)")
+        if i == 0:
+            k5.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lms,
+                      library_device_ms=ldms, **bnd)
+        else:
+            k5.update(ms_b128=ms, device_ms_b128=dms, plain_ms_b128=pms,
+                      library_device_ms_b128=ldms,
+                      bound_ms_b128=bnd["bound_ms"])
     results["fused_affine_relu_maxpool"] = k5
 
     # K3 at the four slice shapes (z = 2 after down0) and block0 at b128,
@@ -743,16 +821,22 @@ def phase_parity(dev, masks, masks128, mask16):
     results["fused_eca_block_concat"] = p1
 
     # K6 (no model path): identity blocks at a stage-0 and a stage-2 shape
-    k6 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
-          "frac_differ": 0.0}
-    for mask, c in ((masks[1], 64), (masks[3], 256)):
+    # (Z*C = 128 and 512: the conv phases on the Hopper kernel, each also
+    # against its plain version and beside the cuDNN yardstick), timed by
+    # CUDA events and the profiler's device time; Z*C = 64 and 96 (the
+    # wmma implicit GEMM's widths) compared only
+    k6 = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
+          "conv_phases_device_ms": 0.0, "library_ms": 0.0,
+          "max_abs_err": 0.0, "frac_differ": 0.0}
+    for mask, c in ((masks[1], 64), (masks[3], 256), (masks[1][:4], 32),
+                    (masks[2][:4], 48)):
         z = 2
         bsz, xy = mask.shape[0], mask.shape[1]
         xin = randn(bsz, xy, xy, z, c).to(torch.bfloat16)
         xin = torch.where(mask[..., None], xin, 0).reshape(bsz, xy, xy,
                                                            z * c)
         ws = [fold_w2_stride1(randn(3, 3, 3, c, c, std=(2 / (27 * c)) ** .5),
-                              z) for _ in range(2)]
+                              z).to(torch.bfloat16) for _ in range(2)]
         args = (xin, mask, *ws, *affine(c, z), *affine(c, z),
                 randn(3 if c == 64 else 5))
         shape = f"[{bsz},{xy},{xy},{z * c}]"
@@ -761,15 +845,29 @@ def phase_parity(dev, masks, masks128, mask16):
                       bev_block.eca_block_bm_plain(*args, z=z), KBF16_TOL)
         rounding_apart(f"K6 vs K3's plain version {shape}", out6,
                        bev_block_sm.eca_block_plain(*args, z=z))
-        ms = cuda_ms(lambda: bev_block.fused_eca_block(*args, z=z))
-        pms = cuda_ms(lambda: bev_block.eca_block_bm_plain(*args, z=z))
-        log(f"  K6 {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        k6["ms"] += ms
-        k6["plain_ms"] += pms
+        mzc = mask.repeat_interleave(c, dim=-1)
+        if bool(out6[~mzc].any()):
+            raise AssertionError(f"K6 {shape}: non-zero outputs off the "
+                                 f"mask")
         k6["max_abs_err"] = max(k6["max_abs_err"], rec["max_abs_err"])
         k6["frac_differ"] = max(k6["frac_differ"], rec["frac_differ"])
-        add_bound(k6, block_bound(*args, z))
-    k6["library_ms"] = None
+        if z * c % 128:
+            continue
+        ms = cuda_ms(lambda: bev_block.fused_eca_block(*args, z=z))
+        dms = device_ms(lambda: bev_block.fused_eca_block(*args, z=z))
+        pms = cuda_ms(lambda: bev_block.eca_block_bm_plain(*args, z=z))
+        phases = k6_conv_phases(shape, args, z)
+        bnd = block_bound(*args, z)
+        log(f"  K6 {shape}: kernel {ms:.4f} ms ({dms:.4f} ms of device "
+            f"time, its conv phases {phases['device_ms']:.4f}; bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
+            f"{bnd['bound_ms'] / dms:.3f}), plain {pms:.4f} ms")
+        k6["ms"] += ms
+        k6["device_ms"] += dms
+        k6["conv_phases_device_ms"] += phases["device_ms"]
+        k6["library_ms"] += phases["cudnn_ms"]
+        k6["plain_ms"] += pms
+        add_bound(k6, bnd)
     results["fused_eca_block"] = k6
     return results
 
@@ -1126,7 +1224,11 @@ def main() -> None:
                                                  "queued_ms",
                                                  "queued_ms_b128",
                                                  "device_ms",
-                                                 "device_ms_b128")
+                                                 "device_ms_b128",
+                                                 "library_device_ms",
+                                                 "library_device_ms_b128",
+                                                 "bound_ms_b128",
+                                                 "conv_phases_device_ms")
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

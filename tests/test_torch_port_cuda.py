@@ -353,8 +353,14 @@ def test_k4_kernel_matches_plain_on_wider_maps(cuda, z, b, xy, k0, c1):
     assert bev_head.fused_head.launches == 1
 
 
+# K5: the stem shapes at b32 and b128 (256 px images), a ragged last band
+# (50 output rows in bands of 13 on 132 SMs), rows split into column tiles
+# with a one-column halo, C = 8, and the odd item count (3, 14, 12, 8)
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c", [(2, 64, 64, 64), (3, 14, 12, 8)])
+@pytest.mark.parametrize("b,h,w,c", [(2, 64, 64, 64), (3, 14, 12, 8),
+                                     (32, 128, 128, 64), (128, 128, 128, 64),
+                                     (32, 100, 64, 64), (1, 8, 512, 64),
+                                     (2, 16, 16, 8)])
 def test_k5_kernel_matches_plain(cuda, b, h, w, c):
     g = _gen()
     x = (torch.randn(b, h, w, c, generator=g) * 2).to(cuda, torch.bfloat16)
@@ -374,10 +380,48 @@ def test_k5_kernel_matches_plain(cuda, b, h, w, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,xy", [(64, 16), (256, 8)])
-def test_k6_kernel_matches_plain(cuda, c, xy):
+def test_k5_tiling_on_the_card_splits_rows_and_leaves_a_ragged_band(cuda):
+    """The card tests' shapes above reach a ragged last band and split rows
+    at this card's SM count."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ragged = stem_pool.stem_pool_tiling(32, 100, 64, 64, sms)
+    assert ragged.band * ragged.nband != 50, ragged
+    assert stem_pool.stem_pool_tiling(1, 8, 512, 64, sms).ntw == 4
+
+
+@pytest.mark.cuda
+def test_k5_reads_a_view_at_an_odd_storage_offset(cuda):
+    """A contiguous x at storage offset 1 (2 bytes past 16-byte alignment)
+    is copied before the kernel's bulk copies read it."""
+    g = _gen()
+    b, h, w, c = 2, 32, 32, 64
+    base = (torch.randn(1 + b * h * w * c, generator=g) * 2).to(
+        cuda, torch.bfloat16)
+    x = base[1:].view(b, h, w, c)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = (torch.rand(c, generator=g) + 0.5).to(cuda)
+    bias = torch.randn(c, generator=g).to(cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = stem_pool.fused_affine_relu_maxpool(x, scale, bias)
+        want = stem_pool.stem_pool_plain(x, scale, bias)
+    assert torch.equal(got, want)
+    assert stem_pool.fused_affine_relu_maxpool.launches == 1
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,xy", [(64, 16), (256, 8), (32, 8), (48, 12)])
+def test_k6_kernel_matches_plain(cuda, c, xy, monkeypatch):
+    """Z*C = 128 and 512 run the conv phases on the Hopper kernel (two
+    launches of ``conv3x3_launch``), Z*C = 64 and 96 on the wmma implicit
+    GEMM (none)."""
     z = 2
     mask, args, _ = _block_args(_gen(), c, c, xy, z, cuda)
+    hopper = []
+    launch = bev_block_sm.conv3x3_launch
+    monkeypatch.setattr(bev_block_sm, "conv3x3_launch",
+                        lambda *a: hopper.append(a[5]) or launch(*a))
     ops.reset_launches()
     with torch.inference_mode():
         got = bev_block.fused_eca_block(*args, z=z)
@@ -389,6 +433,9 @@ def test_k6_kernel_matches_plain(cuda, c, xy):
     mf = mask.repeat_interleave(c, dim=-1)
     assert bool((got[~mf] == 0).all())
     assert bev_block.fused_eca_block.launches == 1
+    assert hopper == ([bev_block_sm.EPI_F32_RELU_MASK,
+                       bev_block_sm.EPI_F32_POOL] if z * c % 128 == 0
+                      else [])
 
 
 @pytest.mark.cuda

@@ -161,8 +161,11 @@ def test_k5_odd_size_raises(h, w):
 
 
 # --------------------------------------------------------------------- K6
-@pytest.mark.parametrize("z,c,xy", [(2, 64, 16), (4, 32, 8), (1, 128, 16)])
+@pytest.mark.parametrize("z,c,xy", [(2, 64, 16), (4, 32, 8), (1, 128, 16),
+                                    (2, 32, 8), (2, 48, 8)])
 def test_k6_block_plain_matches_pallas(z, c, xy):
+    """Z*C = 128 (the widths of the Hopper conv instances) and 64, 96 (the
+    wmma implicit GEMM's) on the card."""
     rng = np.random.default_rng(0)
     b = 2
     mask = rng.random((b, xy, xy, z)) < 0.3
