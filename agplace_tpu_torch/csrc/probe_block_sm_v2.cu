@@ -1,291 +1,387 @@
-// P1: the two 3x3 conv phases of the eval ECA block as im2col-concat GEMMs
-// over a halo'd input patch held in shared memory.
+// P1: the two 3x3 conv phases of the eval ECA block as concat GEMMs over a
+// halo'd input patch, on TMA + wgmma.
 //
 // Replaces the TPU probe kernel scripts/probe_block_sm_v2.py:fused_v2
 // (_block_kernel, whose pallas_call is at :178), an alternative formulation
 // of K3 (bev_block_sm.cu).  The TPU kernel writes its batch tile into a
 // halo-padded VMEM scratch (pad_ref) and forms each group of `chunk` taps
 // as a concatenation of shifted windows of it: one MXU dot per group over
-// chunk*Zcin channels, the groups summed in fp32 and rounded to bf16 once.
-// The card's form of that:
-//   * a block owns an output patch of one batch item, kPX = 8 rows (x) of
-//     kPY = 16 cells (y) = 128 GEMM rows, and kBN = 64 output channels;
-//   * for each K slab of kBKC = 32 input channels it stages the halo'd patch
-//     (10 x 18 cells, zero outside the map) in shared memory once, and forms
-//     every tap from shifted views of that tile: with the patch 16 wide a
-//     16-row wmma fragment is one output row, and tap (dx, dy) is the
-//     pointer offset (dx*18 + dy)*kLDA.  kLDA = 48 is a multiple of 16
-//     elements, so every such pointer stays 32-byte aligned, and is padded
-//     past the slab's 32 channels against bank conflicts;
-//   * CHUNK (1, 3 or 9, a template parameter) is the number of taps whose
-//     weights [CHUNK*kBKC, kBN] one shared-memory stage holds: the TPU
-//     kernel's groups.  A slab takes 9/CHUNK stages; the halo tile is
-//     loaded with its first.  Every tap accumulates into the same fp32
-//     registers and the sum is rounded to bf16 once, in the epilogue.
-// The K slab is cut over channels, not taps: the TPU's concatenated tile at
-// chunk 9 and Zcin 512 (9*512 bf16 per row) would not fit a block.  Stages
-// are double-buffered with cp.async: step t+1's weights (and at a slab
-// boundary its halo tile) load while step t feeds the tensor cores.  Each
-// input element is read once per slab and N tile, where the wmma implicit
-// GEMM of conv_igemm.cuh (not used here) gathers it once per tap, nine
-// times.
-//
+// chunk*Zcin channels, the groups summed in fp32 and rounded to bf16 once
+// (probe_block_sm_v2.py:62-80).
 //   phase 1 (EPI 0): h = relu(bf16(bf16(bf16(acc)*s1) + b1)) * mask
 //   phase 2 (EPI 1): g = bf16(bf16(bf16(acc)*s2) + b2); pool[b, c] += the
-//                    masked sum of g (a block's cells belong to one item:
-//                    one atomic per channel per block)
-// The ECA phase and the combine are K3's (eca.cuh, agp_block_eca and
-// agp_block_combine_* in bev_block_sm.cu): their math is identical.
+//                    masked sum of g (one atomic per channel per tile)
+// The ECA phase and the combine are K3's (eca.cuh, bev_block_sm.cu).
 //
 // What bounds it on the H100: tensor-core work (block0 at b32: 2 x 38.7
-// GFLOP over a 33.5 MB map); the halo tile cuts the bytes each block moves
-// per MMA.  The shared memory per block grows with CHUNK (43,776 / 62,208 /
-// 117,504 bytes at 1 / 3 / 9): at 9 it allows one block per SM, below it
-// the registers (about 100 a thread) allow two.
-#include "conv_igemm.cuh"
+// GFLOP over a 33.5 MB map).  K3's conv phases (conv3x3_sm90.cu) bring x
+// into shared memory once per tap, nine times per slab.  Here each input
+// element reaches shared memory once per (patch, 64-channel slab):
+//   * a tile is an output patch of one item -- kPX x kPY = 128 cells, the
+//     GEMM's M -- and 128 output channels; a persistent grid of two blocks
+//     per SM walks the tiles (N tiles of a patch adjacent, so a patch's
+//     second read of x comes from L2), one block's epilogue overlapping
+//     the other's MMAs;
+//   * per slab, ONE 4-D TMA box [C 64, Y kHY, X kPX+2, B 1] of x [B, X, Y,
+//     Zcin] at (c0, y0-1, x0-1, b) brings the halo'd patch, 128-byte
+//     swizzled (a halo cell is one 128-byte row).  TMA zero-fills cells
+//     outside the map (negative coordinates included: the conv's padding)
+//     and channels past Zcin, so ragged patches and Zcin = 32, 96, ... cost
+//     no address arithmetic.  One halo buffer: a block waits for the next
+//     slab's halo while the other block on its SM runs its MMAs, and the
+//     room goes to weight stages (a second buffer measured no faster);
+//   * a weight stage holds `chunk` taps -- the TPU kernel's concatenated
+//     group -- of KC input channels for the tile's 128 output channels: two
+//     3-D TMA boxes (64 columns, KC rows, chunk taps) of w viewed as [9,
+//     Zcin, Zcout].  Two blocks per SM leave a block about 100 KB, so KC
+//     is 64 at chunk 1, 32 at chunk 3 and 16 at chunk 9 (16 / 24 / 36 KB a
+//     stage, 5 / 3 / 2 stages; the TPU's group of 9 x 64 x 128 bf16 would
+//     be 144 KB), and a slab takes 9 / chunk x 64 / KC stages.  Rows past
+//     Zcin and columns past Zcout are zero-filled;
+//   * the A operand of tap (dx, dy) is the halo's rows (px+dx)*kHY +
+//     py+dy.  wgmma reads them from shared memory (SS) through a
+//     descriptor that starts dy rows into the halo with a stride of kHY*128
+//     bytes between 8-row core groups: a 16 x 8 patch, so a core group is
+//     one x row of the patch, and kHY = 10.  The 128-byte swizzle is a
+//     function of the shared-memory address: the descriptor's base-offset
+//     field stays 0 at any start row (the ablation measured the field set
+//     to (start >> 7) & 7 wrong at every dy != 0).  Built with AGP_P1_SS=0
+//     (RS), each lane ldmatrix'es its rows at their swizzled offsets into
+//     wgmma's register fragment instead (an 8 x 16 patch, K3's);
+//   * one producer warp keeps both rings full; two consumer warpgroups
+//     (64 rows each) issue wgmma m64n128k16 into one fp32 accumulator
+//     over all nine taps and every slab, rounded to bf16 once in the
+//     epilogue (store_tile, K3's forms; channels past Zcout skipped).
+// The launch geometry (tensor-map dims and boxes, patch grid, N tiles, K
+// steps, tiles, grid) comes from the wrapper (ops/probe_block_sm_v2.py:
+// concat_conv_tiling), its one source; the host side here only checks the
+// boxes against the tiles this kernel is compiled for.
+#include "sm90.cuh"
+
+// Build switches, the shipped values unless set with -D (the ablation,
+// scripts/ablate_torch_probes.py, builds the others): the A route (1: SS
+// shifted descriptors, 0: RS ldmatrix), the SS halo box's y extent and
+// descriptor base-offset field (1: (start >> 7) & 7), blocks per SM (2:
+// KC 64 / 32 / 16 at chunk 1 / 3 / 9; 1: KC 64 / 64 / 32), halo buffers
+// and weight stages (0: as many as the block's shared memory holds besides
+// the halo buffers)
+#ifndef AGP_P1_SS
+#define AGP_P1_SS 1
+#endif
+#ifndef AGP_P1_HY
+#define AGP_P1_HY 10
+#endif
+#ifndef AGP_P1_BASE
+#define AGP_P1_BASE 0
+#endif
+#ifndef AGP_P1_MIN_BLOCKS
+#define AGP_P1_MIN_BLOCKS 2
+#endif
+#ifndef AGP_P1_HALOS
+#define AGP_P1_HALOS 1
+#endif
+#ifndef AGP_P1_STAGES
+#define AGP_P1_STAGES 0
+#endif
 
 namespace {
 
-using agp::bf16;
-using agp::rbf;
+using namespace agp;
 
-constexpr int kPX = 8, kPY = 16;                 // output patch (x, y)
-constexpr int kHX = kPX + 2, kHY = kPY + 2;      // halo'd patch
-constexpr int kBM = kPX * kPY, kBN = 64, kBKC = 32, kNT = 256;
-constexpr int kLDA = kBKC + 16, kLDB = kBN + 8, kLDC = kBN + 4;
-constexpr int kHaloElems = kHX * kHY * kLDA;     // bf16 per halo buffer
+constexpr bool kSS = AGP_P1_SS != 0;
+constexpr int kPX = kSS ? 16 : 8, kPY = kSS ? 8 : 16;  // output patch
+constexpr int kHX = kPX + 2, kHY = kSS ? AGP_P1_HY : kPY + 2;  // halo box
+static_assert(kHY >= kPY + 2 && kHY <= 256, "the halo box's y extent");
+constexpr int kHaloTx = kHX * kHY * 128;  // bytes of one halo box
+constexpr int kHaloBytes = (kHaloTx + 1023) / 1024 * 1024;
+constexpr int kMinBlocks = AGP_P1_MIN_BLOCKS;
+static_assert(kMinBlocks == 1 || kMinBlocks == 2, "blocks per SM");
+// the rings' share of a block's shared memory: two blocks per SM leave a
+// block about 110 KB besides its static scratch
+constexpr int kRingBudget = kMinBlocks == 2 ? 104 * 1024 : 200 * 1024;
 
+// Input channels and the number of weight stages at each chunk: KC shrinks
+// with the taps a stage holds, so that two blocks per SM (one block's
+// epilogue overlapping the other's MMAs) keep two stages or more
 template <int CHUNK>
-constexpr int smem_bytes() {
-  constexpr int ring = (2 * kHaloElems + 2 * CHUNK * kBKC * kLDB) * 2;
-  return ring > kBM * kLDC * 4 ? ring : kBM * kLDC * 4;  // C reuses it
-}
+constexpr int kKC = kMinBlocks == 2 ? (CHUNK == 1 ? 64 : CHUNK == 3 ? 32 : 16)
+                    : CHUNK == 9    ? 32
+                                    : 64;
+template <int CHUNK>
+constexpr int kWBytes = CHUNK * kKC<CHUNK> * kTileN * 2;  // a weight stage
+constexpr int kHalos = AGP_P1_HALOS;
+// (two at least: a consumer releases a stage one step after reading it)
+template <int CHUNK>
+constexpr int kWStages =
+    AGP_P1_STAGES ? AGP_P1_STAGES
+    : (kRingBudget - kHalos * kHaloBytes) / kWBytes<CHUNK> > 2
+        ? (kRingBudget - kHalos * kHaloBytes) / kWBytes<CHUNK>
+        : 2;
+static_assert(AGP_P1_STAGES != 1, "two weight stages at least");
+template <int CHUNK>
+constexpr int kSmemBytes =
+    kHalos * kHaloBytes + kWStages<CHUNK> * kWBytes<CHUNK> + 1024;
 
-struct HaloConvParams {
-  const bf16* x;         // input map [B, X, Y, cin]
-  const bf16* w;         // [3, 3, cin, cout] = row-major [9*cin, cout]
-  bf16* out;             // [B, X, Y, cout]
-  const float* scale;    // BN eval affine [cout]
+struct P1Params {
+  const uint8_t* mask;  // [B, X, Y, z]
+  const float* scale;   // BN eval affine [cout], fp32
   const float* bias;
-  const uint8_t* mask;   // [B, X, Y, z]
-  float* pool;           // EPI 1: [B, cout] fp32 masked sums (+=)
-  int B, X, Y, cin, cout, z;
+  bf16* out;            // [B, X, Y, cout]
+  float* pool;          // EPI 1: [B, cout] fp32 masked sums (+=)
+  int X, Y, cin, cout, z;
+  int npx, npy, ntn, nslab, steps, tiles;
 };
 
+// shared-memory descriptor of tap (dx, dy)'s A rows for warpgroup wg (SS):
+// patch rows 8 wg .. 8 wg + 7 start (8 wg + dx) * kHY + dy halo rows in,
+// one 8-row core group per patch row at a stride of kHY rows
+__device__ __forceinline__ uint64_t halo_desc(uint32_t halo, int wg, int dx,
+                                              int dy, int kg) {
+  const uint32_t a = halo + ((8 * wg + dx) * kHY + dy) * 128 + kg * 32;
+  const uint64_t base = AGP_P1_BASE ? (uint64_t)((a >> 7) & 7) << 49 : 0;
+  return sw128_desc(a, 16, kHY * 128) | base;
+}
+
 template <int CHUNK, int EPI>
-__global__ void __launch_bounds__(kNT) halo_conv3x3_kernel(HaloConvParams p) {
-  using namespace nvcuda;
-  constexpr int G = 9 / CHUNK;  // stages per slab
-  constexpr int kWElems = CHUNK * kBKC * kLDB;  // bf16 per weight stage
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float red[kNT / 32][kBN];
-  bf16* halo = reinterpret_cast<bf16*>(smem);  // [2][kHX*kHY][kLDA]
-  bf16* wbuf = halo + 2 * kHaloElems;          // [2][CHUNK*kBKC][kLDB]
-  float* Cs = reinterpret_cast<float*>(smem);  // after the K loop
+__global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
+    p1_sm90_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                   const __grid_constant__ CUtensorMap tmap_w, P1Params p) {
+  constexpr int KC = kKC<CHUNK>, S = kWStages<CHUNK>, WB = kWBytes<CHUNK>;
+  constexpr int NH = kHalos;          // halo buffers
+  constexpr int H = kSlab / KC;       // stages of a tap group per slab
+  constexpr int GH = 9 / CHUNK * H;   // stages per slab
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ __align__(8) uint64_t wfull[S], wempty[S], hfull[NH], hempty[NH];
+  __shared__ float red[kConsumers / 32][kTileN];
+  __shared__ float s_sc[kTileN], s_bi[kTileN];
+  const uint32_t halo = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t wring = halo + NH * kHaloBytes;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nxp = (p.X + kPX - 1) / kPX, nyp = (p.Y + kPY - 1) / kPY;
-  const int yp = blockIdx.x % nyp;
-  const int xp = (blockIdx.x / nyp) % nxp;
-  const int b = blockIdx.x / (nyp * nxp);
-  const int x0 = xp * kPX, y0 = yp * kPY, n0 = blockIdx.y * kBN;
-  const int T = (p.cin / kBKC) * G;
-
-  // stage t: the weights of taps [j*CHUNK, (j+1)*CHUNK) of slab s, and at
-  // j == 0 the slab's halo tile
-  auto issue = [&](int t) {
-    const int s = t / G, j = t - s * G;
-    const int ci0 = s * kBKC;
-    if (j == 0) {
-      bf16* hb = halo + (s & 1) * kHaloElems;
-      for (int c = tid; c < kHX * kHY * (kBKC / 8); c += kNT) {
-        const int cell = c / (kBKC / 8), kc = (c % (kBKC / 8)) * 8;
-        const int hx = cell / kHY, hy = cell - hx * kHY;
-        const int ix = x0 - 1 + hx, iy = y0 - 1 + hy;
-        const bool ok = ix >= 0 && ix < p.X && iy >= 0 && iy < p.Y;
-        agp::cp_async16(
-            hb + cell * kLDA + kc,
-            ok ? p.x + (((size_t)b * p.X + ix) * p.Y + iy) * p.cin + ci0 + kc
-               : p.x,
-            ok);
-      }
-    }
-    bf16* wb = wbuf + (t & 1) * kWElems;
-    for (int c = tid; c < CHUNK * kBKC * (kBN / 8); c += kNT) {
-      const int r = c / (kBN / 8), nc = (c % (kBN / 8)) * 8;
-      const int ti = r / kBKC;
-      const int k = (j * CHUNK + ti) * p.cin + ci0 + (r - ti * kBKC);
-      const bool ok = n0 + nc < p.cout;
-      agp::cp_async16(wb + r * kLDB + nc,
-                      ok ? p.w + (size_t)k * p.cout + n0 + nc : p.w, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  // 4 x 2 warps of 32 x 32: warp row wm owns patch rows 2*wm, 2*wm + 1
-  const int wm = warp >> 1, wn = warp & 1;
-
-  issue(0);
-  agp::cp_async_commit();
-  for (int t = 0; t < T; ++t) {
-    agp::cp_async_wait<0>();
-    __syncthreads();  // stage t landed; every warp is done with stage t-1
-    if (t + 1 < T) issue(t + 1);
-    agp::cp_async_commit();
-    const int s = t / G, j = t - s * G;
-    const bf16* hb = halo + (s & 1) * kHaloElems;
-    const bf16* wb = wbuf + (t & 1) * kWElems;
-#pragma unroll
-    for (int ti = 0; ti < CHUNK; ++ti) {
-      const int tap = j * CHUNK + ti;
-      const int dx = tap / 3, dy = tap - 3 * dx;
-#pragma unroll
-      for (int kk = 0; kk < kBKC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-            fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-            fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              fa[i], hb + ((wm * 2 + i + dx) * kHY + dy) * kLDA + kk, kLDA);
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          wmma::load_matrix_sync(
-              fb[jj], wb + (ti * kBKC + kk) * kLDB + wn * 32 + jj * 16, kLDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj)
-            wmma::mma_sync(acc[i][jj], fa[i], fb[jj], acc[i][jj]);
-      }
-    }
+  if (tid == 0) {
+    ring_init<S>(wfull, wempty);
+    ring_init<NH>(hfull, hempty);
+    mbar_init_fence();
   }
-  agp::cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the C tile
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj)
-      wmma::store_matrix_sync(
-          Cs + (wm * 32 + i * 16) * kLDC + wn * 32 + jj * 16, acc[i][jj],
-          kLDC, wmma::mem_row_major);
   __syncthreads();
 
-  // epilogue: thread -> 8 channels (cg) x rows rbase + 32*t; row r is the
-  // patch cell (r / kPY, r % kPY)
-  const int cg = tid % (kBN / 8);
-  const int rbase = tid / (kBN / 8);
-  const int n = n0 + cg * 8;
-  const bool n_ok = n < p.cout;
-  const int cz = p.cout / p.z;
-  float sc[8], bi[8], psum[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    sc[j] = n_ok ? rbf(p.scale[n + j]) : 0.0f;
-    bi[j] = n_ok ? rbf(p.bias[n + j]) : 0.0f;
-    psum[j] = 0.0f;
-  }
-#pragma unroll
-  for (int t = 0; t < kBM / (kNT / (kBN / 8)); ++t) {
-    const int row = rbase + t * (kNT / (kBN / 8));
-    const int ox = x0 + row / kPY, oy = y0 + row % kPY;
-    if (!n_ok || ox >= p.X || oy >= p.Y) continue;
-    const size_t m = ((size_t)b * p.X + ox) * p.Y + oy;
-    const float mk = (float)p.mask[m * p.z + n / cz];
-    uint4 o;
-    bf16* oe = reinterpret_cast<bf16*>(&o);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float v =
-          rbf(rbf(rbf(Cs[row * kLDC + cg * 8 + j]) * sc[j]) + bi[j]);
-      if (EPI == 0) {
-        oe[j] = __float2bfloat16_rn(fmaxf(v, 0.0f) * mk);
-      } else {
-        oe[j] = __float2bfloat16_rn(v);
-        psum[j] += v * mk;
+  // tile -> (item b, patch (xp, yp), N tile), N tiles fastest;
+  // concat_conv_coords replays this on the CPU
+  auto patch = [&](int tile, int& b, int& x0, int& y0, int& n0) {
+    n0 = (tile % p.ntn) * kTileN;
+    tile /= p.ntn;
+    y0 = (tile % p.npy) * kPY;
+    tile /= p.npy;
+    x0 = (tile % p.npx) * kPX;
+    b = tile / p.npx;
+  };
+  // Step i of a tile: slab i / GH, tap group (i / H) % (9 / CHUNK),
+  // channel half i % H.  Step counters (k: weight stages, hk: halos) run
+  // on across a block's tiles.
+
+  if (tid >= kConsumers) {
+    // ---- producer warp: one thread keeps both rings full
+    if (tid == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
+        int b, x0, y0, n0;
+        patch(tile, b, x0, y0, n0);
+        for (int i = 0; i < p.steps; ++i) {
+          const int s = i / GH, j = (i / H) % (9 / CHUNK), hh = i % H;
+          const int c0 = s * kSlab;
+          if (i % GH == 0) {  // the slab's halo, once
+            const int hk = it * p.nslab + s, hs = hk % NH;
+            if (hk >= NH)
+              mbar_wait(smem_u32(&hempty[hs]), ((hk / NH) + 1) & 1);
+            const uint32_t bar = smem_u32(&hfull[hs]);
+            mbar_expect_tx(bar, kHaloTx);
+            tma_load_4d(halo + hs * kHaloBytes, &tmap_x, bar, c0, y0 - 1,
+                        x0 - 1, b);
+          }
+          const int k = it * p.steps + i, ws = k % S;
+          if (k >= S) mbar_wait(smem_u32(&wempty[ws]), ((k / S) + 1) & 1);
+          const uint32_t bar = smem_u32(&wfull[ws]), sw = wring + ws * WB;
+          mbar_expect_tx(bar, WB);
+          tma_load_3d(sw, &tmap_w, bar, n0, c0 + hh * KC, j * CHUNK);
+          tma_load_3d(sw + WB / 2, &tmap_w, bar, n0 + 64, c0 + hh * KC,
+                      j * CHUNK);
+        }
       }
     }
-    *reinterpret_cast<uint4*>(p.out + m * p.cout + n) = o;
+    return;
   }
 
-  if (EPI == 1) {
-    // lanes sharing cg (lane ^ 8, lane ^ 16) hold other rows of the same
-    // item: reduce in-warp, then across warps, then one atomic per channel
+  // ---- consumers: warpgroup wg owns GEMM rows [64 wg, 64 wg + 64)
+  const int wg = tid / 128, warp = tid / 32, lane = tid & 31;
+  // RS: lane l ldmatrix'es row l % 8 (+8 for lanes 8-15, 24-31) of the
+  // warp's 16 rows -- patch cell (warp, r) -- 16-byte chunk l / 16 of a
+  // 16-channel K step
+  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const TileOut o = {p.out, p.mask, p.X, p.Y, p.cout, p.z};
+  int it = 0;
+  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
+    int b, x0, y0, n0;
+    patch(tile, b, x0, y0, n0);
+    float acc[64];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      psum[j] += __shfl_xor_sync(0xffffffffu, psum[j], 8);
-      psum[j] += __shfl_xor_sync(0xffffffffu, psum[j], 16);
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < p.steps; ++i) {
+      const int s = i / GH, j = (i / H) % (9 / CHUNK), hh = i % H;
+      const int hk = it * p.nslab + s, hs = hk % NH;
+      const int k = it * p.steps + i, ws = k % S;
+      if (i % GH == 0) mbar_wait(smem_u32(&hfull[hs]), (hk / NH) & 1);
+      mbar_wait(smem_u32(&wfull[ws]), (k / S) & 1);
+      const uint32_t hb = halo + hs * kHaloBytes, sw = wring + ws * WB;
+      if constexpr (kSS) {
+        wgmma_fence();
+#pragma unroll
+        for (int ti = 0; ti < CHUNK; ++ti) {
+          const int tap = j * CHUNK + ti, dx = tap / 3, dy = tap - 3 * dx;
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk)
+            wgmma_m64n128k16_ss(
+                acc, halo_desc(hb, wg, dx, dy, hh * (KC / 16) + kk),
+                b_desc(sw + ti * KC * 128, kk, WB / 2));
+        }
+        wgmma_commit();
+        // one MMA group stays in flight, except at a slab's last step,
+        // which drains so that its halo is released before the next
+        // slab's is awaited (a single halo buffer would deadlock else)
+        const bool slab_end = i % GH == GH - 1;
+        if (slab_end)
+          wgmma_wait<0>();
+        else
+          wgmma_wait<1>();
+        fence_regs(acc);
+        if (lane == 0) {
+          if (i % GH != 0)  // step i - 1 retired, and did not end a slab
+            mbar_arrive(smem_u32(&wempty[(k - 1) % S]));
+          if (slab_end) {
+            mbar_arrive(smem_u32(&wempty[ws]));
+            mbar_arrive(smem_u32(&hempty[hs]));
+          }
+        }
+      } else {
+        // a warpgroup writes the registers its wgmmas read only while none
+        // is in flight (ptxas serializes every wgmma otherwise): one tap's
+        // fragments, its MMAs, then wait
+#pragma unroll
+        for (int ti = 0; ti < CHUNK; ++ti) {
+          const int tap = j * CHUNK + ti, dx = tap / 3, dy = tap - 3 * dx;
+          const int hrow = (warp + dx) * kHY + r + dy;
+          uint32_t a[KC / 4];
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk) {
+            uint32_t v[4];
+            ldmatrix_x4(v, hb + sw128_offset(hrow, 2 * (hh * (KC / 16) + kk)
+                                                       + (lane >> 4)));
+#pragma unroll
+            for (int q = 0; q < 4; ++q) a[4 * kk + q] = v[q];
+          }
+          fence_regs(a);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KC / 16; ++kk)
+            wgmma_m64n128k16_rs(acc, &a[4 * kk],
+                                b_desc(sw + ti * KC * 128, kk, WB / 2));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(a);
+        }
+        if (lane == 0) {
+          mbar_arrive(smem_u32(&wempty[ws]));
+          if (i % GH == GH - 1) mbar_arrive(smem_u32(&hempty[hs]));
+        }
+      }
     }
-    if (lane < kBN / 8)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp][lane * 8 + j] = psum[j];
-    __syncthreads();
-    if (tid < kBN && n0 + tid < p.cout) {
-      float s = 0.0f;
-#pragma unroll
-      for (int w8 = 0; w8 < kNT / 32; ++w8) s += red[w8][tid];
-      atomicAdd(p.pool + (size_t)b * p.cout + n0 + tid, s);
+    // the tile's scale and bias, rounded to bf16 as K3's epilogue reads
+    // them, in shared memory; every consumer is done with the previous
+    // tile's (and with the pool form's `red`: a short K loop could let a
+    // warp run a whole tile ahead) before they are rewritten
+    if (it > 0) named_sync(1, kConsumers);
+    if (tid < kTileN) {
+      const bool n_ok = n0 + tid < p.cout;
+      s_sc[tid] = n_ok ? rbf(p.scale[n0 + tid]) : 0.0f;
+      s_bi[tid] = n_ok ? rbf(p.bias[n0 + tid]) : 0.0f;
     }
+    named_sync(1, kConsumers);
+    store_tile<EPI == 0 ? STORE_BF16_RELU_MASK : STORE_BF16_POOL, kPY,
+               true>(acc, o, b, x0, y0, n0, s_sc, s_bi, warp, lane, red,
+                     p.pool);
   }
 }
 
 template <int CHUNK, int EPI>
-cudaError_t launch(const HaloConvParams& p, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<CHUNK>();
-  cudaError_t err = cudaFuncSetAttribute(
-      halo_conv3x3_kernel<CHUNK, EPI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int patches =
-      p.B * ((p.X + kPX - 1) / kPX) * ((p.Y + kPY - 1) / kPY);
-  dim3 grid(patches, (p.cout + kBN - 1) / kBN);
-  halo_conv3x3_kernel<CHUNK, EPI><<<grid, kNT, smem, stream>>>(p);
-  return cudaGetLastError();
+int launch(const CUtensorMap& tx, const CUtensorMap& tw, int grid,
+           const P1Params& p, cudaStream_t stream) {
+  return launch_sm90(p1_sm90_kernel<CHUNK, EPI>, grid, kSmemBytes<CHUNK>,
+                     stream, kSm90Threads, tx, tw, p);
 }
 
-template <int EPI>
-cudaError_t launch_chunk(int chunk, const HaloConvParams& p,
-                         cudaStream_t stream) {
-  switch (chunk) {
-    case 1: return launch<1, EPI>(p, stream);
-    case 3: return launch<3, EPI>(p, stream);
-    case 9: return launch<9, EPI>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int CHUNK>
+int launch_epi(int epi, const CUtensorMap& tx, const CUtensorMap& tw,
+               int grid, const P1Params& p, cudaStream_t stream) {
+  return epi == 0 ? launch<CHUNK, 0>(tx, tw, grid, p, stream)
+                  : launch<CHUNK, 1>(tx, tw, grid, p, stream);
 }
 
 }  // namespace
 
+// Dynamic shared memory of one block at `chunk` (1, 3 or 9), -1 otherwise.
 extern "C" int agp_p1_smem_bytes(int chunk) {
   switch (chunk) {
-    case 1: return smem_bytes<1>();
-    case 3: return smem_bytes<3>();
-    case 9: return smem_bytes<9>();
+    case 1: return kSmemBytes<1>;
+    case 3: return kSmemBytes<3>;
+    case 9: return kSmemBytes<9>;
     default: return -1;
   }
 }
 
-extern "C" int agp_p1_conv1(const bf16* x, const uint8_t* mask,
-                            const bf16* w1, const float* s1, const float* b1,
-                            bf16* h, int B, int X, int Y, int zci, int zco,
-                            int z, int chunk, void* stream) {
-  const HaloConvParams p = {x, w1, h, s1, b1, mask, nullptr,
-                            B, X, Y, zci, zco, z};
-  return launch_chunk<0>(chunk, p, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int agp_p1_conv2_pool(const bf16* h, const uint8_t* mask,
-                                 const bf16* w2, const float* s2,
-                                 const float* b2, bf16* g, float* pool, int B,
-                                 int X, int Y, int zco, int z, int chunk,
-                                 void* stream) {
-  const HaloConvParams p = {h, w2, g, s2, b2, mask, pool,
-                            B, X, Y, zco, zco, z};
-  return launch_chunk<1>(chunk, p, static_cast<cudaStream_t>(stream));
+// One conv phase: EPI 0 (pool null) or 1.  The geometry arguments are the
+// fields of the wrapper's ConcatConvTiling in order: x dims (Zcin, Y, X, B)
+// and the halo box, w dims (Zcout, Zcin, 9) and box, innermost first, then
+// the patch grid, the N tiles, the K steps per tile, the number of tiles
+// and the number of blocks.
+extern "C" int agp_p1_conv_sm90(const bf16* x, const uint8_t* mask,
+                                const bf16* w, const float* scale,
+                                const float* bias, bf16* out, float* pool,
+                                int epi, int chunk, int z, int xd0, int xd1,
+                                int xd2, int xd3, int xb0, int xb1, int xb2,
+                                int xb3, int wd0, int wd1, int wd2, int wb0,
+                                int wb1, int wb2, int npx, int npy, int ntn,
+                                int steps, int tiles, int grid,
+                                void* stream) {
+  const int cin = xd0, cout = wd0;
+  const int kc = chunk == 1 ? kKC<1> : chunk == 3 ? kKC<3> : kKC<9>;
+  const int nslab = (cin + kSlab - 1) / kSlab;
+  // the boxes and widths must be the tiles the kernel is compiled for
+  if ((chunk != 1 && chunk != 3 && chunk != 9) || (epi != 0 && epi != 1) ||
+      xb0 != kSlab || xb1 != kHY || xb2 != kHX || xb3 != 1 || wd1 != cin ||
+      wd2 != 9 || wb0 != kTileN / 2 || wb1 != kc || wb2 != chunk ||
+      cin % 32 != 0 || cout % 32 != 0 || z < 1 || cout % z != 0 ||
+      (cout / z) % 2 != 0 || ntn != (cout + kTileN - 1) / kTileN ||
+      steps != nslab * (9 / chunk) * (kSlab / kc) || tiles < 1 || grid < 1 ||
+      (epi == 1 && pool == nullptr))
+    return cudaErrorInvalidValue;
+  const cuuint64_t xd[4] = {(cuuint64_t)xd0, (cuuint64_t)xd1,
+                            (cuuint64_t)xd2, (cuuint64_t)xd3};
+  const cuuint32_t xb[4] = {(cuuint32_t)xb0, (cuuint32_t)xb1,
+                            (cuuint32_t)xb2, (cuuint32_t)xb3};
+  const cuuint64_t wd[3] = {(cuuint64_t)wd0, (cuuint64_t)wd1,
+                            (cuuint64_t)wd2};
+  const cuuint32_t wb[3] = {(cuuint32_t)wb0, (cuuint32_t)wb1,
+                            (cuuint32_t)wb2};
+  CUtensorMap tx, tw;
+  // x [B, X, Y, Zcin] and w [9, Zcin, Zcout], dense rows of bf16
+  if (!encode_bf16(&tx, x, 4, xd, xb) || !encode_bf16(&tw, w, 3, wd, wb))
+    return cudaErrorInvalidValue;
+  const P1Params p = {mask, scale, bias, out, pool, xd2, xd1, cin, cout, z,
+                      npx, npy, ntn, nslab, steps, tiles};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (chunk) {
+    case 1: return launch_epi<1>(epi, tx, tw, grid, p, s);
+    case 3: return launch_epi<3>(epi, tx, tw, grid, p, s);
+    default: return launch_epi<9>(epi, tx, tw, grid, p, s);
+  }
 }

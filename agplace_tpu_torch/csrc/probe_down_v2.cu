@@ -17,17 +17,58 @@
 // outside, as for K2.
 //
 // What bounds it on the H100: bytes.  At b32 the four planes are 4 x 67 MB,
-// read once, against 34 GFLOP (about 80 us of HBM traffic at 3.35 TB/s
-// against 35 us of bf16 tensor-core work at peak).  So a block owns 128
-// output cells and all of N (Zo*C2 = 128 on the KITTI preset): every plane
-// element is read exactly once.  The wide affine (rounded to bf16 once per
-// block, kept in shared memory), relu and mask are applied in registers
-// between the global load and the shared-memory store, and the next K slice
-// is loaded (A into registers, the weights with cp.async) while the current
-// one feeds the tensor cores (nvcuda::wmma bf16, fp32 accumulation).
+// read once, and the output 34 MB: 0.090 ms at 3.35 TB/s, against 0.035 ms
+// of bf16 tensor-core work.  That is K2's GEMM with A taken from four maps
+// instead of one strided map, so at the widths K2's tiles take (Z*C1 a
+// multiple of 64 up to 1024, Zo*C2 of 128 up to 512, z <= 16: every
+// preset's stage 0) P2 runs K2's Hopper main loop (down0_sm90.cuh):
+//   * a persistent grid of one block per SM walks tiles of an 8 (xo) x 16
+//     (yo) patch of one item and a 128-channel N tile;
+//   * the K loop is 4 planes x Z*C1/64 slabs.  Plane p is the step's tap
+//     p = 2 dx + dy of K2, and its A operand is one 4-D TMA box [C 64,
+//     Yo 16, Xo 8, B 1] of g_p at (c0, yo0, xo0, b), from one of four
+//     tensor maps chosen by the step; TMA zero-fills the ragged edge.  B
+//     is wd as a row-major [4*Z*C1, Zo*C2] matrix, two 64 x 64 boxes per
+//     step read MN-major;
+//   * one producer warp keeps a 4-stage ring (32 KB a stage) full; two
+//     consumer warpgroups ldmatrix the A stage into wgmma's register
+//     fragment, apply the BN0 affine, relu and the z-mask of the step's
+//     plane in packed bf16x2 (K2's bit-exact __hmul2_rn / __hadd2_rn), and
+//     issue RS wgmma m64n128k16; the epilogue is K3's store_tile.
+// The launch geometry comes from the wrapper (ops/probe_down_v2.py:
+// down_concat_tiling), its one source; the host side only checks the
+// boxes against the compiled tiles.
+//
+// At the narrower widths the parent took (Z*C1 a multiple of 32, Zo*C2 of
+// 8: e.g. C1 = 8 at z = 4) the first design below stays, chosen by shape
+// in the wrapper: a block owns 128 output cells and 128 channels of N, the
+// wide affine, relu and mask applied in registers between a 16-byte global
+// load and the shared-memory store, a 2-stage cp.async ring for the
+// weights, nvcuda::wmma bf16 with fp32 accumulation.
 #include "conv_igemm.cuh"
+#include "down0_sm90.cuh"
 
 namespace {
+
+__global__ void __launch_bounds__(agp::kSm90Threads, AGP_DOWN0_MIN_BLOCKS)
+    down_concat_sm90_kernel(const __grid_constant__ CUtensorMap tmap_g0,
+                            const __grid_constant__ CUtensorMap tmap_g1,
+                            const __grid_constant__ CUtensorMap tmap_g2,
+                            const __grid_constant__ CUtensorMap tmap_g3,
+                            const __grid_constant__ CUtensorMap tmap_w,
+                            agp::Down0Params p) {
+  // plane p = tap: the box of g_p [B, Xo, Yo, Z*C1]
+  agp::down0_body(tmap_w, p,
+                  [&](uint32_t sa, uint32_t bar, int tap, int c0, int yo0,
+                      int xo0, int b) {
+                    const CUtensorMap* m = tap == 0   ? &tmap_g0
+                                           : tap == 1 ? &tmap_g1
+                                           : tap == 2 ? &tmap_g2
+                                                      : &tmap_g3;
+                    agp::tma_load_4d(sa, m, bar, c0, yo0, xo0, b);
+                  });
+}
+
 
 using agp::bf16;
 using agp::bf2f;
@@ -238,4 +279,40 @@ extern "C" int agp_down_concat(const bf16* g0, const bf16* g1, const bf16* g2,
   dim3 grid((M + kBM - 1) / kBM, (zc2 + kBN - 1) / kBN);
   down_concat_kernel<<<grid, kNT, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
+}
+
+// The Hopper route.  The geometry arguments are the fields of the wrapper's
+// DownConcatTiling in order: the planes' dims (Z*C1, Yo, Xo, B) and box, wd
+// dims (Zo*C2, 4*Z*C1) and box, innermost first, then the patch grid, the
+// N tiles, the K steps, the number of tiles and the number of blocks.
+extern "C" int agp_down_concat_sm90(
+    const bf16* g0, const bf16* g1, const bf16* g2, const bf16* g3,
+    const uint8_t* mask, const float* s0, const float* b0, const bf16* wd,
+    const float* sd, const float* bd, const uint8_t* mask_out, bf16* out,
+    int z, int zo, int gd0, int gd1, int gd2, int gd3, int gb0, int gb1,
+    int gb2, int gb3, int wd0, int wd1, int wb0, int wb1, int npx, int npy,
+    int nn, int steps, int tiles, int grid, void* stream) {
+  using namespace agp;
+  // the boxes and widths must be the tiles the kernel is compiled for
+  if (gb0 != kSlab || gb1 != kPatchY || gb2 != kPatchX || gb3 != 1 ||
+      !down0_widths_ok(gd0, z, zo, wd0, wd1, wb0, wb1, nn, steps, grid))
+    return cudaErrorInvalidValue;
+  const cuuint64_t gd[4] = {(cuuint64_t)gd0, (cuuint64_t)gd1,
+                            (cuuint64_t)gd2, (cuuint64_t)gd3};
+  const cuuint32_t gb[4] = {(cuuint32_t)gb0, (cuuint32_t)gb1,
+                            (cuuint32_t)gb2, (cuuint32_t)gb3};
+  const cuuint64_t wdims[2] = {(cuuint64_t)wd0, (cuuint64_t)wd1};
+  const cuuint32_t wbox[2] = {(cuuint32_t)wb0, (cuuint32_t)wb1};
+  CUtensorMap tg[4], tw;
+  const bf16* planes[4] = {g0, g1, g2, g3};
+  for (int i = 0; i < 4; ++i)
+    if (!encode_bf16(&tg[i], planes[i], 4, gd, gb))
+      return cudaErrorInvalidValue;
+  if (!encode_bf16(&tw, wd, 2, wdims, wbox)) return cudaErrorInvalidValue;
+  const Down0Params p = {mask, s0, b0, sd, bd, mask_out, out, 2 * gd2,
+                         2 * gd1, gd0, wd0, z, zo, npx, npy, nn, steps,
+                         tiles};
+  return launch_sm90(down_concat_sm90_kernel, grid, kDown0SmemBytes,
+                     static_cast<cudaStream_t>(stream), kSm90Threads, tg[0],
+                     tg[1], tg[2], tg[3], tw, p);
 }

@@ -171,9 +171,11 @@ __device__ __forceinline__ uint64_t a_desc(uint32_t tile, int wg, int kk) {
 // B operand of K step `kk` of 64 K rows x N columns read MN-major (the
 // transpose bit) from 64 x 64 boxes of a row-major [K, N] matrix: 16 K rows
 // are two 8-row swizzle atoms (2 KB) further; the next 64 columns (the
-// leading offset) are the next box, 8 KB on
-__device__ __forceinline__ uint64_t b_desc(uint32_t boxes, int kk) {
-  return sw128_desc(boxes + kk * 2048, kBoxBytes, 1024);
+// leading offset) are the next box, 8 KB on (`next64` bytes for boxes of
+// another size)
+__device__ __forceinline__ uint64_t b_desc(uint32_t boxes, int kk,
+                                           uint32_t next64 = kBoxBytes) {
+  return sw128_desc(boxes + kk * 2048, next64, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -376,22 +378,26 @@ struct TileOut {
   int X, Y, cout, z;
 };
 
-// Store the m64n128 accumulator tile of an 8 x 16 patch at (b, x0, y0),
-// channels [n0, n0 + 128).  Accumulator layout of m64nNk16: warp w of the
-// warpgroup holds rows 16 w + lane/4 (+8), columns 8 j + 2 (lane%4) (+1)
-// in acc[4 j + 2 h + c]; row 16 q + t of the tile is patch cell (q, t), so
-// consumer warp `warp` (0-7) owns patch row `warp`.  s_sc / s_bi are the
-// tile's 128 scales and biases (bf16-rounded for the bf16 forms).
-// The two pool forms also reduce the masked sum of the tile's (rounded)
-// channels into pool [B, cout] (one atomic per channel; named barrier 1
-// over the consumers, `red` [8][128] of shared scratch).
-template <int EPI>
+// Store the m64n128 accumulator tile of a kPY = 16 (8 x 16) or kPY = 8
+// (16 x 8) patch at (b, x0, y0), channels [n0, n0 + 128).  Accumulator
+// layout of m64nNk16: warp w of the warpgroup holds rows 16 w + lane/4
+// (+8), columns 8 j + 2 (lane%4) (+1) in acc[4 j + 2 h + c]; row kPY q + t
+// of the tile is patch cell (q, t), so consumer warp `warp` (0-7) owns
+// patch row `warp` of an 8 x 16 patch, rows 2 warp and 2 warp + 1 of a
+// 16 x 8 one.  s_sc / s_bi are the tile's 128 scales and biases
+// (bf16-rounded for the bf16 forms).  kRaggedN: the N tile may run past
+// cout (a multiple of 32), and its channels past cout are neither read
+// nor written.  The two pool forms also reduce the masked sum of the
+// tile's (rounded) channels into pool [B, cout] (one atomic per channel;
+// named barrier 1 over the consumers, `red` [8][128] of shared scratch).
+template <int EPI, int kPY = kPatchY, bool kRaggedN = false>
 __device__ __forceinline__ void store_tile(const float (&acc)[64],
                                            const TileOut& o, int b, int x0,
                                            int y0, int n0, const float* s_sc,
                                            const float* s_bi, int warp,
                                            int lane, float (*red)[kTileN],
                                            float* pool) {
+  static_assert(kPY == kPatchY || kPY == kPatchY / 2, "8 x 16 or 16 x 8");
   constexpr bool kPool = EPI == STORE_BF16_POOL || EPI == STORE_F32_POOL;
   const int ox = x0 + warp;
   const int cz = o.cout / o.z;
@@ -399,14 +405,17 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
   bool ok[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int oy = y0 + lane / 4 + 8 * h;
-    ok[h] = ox < o.X && oy < o.Y;
-    m[h] = ((size_t)b * o.X + (ok[h] ? ox : 0)) * o.Y + (ok[h] ? oy : 0);
+    const int cx = kPY == kPatchY ? ox : x0 + 2 * warp + h;
+    const int oy = y0 + lane / 4 + (kPY == kPatchY ? 8 * h : 0);
+    ok[h] = cx < o.X && oy < o.Y;
+    m[h] = ((size_t)b * o.X + (ok[h] ? cx : 0)) * o.Y + (ok[h] ? oy : 0);
   }
 #pragma unroll
   for (int j = 0; j < kTileN / 8; ++j) {
     const int nl = 8 * j + 2 * (lane & 3);
     const int n = n0 + nl;
+    // warp-uniform: cout - n0 is a multiple of 32
+    if (kRaggedN && n0 + 8 * j >= o.cout) continue;
     float ps0 = 0.0f, ps1 = 0.0f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -453,7 +462,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
   if (kPool) {
     named_sync(1, kConsumers);
     const int t = warp * 32 + lane;
-    if (t < kTileN) {
+    if (t < kTileN && (!kRaggedN || n0 + t < o.cout)) {
       float s = 0.0f;
 #pragma unroll
       for (int w = 0; w < kConsumers / 32; ++w) s += red[w][t];

@@ -49,8 +49,10 @@ _SIGNATURES = {
     "agp_block_bm_eca": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "agp_block_bm_combine": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "agp_down_concat": [_P] * 12 + [_I] * 7 + [_P],
-    "agp_p1_conv1": [_P] * 6 + [_I] * 7 + [_P],
-    "agp_p1_conv2_pool": [_P] * 7 + [_I] * 6 + [_P],
+    # z, zo, then the 18 fields of probe_down_v2.DownConcatTiling
+    "agp_down_concat_sm90": [_P] * 12 + [_I] * 20 + [_P],
+    # epi, chunk, z, then the 20 fields of probe_block_sm_v2.ConcatConvTiling
+    "agp_p1_conv_sm90": [_P] * 7 + [_I] * 23 + [_P],
     "agp_p1_smem_bytes": [_I],  # returns bytes, not an error code
 }
 
@@ -165,9 +167,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` dense and 16-byte aligned, for a kernel's vector loads and
-    bulk copies: ``t`` itself when it is, else a copy (a contiguous view
-    at an odd storage offset is copied too)."""
+    """``t`` dense and 16-byte aligned, for every operand a kernel reads by
+    16-byte vectors, ``cp.async``, bulk copies or TMA: ``t`` itself when it
+    is, else a copy (a contiguous view at a storage offset that is not a
+    multiple of 16 bytes is copied too; ``.contiguous()`` would return it
+    as it is)."""
     if t.data_ptr() % 16 == 0:
         return t.contiguous()
     return t.clone(memory_format=torch.contiguous_format)

@@ -105,13 +105,13 @@ def fused_eca_block(x, mask, w1, w2, scale1, bias1, scale2, bias2, w_eca,
                                      bsm.EPI_F32_POOL, z)
     else:
         h = torch.empty_like(x)
-        _build.call("agp_block_bm_conv1", x, m, w1.to(_BF16).contiguous(),
+        _build.call("agp_block_bm_conv1", x, m, _build.aligned(w1.to(_BF16)),
                     scale1.float().contiguous(), bias1.float().contiguous(),
                     h, b, xd, yd, zc, z)
         g = torch.empty_like(x)
         pool = torch.zeros((b, zc), dtype=_F32, device=dev)
         _build.call("agp_block_bm_conv2_pool", h, m,
-                    w2.to(_BF16).contiguous(), scale2.float().contiguous(),
+                    _build.aligned(w2.to(_BF16)), scale2.float().contiguous(),
                     bias2.float().contiguous(), g, pool, b, xd, yd, zc, z)
     att = torch.empty((b, zc), dtype=_F32, device=dev)
     w_e = w_eca.float().contiguous()

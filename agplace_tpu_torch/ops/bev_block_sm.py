@@ -97,7 +97,7 @@ def eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2, bias2, w_eca,
     return bg.mask_bev(torch.relu(out + r), mask, z)
 
 
-def _check_widths(name, zci: int, zco: int, z: int, cin_tile: int,
+def check_widths(name, zci: int, zco: int, z: int, cin_tile: int,
                   cout_tile: int):
     _build.check(zci % cin_tile == 0 and zco % cout_tile == 0
                  and zco % z == 0 and (zco // z) % 8 == 0,
@@ -118,7 +118,7 @@ def check_block_args(name, x, w1, w2, z: int, wd=None, cin_tile: int = SLAB,
     _build.check(tuple(w1.shape) == (3, 3, zci, zco)
                  and tuple(w2.shape) == (3, 3, zco, zco),
                  f"{name}: w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}")
-    _check_widths(name, zci, zco, z, cin_tile, cout_tile)
+    check_widths(name, zci, zco, z, cin_tile, cout_tile)
     if wd is None:
         _build.check(zci == zco,
                      f"{name}: identity residual needs Cin == Cout")
@@ -163,7 +163,7 @@ def conv_phase(x, mask, w, scale, bias, z: int, pool: bool):
                  f"conv_phase: x {tuple(x.shape)} mask {tuple(mask.shape)} "
                  f"w {tuple(w.shape)} scale {tuple(scale.shape)} at z={z}, "
                  f"pool={pool}")
-    _check_widths("conv_phase", zci, zco, z, SLAB, BLOCK_N)
+    check_widths("conv_phase", zci, zco, z, SLAB, BLOCK_N)
     if not _build.on_cuda(x, mask, w, scale, bias):
         return conv_phase_plain(x, mask, w, scale, bias, z, pool)
     return conv3x3_launch(x, mask, w, scale, bias,
@@ -183,7 +183,7 @@ def conv3x3_launch(x, mask, w, scale, bias, epi: int, z: int):
     sums = (torch.zeros((b, zco), dtype=torch.float32, device=x.device)
             if pool else None)
     _build.call("agp_conv3x3", _build.aligned(x), mask.contiguous(),
-                w.to(_BF16).contiguous(), scale.float().contiguous(),
+                _build.aligned(w.to(_BF16)), scale.float().contiguous(),
                 bias.float().contiguous(), out, sums, epi, z, *t.args())
     return (out, sums) if pool else out
 
@@ -201,7 +201,7 @@ def eca_combine(x, m, g, pool, w_eca, z: int, wd=None, scale_d=None,
                 xd * yd * z, z, zco // z)
     out = torch.empty_like(g)
     if wd is not None:
-        _build.call("agp_block_combine_ds", x, m, wd.to(_BF16).contiguous(),
+        _build.call("agp_block_combine_ds", x, m, _build.aligned(wd.to(_BF16)),
                     scale_d.float().contiguous(), bias_d.float().contiguous(),
                     g, att, out, b, xd, yd, zci, zco, z)
     else:
@@ -222,7 +222,7 @@ def fused_eca_block_sm(x, mask, w1, w2, scale1, bias1, scale2, bias2,
         return eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2,
                                bias2, w_eca, z, wd, scale_d, bias_d)
     check_block_args("fused_eca_block_sm", x, w1, w2, z, wd)
-    x = x.contiguous()
+    x = _build.aligned(x)
     m = mask.contiguous()
     h = conv_phase(x, m, w1, scale1, bias1, z, pool=False)
     g, pool = conv_phase(h, m, w2, scale2, bias2, z, pool=True)

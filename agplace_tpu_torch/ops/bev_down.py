@@ -128,20 +128,28 @@ def check_stage0_args(name, feats, w0_folded, wd_folded, z: int):
                  f"{name}: wd {tuple(wd_folded.shape)}")
 
 
+def down0_widths_ok(zc1: int, zc2: int, z: int, *, max_zc1: int = MAX_ZC1,
+                    max_zc2: int = MAX_ZC2, max_z: int = MAX_Z) -> bool:
+    """Whether the down0 GEMM's tiles take these widths: Z*C1 a multiple of
+    the 64-channel slab up to ``max_zc1``, Z*C1/z a multiple of 8, z up to
+    ``max_z``, Zo*C2 a multiple of the 128-channel N tile up to
+    ``max_zc2`` and C2 even (the epilogue's channel pairs in one z-slab;
+    Zo is 3 at z = 5)."""
+    zo = me_down_align(z)[2]
+    return (zc1 % SLAB == 0 and zc1 <= max_zc1 and 1 <= z <= max_z
+            and zc1 % (8 * z) == 0 and zc2 % BLOCK_N == 0
+            and 0 < zc2 <= max_zc2 and zc2 % (2 * zo) == 0)
+
+
 def check_down0_args(name, x: int, y: int, zc1: int, zc2: int, z: int, *,
                      max_zc1: int = MAX_ZC1, max_zc2: int = MAX_ZC2,
                      max_z: int = MAX_Z):
     """The down0 GEMM's shape rule (K2's, and with K4's limits its down0
-    half): even X and Y, Z*C1 a multiple of the 64-channel slab up to
-    ``max_zc1``, Z*C1/z a multiple of 8, z up to ``max_z``, Zo*C2 a
-    multiple of the 128-channel N tile up to ``max_zc2`` and C2 even (the
-    epilogue's channel pairs in one z-slab; Zo is 3 at z = 5)."""
-    zo = me_down_align(z)[2]
+    half): even X and Y and ``down0_widths_ok``."""
     _build.check(x % 2 == 0 and y % 2 == 0,
                  f"{name}: spatial dims {x}x{y} are not even")
-    _build.check(zc1 % SLAB == 0 and zc1 <= max_zc1 and 1 <= z <= max_z
-                 and zc1 % (8 * z) == 0 and zc2 % BLOCK_N == 0
-                 and 0 < zc2 <= max_zc2 and zc2 % (2 * zo) == 0,
+    _build.check(down0_widths_ok(zc1, zc2, z, max_zc1=max_zc1,
+                                 max_zc2=max_zc2, max_z=max_z),
                  f"{name}: channel widths {zc1}->{zc2} at z={z} outside the "
                  f"kernel's tiles (Z*C1 a multiple of {SLAB} up to "
                  f"{max_zc1}, Z*C1/z of 8, z <= {max_z}, Zo*C2 a multiple "
@@ -191,9 +199,9 @@ def down0_gemm(g0, mask, scale0, bias0, wd_folded, scale_d, bias_d,
         g0.device).multi_processor_count)
     out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16,
                       device=g0.device)
-    _build.call("agp_bev_down", g0.contiguous(), mask.contiguous(),
+    _build.call("agp_bev_down", _build.aligned(g0), mask.contiguous(),
                 scale0.float().contiguous(), bias0.float().contiguous(),
-                wd_folded.to(_BF16).contiguous(),
+                _build.aligned(wd_folded.to(_BF16)),
                 scale_d.float().contiguous(), bias_d.float().contiguous(),
                 mask_out.contiguous(), out, z, me_down_align(z)[2],
                 *t.args())

@@ -215,9 +215,10 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     w0p = torch.zeros((t.w0_dims[1], zc1), dtype=_BF16, device=dev)
     w0p[:kk] = w0_folded.reshape(kk, zc1)
     out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16, device=dev)
-    _build.call("agp_bev_head", feats.to(_BF16).contiguous(),
+    _build.call("agp_bev_head", _build.aligned(feats.to(_BF16)),
                 mask.contiguous(), w0p, scale0.float().contiguous(),
-                bias0.float().contiguous(), wd_folded.to(_BF16).contiguous(),
+                bias0.float().contiguous(),
+                _build.aligned(wd_folded.to(_BF16)),
                 scale_d.float().contiguous(), bias_d.float().contiguous(),
                 mask_out.contiguous(), out, z, me_down_align(z)[2], k0, zc0,
                 *t.args())

@@ -20,7 +20,7 @@ K6 has no path; only its parity is checked.
 2. kernel build from ``agplace_tpu_torch/csrc`` (one nvcc per source, in
    parallel, sm_90a), and a check that each wgmma kernel holds ``HGMMA``
    in ``cuobjdump -sass``, by function: K3's and K6's two conv phases
-   each, K2's down0 GEMM and K4;
+   each, K2's down0 GEMM, K4, P2 and P1's two conv phases at each chunk;
 3. [parity] each kernel against its plain PyTorch version on the card at
    its main-path shapes, with CUDA-event timings of both (median of 20):
    K1 at B = 32 and 128 and the ragged 1 and 33, relu and tanh (timed at
@@ -39,7 +39,11 @@ K6 has no path; only its parity is checked.
    and timed beside a cuDNN yardstick (``F.conv2d``, bf16, channels_last,
    the conv alone; 10 calls queued per timing), with TFLOP/s and share of
    bound; P1 at
-   K3's four b32 shapes at chunks 1, 3 and 9; K5 bit-equal at
+   K3's four b32 shapes at chunks 1, 3 and 9 (also by ``device_ms``; its
+   two conv phases each against their plain version and timed by
+   ``device_ms``); P2 also by ``device_ms``, and its kernel alone
+   (``down_concat_gemm`` on precomputed parity planes) at b32 and b128
+   against its plain version, beside its byte bound; K5 bit-equal at
    [32,128,128,64] and [128,128,128,64] (timed also by ``device_ms``,
    beside ``F.max_pool2d`` alone on the activated map), an all-negative
    case, a view at storage offset 1, a ragged last band ([32,100,64,64]),
@@ -79,9 +83,9 @@ Every phase raises on failure.  The second-to-last line is the per-kernel
 JSON record (``launches`` summed over the four paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the yardstick for part of the work
-where there is one: cuDNN's convs for K3's and K6's conv phases and K2's
-down0 GEMM, ``F.max_pool2d`` for K5; null for the kernels no single PyTorch
-call computes), the last
+where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
+and K2's and P2's down0 GEMM, ``F.max_pool2d`` for K5; null for the
+kernels no single PyTorch call computes), the last
 line ``{"ok": true, "device": {...}}``.
 """
 
@@ -155,7 +159,24 @@ SM90_KERNELS = {"K3 conv phase 1": "conv3x3_sm90_kernelILi0E",
                 "K6 conv phase 1": "conv3x3_sm90_kernelILi2E",
                 "K6 conv phase 2": "conv3x3_sm90_kernelILi3E",
                 "K2 down0 GEMM": "down0_sm90_kernel",
-                "K4 fused head": "head_sm90_kernel"}
+                "K4 fused head": "head_sm90_kernel",
+                "P2 concat GEMM": "down_concat_sm90_kernel",
+                **{f"P1 conv phase {ph + 1} chunk {ch}":
+                   f"p1_sm90_kernelILi{ch}ELi{ph}E"
+                   for ch in CHUNKS for ph in (0, 1)}}
+
+
+# What the kernels line carries beside its required keys, where a kernel's
+# [parity] record has it: times by chunk, shape or batch, sub-records of the
+# kernel alone and its conv phases, the library call's label
+RECORD_KEYS = ("ms_by_chunk", "plain_ms_by_chunk", "device_ms_by_chunk",
+               "conv_phases_device_ms_by_chunk", "chunk3_ms_by_shape",
+               "chunk3_conv_phases_device_ms_by_shape", "library_ms_is",
+               "ms_by_shape", "b128", "conv_phases", "probe_ab", "gemm",
+               "queued", "z8", "z16", "ms_b128", "plain_ms_b128",
+               "queued_ms", "queued_ms_b128", "device_ms", "device_ms_b128",
+               "library_device_ms", "library_device_ms_b128",
+               "bound_ms_b128", "conv_phases_device_ms")
 
 
 def log(*a):
@@ -392,6 +413,30 @@ def conv_phases(name, args, z):
     return out
 
 
+def p1_conv_phases(name, args, z, chunk):
+    """P1's two conv phases at one block shape and chunk, each against its
+    plain version (``concat_conv_phase_plain``: the concat conv rounded
+    once, K3's epilogues); returns their device time per call of both
+    (the profiler, 50 calls)."""
+    from agplace_tpu_torch.ops import probe_block_sm_v2 as p1
+
+    x, mask, w1, w2, s1, b1, s2, b2 = args[:8]
+    h = p1.concat_conv_phase(x, mask, w1, s1, b1, z, False, chunk)
+    g, pool = p1.concat_conv_phase(h, mask, w2, s2, b2, z, True, chunk)
+    g_want, pool_want = p1.concat_conv_phase_plain(h, mask, w2, s2, b2, z,
+                                                   True, chunk)
+    compare(f"P1 conv phase 1 {name}", h, p1.concat_conv_phase_plain(
+        x, mask, w1, s1, b1, z, False, chunk), KCONV_TOL)
+    compare(f"P1 conv phase 2 {name}", g, g_want, KCONV_TOL)
+    compare(f"P1 conv phase 2 pool {name}", pool, pool_want, KPOOL_TOL)
+
+    def both():
+        hh = p1.concat_conv_phase(x, mask, w1, s1, b1, z, False, chunk)
+        p1.concat_conv_phase(hh, mask, w2, s2, b2, z, True, chunk)
+
+    return device_ms(both)
+
+
 def k6_conv_phases(name, args, z):
     """K6's two conv phases on the Hopper kernel (instances 2 and 3) at one
     block shape, each against its plain version (``bm_conv_phase_plain``:
@@ -468,6 +513,42 @@ def down0_alone(args, mask, z):
         f"{bnd['bound_ms'] / ms:.3f} = {nbytes(g0, got) / ms / 1e9:.2f} TB/s "
         f"of g in + out; cuDNN down0 alone {cudnn:.4f} ms")
     return dict(ms=ms, cudnn_ms=cudnn, share_of_bound=bnd["bound_ms"] / ms,
+                max_abs_err=rec["max_abs_err"],
+                frac_differ=rec["frac_differ"], **bnd)
+
+
+def down_concat_alone(args, mask, z):
+    """P2's kernel alone (``down_concat_gemm`` on precomputed parity
+    planes and output mask) held to its plain version, timed with 10 calls
+    queued and by the profiler's device time, beside its byte bound (the
+    four planes, the mask and parameters in, the output out)."""
+    from agplace_tpu_torch.data.voxels import me_down_align
+    from agplace_tpu_torch.ops import probe_down_v2
+    from agplace_tpu_torch.sparse import bev_grid as bg
+
+    feats, mask, w0, s0, b0, wd, sd, bd = stage0_inputs(args, mask)
+    planes = [p.contiguous() for p in probe_down_v2.parity_planes(feats, w0)]
+    lo_z, hi_z, _ = me_down_align(z)
+    m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
+    wb = wd.to(torch.bfloat16)
+    gemm_args = (mask, s0, b0, wb, sd, bd, m_out)
+    got = probe_down_v2.down_concat_gemm(planes, *gemm_args, z=z)
+    want = probe_down_v2.down_concat_gemm_plain(planes, *gemm_args, z=z)
+    bsz = mask.shape[0]
+    rec = compare(f"P2 kernel alone b{bsz}", got, want, KSTAGE0_TOL)
+    ms = queued_ms(lambda: probe_down_v2.down_concat_gemm(planes, *gemm_args,
+                                                          z=z))
+    dms = device_ms(lambda: probe_down_v2.down_concat_gemm(
+        planes, *gemm_args, z=z))
+    bnd = bound(conv_flops(got.shape[0] * got.shape[1] * got.shape[2], wd,
+                           z, 2),
+                nbytes(*planes, mask, s0, b0, wb, sd, bd, m_out, got))
+    log(f"  P2 kernel alone b{bsz}: {ms:.4f} ms ({dms:.4f} ms of device "
+        f"time); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
+        f"{bnd['bound_ms'] / dms:.3f} = "
+        f"{nbytes(*planes, got) / dms / 1e9:.2f} TB/s of planes in + out")
+    return dict(ms=ms, device_ms=dms,
+                share_of_bound=bnd["bound_ms"] / dms,
                 max_abs_err=rec["max_abs_err"],
                 frac_differ=rec["frac_differ"], **bnd)
 
@@ -656,11 +737,22 @@ def phase_parity(dev, masks, masks128, mask16):
                            out_p2, out, KSTAGE0_TOL)
     rec["ms"] = cuda_ms(lambda: probe_down_v2.fused_down_concat(*args,
                                                                 z=z0))
+    rec["device_ms"] = device_ms(lambda: probe_down_v2.fused_down_concat(
+        *args, z=z0))
     rec["plain_ms"] = cuda_ms(lambda: probe_down_v2.down_concat_plain(
         *args, z=z0))
-    log(f"  P2: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
-        f"(both include the four cuDNN parity convs)")
-    rec.update(stage0, library_ms=None)  # K2's function
+    log(f"  P2: kernel {rec['ms']:.4f} ms ({rec['device_ms']:.4f} ms of "
+        f"device time), plain {rec['plain_ms']:.4f} ms (all include the "
+        f"four cuDNN parity convs)")
+    rec.update(stage0)  # K2's function
+    rec["gemm"] = {f"b{m.shape[0]}": down_concat_alone(args, m, z0)
+                   for m in (m0, masks128[0])}
+    # the yardstick for the kernel's part: cuDNN's down0 alone on the
+    # activated map, timed with K2's GEMM above (the same function of the
+    # same map)
+    for key, k2_gemm in results["fused_conv0_down0"]["gemm"].items():
+        rec["gemm"][key]["cudnn_ms"] = k2_gemm["cudnn_ms"]
+    rec["library_ms"] = rec["gemm"][f"b{m0.shape[0]}"]["cudnn_ms"]
     results["fused_down_concat"] = rec
 
     # K5: the stem conv output at b32 and b128 (256 px images), timed by
@@ -752,8 +844,10 @@ def phase_parity(dev, masks, masks128, mask16):
     p1 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
           "frac_differ": 0.0, "ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
           "plain_ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
-          "vs_k3_plain_frac_differ": 0.0, "library_ms": None,
-          "chunk3_ms_by_shape": {}}
+          "device_ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
+          "conv_phases_device_ms_by_chunk": dict.fromkeys(CHUNKS, 0.0),
+          "vs_k3_plain_frac_differ": 0.0, "chunk3_ms_by_shape": {},
+          "chunk3_conv_phases_device_ms_by_shape": {}}
     shapes = ((1, 64, 64, "block0_0"), (2, 64, 128, "block1_0"),
               (3, 128, 256, "block2_0"), (3, 256, 256, "ffn_vox_0"))
     for mask, cin, c, name in (
@@ -802,15 +896,22 @@ def phase_parity(dev, masks, masks128, mask16):
                          KBF16_TOL)
             ms_c = cuda_ms(lambda: probe_block_sm_v2.fused_eca_block_concat(
                 *args, z=z, **kwc))
+            dms_c = device_ms(lambda: probe_block_sm_v2.
+                              fused_eca_block_concat(*args, z=z, **kwc))
             pms_c = cuda_ms(lambda: probe_block_sm_v2.eca_block_concat_plain(
                 *args, z=z, **kwc))
-            log(f"  P1 chunk {ch} {name}: kernel {ms_c:.4f} ms, plain "
+            ph_ms = p1_conv_phases(f"chunk {ch} {name}", args, z, ch)
+            log(f"  P1 chunk {ch} {name}: kernel {ms_c:.4f} ms ({dms_c:.4f} "
+                f"ms of device time, its conv phases {ph_ms:.4f}), plain "
                 f"{pms_c:.4f} ms (K3 kernel {ms:.4f} ms: "
                 f"{'faster' if ms < ms_c else 'NOT faster'})")
             p1["ms_by_chunk"][ch] += ms_c
             p1["plain_ms_by_chunk"][ch] += pms_c
+            p1["device_ms_by_chunk"][ch] += dms_c
+            p1["conv_phases_device_ms_by_chunk"][ch] += ph_ms
             if ch == 3:
                 p1["chunk3_ms_by_shape"][name] = ms_c
+                p1["chunk3_conv_phases_device_ms_by_shape"][name] = ph_ms
             p1["max_abs_err"] = max(p1["max_abs_err"], rec["max_abs_err"])
             p1["frac_differ"] = max(p1["frac_differ"], rec["frac_differ"])
             p1["vs_k3_plain_frac_differ"] = max(
@@ -818,6 +919,12 @@ def phase_parity(dev, masks, masks128, mask16):
     results["fused_eca_block_sm"] = k3
     p1["ms"], p1["plain_ms"] = p1["ms_by_chunk"][3], \
         p1["plain_ms_by_chunk"][3]  # the default chunk, four shapes
+    p1["device_ms"] = p1["device_ms_by_chunk"][3]
+    p1["conv_phases_device_ms"] = p1["conv_phases_device_ms_by_chunk"][3]
+    # P1 computes K3's function: K3's cuDNN conv phases (both convs alone,
+    # the same inputs) are the yardstick for its conv part
+    p1["library_ms"] = k3["library_ms"]
+    p1["library_ms_is"] = "yardstick for part: cuDNN's two conv phases"
     results["fused_eca_block_concat"] = p1
 
     # K6 (no model path): identity blocks at a stage-0 and a stage-2 shape
@@ -1213,22 +1320,7 @@ def main() -> None:
                      "bound_ms": parity[k]["bound_ms"],
                      "bound_by": parity[k]["bound_by"],
                      "library_ms": parity[k]["library_ms"]},
-                    **{x: parity[k][x] for x in ("ms_by_chunk",
-                                                 "plain_ms_by_chunk",
-                                                 "chunk3_ms_by_shape",
-                                                 "ms_by_shape", "b128",
-                                                 "conv_phases", "probe_ab",
-                                                 "gemm", "queued", "z8",
-                                                 "z16", "ms_b128",
-                                                 "plain_ms_b128",
-                                                 "queued_ms",
-                                                 "queued_ms_b128",
-                                                 "device_ms",
-                                                 "device_ms_b128",
-                                                 "library_device_ms",
-                                                 "library_device_ms_b128",
-                                                 "bound_ms_b128",
-                                                 "conv_phases_device_ms")
+                    **{x: parity[k][x] for x in RECORD_KEYS
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

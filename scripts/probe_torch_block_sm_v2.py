@@ -19,9 +19,9 @@ cold-L2 regime of ``probe_torch_down_v2.ab_ms`` (the 33.5 MB block input
 would otherwise stay in the 50 MB L2 between calls).  Prints one JSON line:
 ``chunk``, ``v1_shipped`` and ``v2_concat`` in ms, ``max_abs``,
 ``frac_differ``, ``card``, ``calls`` and, on the card, ``device_ms`` (each
-version's device time by kernel: P1's two halo-tile conv phases against
-K3's two TMA + wgmma ones).  ``run(device, chunk)`` returns the same
-record; on the CPU the times are None (not measured).
+version's device time by kernel: P1's two conv phases, one halo box per
+slab, against K3's two, one x box per tap).  ``run(device, chunk)``
+returns the same record; on the CPU the times are None (not measured).
 """
 
 from __future__ import annotations

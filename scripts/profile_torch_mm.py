@@ -39,8 +39,8 @@ _OWN = re.compile(r"(conv3x3_sm90_kernel<[^>]*>|conv_igemm_kernel<[^>]*>"
                   r"|ode_euler_kernel|head_sm90_kernel"
                   r"|down0_sm90_kernel"
                   r"|stem_pool_kernel|eca_kernel|combine_id_kernel"
-                  r"|combine_kernel|halo_conv3x3_kernel<[^>]*>"
-                  r"|down_concat_kernel)")
+                  r"|combine_kernel|p1_sm90_kernel<[^>]*>"
+                  r"|down_concat_(?:sm90_)?kernel)")
 # library kernels, first match wins
 _CLASSES = (
     ("max-pools", ("max_pool",)),

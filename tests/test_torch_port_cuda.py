@@ -179,14 +179,16 @@ def _conv0(args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k2", "k4"])
+@pytest.mark.parametrize("kernel", ["k2", "k4", "p2"])
 def test_stage0_item_with_empty_mask_gives_exact_zeros(cuda, kernel):
     z = 4
     args = _stage0_args(_gen(), 3, 20, 64, cuda)
     mask = args[1].clone()
     mask[1] = False  # item 1: no occupied cell
     args = (mask.to(torch.bfloat16), mask, *args[2:])
-    fn = bev_down.fused_conv0_down0 if kernel == "k2" else bev_head.fused_head
+    fn = {"k2": bev_down.fused_conv0_down0,
+          "k4": bev_head.fused_head,
+          "p2": probe_down_v2.fused_down_concat}[kernel]
     with torch.inference_mode():
         out, _ = fn(*args, z=z)
     assert bool((out[1] == 0).all()) and bool((out[0] != 0).any())
@@ -441,10 +443,12 @@ def test_k6_kernel_matches_plain(cuda, c, xy, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk", [1, 3, 9])
 @pytest.mark.parametrize("cin,c,xy", [(64, 64, 16), (64, 128, 8),
-                                      (128, 256, 12)])
+                                      (128, 256, 12), (48, 48, 10)])
 def test_p1_kernel_matches_plain(cuda, chunk, cin, c, xy):
     """P1 against its plain version and against K3's plain version (the
-    same rounding points); 12 x 12 maps leave ragged 8 x 16 patches."""
+    same rounding points); 12 x 12 and 10 x 10 maps leave ragged patches,
+    and Z*C = 96 (cin = c = 48) is not a multiple of the 64-channel slab
+    or the 128-channel N tile: TMA zero-fills the rest of both."""
     mask, args, kw = _block_args(_gen(), cin, c, xy, 2, cuda)
     ops.reset_launches()
     with torch.inference_mode():
@@ -461,6 +465,55 @@ def test_p1_kernel_matches_plain(cuda, chunk, cin, c, xy):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 3, 9])
+@pytest.mark.parametrize("cin,c,xy", [(64, 64, 16), (128, 256, 4),
+                                      (16, 16, 12), (48, 48, 10)])
+def test_p1_conv_phases_match_plain(cuda, chunk, cin, c, xy):
+    """P1's two conv phases (TMA + wgmma) against their plain version at
+    main-path widths (Z*C 128 -> 128, 256 -> 512 on a 4 x 4 map smaller
+    than the patch) and at Z*C = 32 and 96 (a K slab and an N tile partly
+    zero-filled); the pool against the plain masked sum."""
+    z = 2
+    _, args, _ = _block_args(_gen(), cin, c, xy, z, cuda)
+    x, mask, w1, w2, s1, b1, s2, b2 = args[:8]
+    with torch.inference_mode():
+        h = probe_block_sm_v2.concat_conv_phase(x, mask, w1, s1, b1, z,
+                                                False, chunk)
+        h_want = probe_block_sm_v2.concat_conv_phase_plain(
+            x, mask, w1, s1, b1, z, False, chunk)
+        g, pool = probe_block_sm_v2.concat_conv_phase(h_want, mask, w2, s2,
+                                                      b2, z, True, chunk)
+        g_want, pool_want = probe_block_sm_v2.concat_conv_phase_plain(
+            h_want, mask, w2, s2, b2, z, True, chunk)
+    _close_bf16(h, h_want, CONV_FRAC_DIFFER)
+    _close_bf16(g, g_want, CONV_FRAC_DIFFER)
+    assert float((pool - pool_want).abs().max()) <= \
+        POOL_TOL * float(pool_want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", range(9))
+def test_p1_each_tap_alone_matches_plain(cuda, tap):
+    """The weights zero but for one tap: the kernel's rows of that tap (a
+    shifted view of the halo tile in shared memory) must be the plain
+    conv's, alone; ragged 12 x 20 maps, two K slabs, two N tiles."""
+    z = 2
+    _, args, _ = _block_args(_gen(), 64, 128, 12, z, cuda)
+    g = _gen()
+    x = torch.randn(3, 12, 20, 128, generator=g).to(cuda, torch.bfloat16)
+    mask = torch.ones(3, 12, 20, z, dtype=torch.bool, device=cuda)
+    w = torch.zeros_like(args[2])
+    w[tap // 3, tap % 3] = args[2][tap // 3, tap % 3]
+    with torch.inference_mode():
+        for chunk in (1, 3, 9):
+            got = probe_block_sm_v2.concat_conv_phase(x, mask, w, *args[4:6],
+                                                      z, False, chunk)
+            want = probe_block_sm_v2.concat_conv_phase_plain(
+                x, mask, w, *args[4:6], z, False, chunk)
+            _close_bf16(got, want, CONV_FRAC_DIFFER)
+
+
+@pytest.mark.cuda
 def test_p1_kernel_raises_on_widths_off_its_tiles(cuda):
     _, args, _ = _block_args(_gen(), 40, 40, 8, 2, cuda)  # Z*C = 80
     with pytest.raises(ValueError, match="multiples of the kernel's tiles"):
@@ -468,10 +521,13 @@ def test_p1_kernel_raises_on_widths_off_its_tiles(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,xy,c1", [(2, 32, 64), (3, 20, 8)])
+@pytest.mark.parametrize("b,xy,c1", [(2, 32, 64), (3, 20, 8), (5, 128, 64),
+                                     (3, 20, 64)])
 def test_p2_kernel_matches_plain(cuda, b, xy, c1):
     """P2 against its plain version and against K2 (the same rounding
-    points); 3 x 10 x 10 output cells leave a ragged last tile."""
+    points); 3 x 10 x 10 output cells leave a ragged last tile, 5 x 128 x
+    128 has more tiles than the card's SMs.  c1 = 64 (Z*C1 = 256 -> 128)
+    runs K2's Hopper main loop, c1 = 8 (32 -> 16) the wmma kernel."""
     z = 4
     args = _stage0_args(_gen(), b, xy, c1, cuda)
     ops.reset_launches()
@@ -491,6 +547,99 @@ def test_p2_kernel_matches_plain(cuda, b, xy, c1):
     assert bool((got[~mf] == 0).all())
     assert probe_down_v2.fused_down_concat.launches == 1
     assert bev_down.fused_conv0_down0.launches == int(c1 == 64)
+
+
+def _offset1(t):
+    """``t``'s values in a contiguous view at storage offset 1 (2 bytes
+    past 16-byte alignment)."""
+    base = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = base[1:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16 != 0
+    return v
+
+
+def _stage0_case(kernel, operand, dev):
+    """(kernel output, plain output) of a stage-0 wrapper with ``operand``
+    at storage offset 1; bf16 weights, so the wrapper's casts keep them."""
+    from agplace_tpu_torch.sparse import bev_grid as bg
+
+    z = 4
+    args = list(_stage0_args(_gen(), 2, 32, 64, dev))
+    args[2], args[5] = args[2].to(torch.bfloat16), args[5].to(torch.bfloat16)
+    mask = args[1]
+    lo, hi, _ = me_down_align(z)
+    m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo, hi))
+    if kernel == "k2_gemm":  # g0: conv0's output, the GEMM's A operand
+        g0 = _conv0(args)
+        rest = (mask, args[3], args[4], *args[5:])
+        return (bev_down.down0_gemm(_offset1(g0), *rest, m_out, z=z),
+                bev_down.down0_plain(g0, *rest, z=z)[0])
+    if kernel == "p2_gemm":  # plane 0, the A operand's first K steps
+        planes = probe_down_v2.parity_planes(args[0], args[2])
+        rest = (mask, args[3], args[4], *args[5:], m_out)
+        want = probe_down_v2.down_concat_gemm_plain(planes, *rest, z=z)
+        planes[0] = _offset1(planes[0])
+        return probe_down_v2.down_concat_gemm(planes, *rest, z=z), want
+    fn, plain = {"k2": (bev_down.fused_conv0_down0,
+                        bev_down.conv0_down0_plain),
+                 "k4": (bev_head.fused_head, bev_head.head_plain),
+                 "p2": (probe_down_v2.fused_down_concat,
+                        probe_down_v2.down_concat_plain)}[kernel]
+    want = plain(*args, z=z)[0]
+    i = {"feats": 0, "wd": 5}[operand]
+    args[i] = _offset1(args[i])
+    return fn(*args, z=z)[0], want
+
+
+def _block_case(kernel, operand, dev):
+    """(kernel output, plain output) of an ECA-block wrapper with
+    ``operand`` at storage offset 1; bf16 weights."""
+    z = 2
+    cin, c = {"k3": (64, 64), "k3_ds": (64, 128), "k6": (64, 64),
+              "k6_narrow": (32, 32), "p1": (64, 64)}[kernel]
+    _, args, kw = _block_args(_gen(), cin, c, 8, z, dev)
+    args = [a.to(torch.bfloat16) if i in (2, 3) else a
+            for i, a in enumerate(args)]
+    kw = {k: v.to(torch.bfloat16) if k == "wd" else v for k, v in kw.items()}
+    fn, plain = {"k3": (bev_block_sm.fused_eca_block_sm,
+                        bev_block_sm.eca_block_plain),
+                 "k3_ds": (bev_block_sm.fused_eca_block_sm,
+                           bev_block_sm.eca_block_plain),
+                 "k6": (bev_block.fused_eca_block,
+                        bev_block.eca_block_bm_plain),
+                 "k6_narrow": (bev_block.fused_eca_block,
+                               bev_block.eca_block_bm_plain),
+                 "p1": (probe_block_sm_v2.fused_eca_block_concat,
+                        probe_block_sm_v2.eca_block_concat_plain)}[kernel]
+    want = plain(*args, z=z, **kw)
+    if operand == "wd":
+        kw["wd"] = _offset1(kw["wd"])
+    else:
+        i = {"x": 0, "w1": 2}[operand]
+        args[i] = _offset1(args[i])
+    return fn(*args, z=z, **kw), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,operand", [
+    ("k2", "wd"), ("k2_gemm", "g0"), ("k3", "x"), ("k3", "w1"),
+    ("k3_ds", "x"), ("k3_ds", "wd"), ("k4", "feats"), ("k4", "wd"),
+    ("k6", "x"), ("k6", "w1"), ("k6_narrow", "w1"), ("p1", "x"),
+    ("p1", "w1"), ("p2", "wd"), ("p2_gemm", "g")])
+def test_wrapper_reads_operands_at_an_odd_storage_offset(cuda, kernel,
+                                                         operand):
+    """An operand read by 16-byte vectors, cp.async or TMA, given as a
+    contiguous view at storage offset 1, is copied to an aligned one
+    (``_build.aligned``): the result is the plain version's, within the
+    wrapper's tolerance, and the context stays usable."""
+    stage0 = kernel in ("k2", "k2_gemm", "k4", "p2", "p2_gemm")
+    with torch.inference_mode():
+        got, want = (_stage0_case if stage0 else _block_case)(
+            kernel, operand, cuda)
+        torch.cuda.synchronize()
+    frac = (STAGE0_FRAC_DIFFER if stage0 else BLOCK_FRAC_DIFFER)
+    _close_bf16(got, want, frac)
 
 
 @pytest.mark.cuda
