@@ -321,14 +321,12 @@ class EvalConfig:
     majority_weight: float = 0.01
     pca_dim: Optional[int] = None
     # single_query runs ragged original-resolution queries at batch 1 (the
-    # reference's queries_infer_batch_size=1, test.py:141) — one XLA
-    # compile per unique image shape.  This caps the storm: the first
-    # max_query_shapes distinct shapes embed exactly; later NEW shapes are
-    # zero-padded bottom/right into an already-compiled larger bucket
-    # (boundary-only approximation: interior activations are bit-identical
-    # because SAME convs already see implicit zeros there; a warning is
-    # logged once).  KITTI-360/nuScenes are uniform-resolution and never
-    # hit the cap.
+    # reference's queries_infer_batch_size=1, test.py:141).  The first
+    # max_query_shapes distinct shapes embed as they are; a later NEW shape
+    # is resized bilinearly (antialiased when it shrinks) to the kept shape
+    # nearest in log height + log width (``evaluate.resize_bilinear``), and
+    # a warning is logged once.  KITTI-360/nuScenes are uniform-resolution
+    # and never hit the cap.
     max_query_shapes: int = 16
 
 

@@ -1,6 +1,8 @@
-"""Aerial/database tower (``agplace_tpu/models/dbvanilla2d.py``), the 5-D
-cache/test entry: [B, NMAP, H, W, 3] -> [B, dim].  Per map type: truncated
-ResNet -> GeM -> MLP; per-map L2, then the mean over map types."""
+"""Aerial/database tower (``agplace_tpu/models/dbvanilla2d.py``): the 5-D
+cache/test entry [B, NMAP, H, W, 3] -> [B, dim] and the 6-D train entry
+[B, NDB, NMAP, H, W, 3] -> [B, NDB, dim], which folds B*NDB into the batch.
+Per map type: truncated ResNet -> GeM -> MLP; per-map L2, then the mean
+over map types."""
 
 from __future__ import annotations
 
@@ -43,20 +45,23 @@ class DBVanilla2D(nn.Module):
             setattr(self, f"mlp_{i}", MLP(last, dim))
 
     def forward(self, db_map: torch.Tensor) -> torch.Tensor:
-        if db_map.ndim != 5:
-            raise ValueError(f"db_map must be [B, NMAP, H, W, 3] (the "
-                             f"cache/test entry), got {tuple(db_map.shape)}")
-        if db_map.shape[1] != self.nmap:
-            raise ValueError(f"{db_map.shape[1]} map types, expected "
+        if db_map.ndim not in (5, 6):
+            raise ValueError(f"db_map must be [B, NMAP, H, W, 3] (cache/"
+                             f"test) or [B, NDB, NMAP, H, W, 3] (train), "
+                             f"got {tuple(db_map.shape)}")
+        lead = db_map.shape[:-4]  # (B,) or (B, NDB)
+        if db_map.shape[-4] != self.nmap:
+            raise ValueError(f"{db_map.shape[-4]} map types, expected "
                              f"{self.nmap}")
+        db_map = db_map.reshape(-1, *db_map.shape[-4:])
         vecs = []
         for i in range(self.nmap):
             br = 0 if self.share else i
             featmap, _ = getattr(self, f"fe_{br}")(db_map[:, i])
             vec = getattr(self, f"pool_{br}")(featmap)
             vecs.append(getattr(self, f"mlp_{br}")(vec))
-        out = torch.stack(vecs, dim=1)  # [B, NMAP, dim]
+        out = torch.stack(vecs, dim=1)  # [B*NDB, NMAP, dim]
         if self.output_l2:
             out = l2n(out)
-        out = out.mean(dim=1)
+        out = out.mean(dim=1).reshape(*lead, -1)
         return l2n(out) if self.final_l2 else out

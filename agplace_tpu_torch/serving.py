@@ -5,11 +5,14 @@ to the fp32 single-device gallery.
     idx = PlaceIndex(cfg, (mm, db))
     idx.add_tiles(ds)                            # embed + index the gallery
     d, i = idx.search(images, points, k=5)       # (sq distances, indices)
+    d, i, en = idx.locate(images, points, k=5)   # + the hits' UTM east/north
 
 Requests are padded to ``infer_batch_size`` (embedding) and to power-of-two
 query buckets (search), as the JAX index does.  The gallery is kept as a
-host fp32 buffer plus a device-resident copy rebuilt only after adds.  The
-int8, sharded and audit paths and the HTTP front end are not ported yet.
+host fp32 buffer plus a device-resident copy rebuilt only after a change.
+``from_gallery`` builds a search-only index from a saved gallery.  The
+int8, sharded and audit paths, ``from_checkpoint`` and the HTTP front end
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 from agplace_tpu_torch.config import Config
 from agplace_tpu_torch.data.voxels import prepare_query_vox
 from agplace_tpu_torch.device import resolve_device
+from agplace_tpu_torch.embed import (batched_embed_db, drain, padded_batches,
+                                     to_device)
 from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
 from agplace_tpu_torch.retrieval.knn import l2_topk_blocked
 
@@ -58,21 +63,13 @@ class PlaceIndex:
             raise RuntimeError("search-only index has no tower")
         idx = list(indices if indices is not None
                    else range(ds.database_num))
-        bs = self.cfg.train.infer_batch_size
-        feats = []
-        for s in range(0, len(idx), bs):
-            chunk = idx[s:s + bs]
-            keep = len(chunk)
-            chunk = chunk + [chunk[-1]] * (bs - keep)
-            maps = np.stack([ds.load_db_maps(i) for i in chunk])
-            emb = self._embed_db(self._to_device(maps))
-            feats.append(emb[:keep].float().cpu().numpy())
+        feats = batched_embed_db(ds, idx, self._embed_db,
+                                 self.cfg.train.infer_batch_size,
+                                 self.device)
         pos = getattr(ds, "db_eastnorth", None)
         if pos is not None:
             pos = np.asarray(pos, np.float64)[idx]
-        return self.add_descriptors(
-            np.concatenate(feats) if feats else np.zeros((0, 0), np.float32),
-            positions=pos)
+        return self.add_descriptors(feats, positions=pos)
 
     def add_descriptors(self, feats: np.ndarray,
                         positions: Optional[np.ndarray] = None) -> int:
@@ -91,6 +88,24 @@ class PlaceIndex:
         self._parts.append(feats)
         self._pos_parts.append(positions)
         self._n_rows += int(feats.shape[0])
+        self._dirty = True
+        return self._n_rows
+
+    def remove_rows(self, indices) -> int:
+        """Delete gallery rows by index.  The rows left keep their order and
+        their indices shift down.  Returns the new size; the device copy
+        is rebuilt on the next search."""
+        indices = np.atleast_1d(np.asarray(indices, np.int64))
+        if indices.size == 0:
+            return self._n_rows
+        if indices.min() < 0 or indices.max() >= self._n_rows:
+            raise IndexError(f"row index out of range [0, {self._n_rows})")
+        keep = np.ones(self._n_rows, bool)
+        keep[indices] = False
+        host, pos = self._host_gallery(), self.positions
+        self._parts = [host[keep]]
+        self._pos_parts = [pos[keep] if pos is not None else None]
+        self._n_rows = int(keep.sum())
         self._dirty = True
         return self._n_rows
 
@@ -148,15 +163,21 @@ class PlaceIndex:
                              f"descriptors")
         return self.add_descriptors(feats, positions=pos)
 
-    # -- queries ------------------------------------------------------------
-    def _to_device(self, images: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-        return t.to(self.device)
+    @classmethod
+    def from_gallery(cls, path: str, cfg: Optional[Config] = None,
+                     device=None) -> "PlaceIndex":
+        """Search-only index over a gallery saved by ``save_gallery``:
+        ``search_descriptors`` / ``locate_descriptors`` only."""
+        idx = cls(cfg, None, device)
+        idx.load_gallery(path)
+        return idx
 
+    # -- queries ------------------------------------------------------------
     def embed(self, images: np.ndarray,
               points: Optional[np.ndarray] = None) -> np.ndarray:
         """[B, H, W, 3] images (+ optional [B, P, 3] NaN-padded clouds) ->
-        [B, C] descriptors; requests are padded to ``infer_batch_size``."""
+        [B, C] descriptors; requests are padded to ``infer_batch_size``
+        (``embed.padded_batches``) and fetched once."""
         if self._embed_q is None:
             raise RuntimeError("search-only index has no tower")
         bs = self.cfg.train.infer_batch_size
@@ -164,22 +185,18 @@ class PlaceIndex:
         n = images.shape[0]
         if n == 0:
             return np.zeros((0, self.cfg.model.features_dim), np.float32)
-        if points is None:
-            points = np.full((n, 1, 3), np.nan, np.float32)
-        elif len(points) != n:
+        points = (np.full((n, 1, 3), np.nan, np.float32) if points is None
+                  else np.asarray(points, np.float32))
+        if len(points) != n:
             raise ValueError(f"{len(points)} point clouds for {n} images")
-        outs = []
-        for s in range(0, n, bs):
-            im, pt = images[s:s + bs], points[s:s + bs]
-            keep = im.shape[0]
-            if keep < bs:
-                im = np.concatenate([im, np.repeat(im[-1:], bs - keep, 0)])
-                pt = np.concatenate([pt, np.repeat(pt[-1:], bs - keep, 0)])
-            vox = prepare_query_vox(self.cfg, pt, self.device,
+        parts, keeps = [], []
+        for chunk, keep in padded_batches(range(n), bs):
+            vox = prepare_query_vox(self.cfg, points[chunk], self.device,
                                     compute_dtype(self.cfg))
-            emb = self._embed_q(self._to_device(im), vox)
-            outs.append(emb[:keep].float().cpu().numpy())
-        return np.concatenate(outs)
+            parts.append(self._embed_q(to_device(images[chunk], self.device),
+                                       vox))
+            keeps.append(keep)
+        return drain(parts, keeps)
 
     def search(self, images: np.ndarray, points: Optional[np.ndarray] = None,
                k: int = 5) -> Tuple[np.ndarray, np.ndarray]:
@@ -187,6 +204,25 @@ class PlaceIndex:
         if self._n_rows == 0:
             raise RuntimeError("empty index: add tiles first")
         return self.search_descriptors(self.embed(images, points), k)
+
+    def locate(self, images: np.ndarray, points: Optional[np.ndarray] = None,
+               k: int = 5) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``search`` plus the [B, k, 2] UTM east/north of the hits (NaN
+        for -1 padding); every gallery part needs positions."""
+        d, i = self.search(images, points, k)
+        return d, i, self._positions_of(i)
+
+    def locate_descriptors(self, q_feats: np.ndarray, k: int = 5
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        d, i = self.search_descriptors(q_feats, k)
+        return d, i, self._positions_of(i)
+
+    def _positions_of(self, i: np.ndarray) -> np.ndarray:
+        pos = self.positions
+        if pos is None:
+            raise RuntimeError("gallery has rows without positions")
+        return np.where((i >= 0)[..., None], pos[np.clip(i, 0, None)],
+                        np.nan)
 
     @staticmethod
     def _pow2(n: int, lo: int = 1) -> int:

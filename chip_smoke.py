@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Drives the port's two serving paths (``agplace_tpu_torch.serving.PlaceIndex``
-on ``kitti360_config()`` in bf16, full width, seeded random weights) on the
-card and checks every hand-written kernel of the port:
+on ``kitti360_config()`` in bf16, full width, seeded random weights) and its
+evaluation path (``agplace_tpu_torch.evaluate``: Recall@N of a synthetic
+world, with the same towers) on the card and checks every hand-written
+kernel of the port:
 
 * the default configuration: K1 (FCODE), K2 (BEV stage 0), K3 (ECA blocks);
 * the fused-stem / fused-head configuration (``bev_pallas_head``,
@@ -72,15 +74,34 @@ K6 has no path; only its parity is checked.
    of ``nuscenes_config()`` with ``bev_pallas_head`` set at its full 128 x
    128 x 8 grid, batch 2: exact launch counts (K1 x3, K3 x4, K4 x1) and
    the embeddings against the CPU run;
-6. [timing] MM forward of both configurations at batch 32 and 128
+6. [eval] ``evaluate.evaluate`` (hard_resize) on the card with the default
+   path's towers: ``SyntheticDataset`` of 512 tiles and 256 queries at
+   256 px, clouds of 30,000 points (22,500 real), ``infer_batch_size`` 32,
+   so 16 aerial-tower and 8 MM forwards (exact launch counts); recalls
+   finite, in [0, 100] and non-decreasing; on ``evaluate``'s own
+   descriptors (its closures keep what they return): 4 queries' and 4
+   tiles' against the CPU, the card's search against the CPU's (the same
+   indices wherever neighbouring distances are more than 1e-5 of their
+   scale apart), ``evaluate``'s recalls equal to ``evaluate_features`` on
+   the CPU; the wall time of its gallery pass and of the rest, the search
+   alone, one more ``evaluate`` under the profiler (its kernels' device
+   total) and 4 batches rendered with nothing sent to the card; a gallery
+   row duplicated into a ``PlaceIndex`` comes right after its original;
+   [eval-crops] 32 queries' five crops in one MM forward at batch 160,
+   nearest_crop and maj_voting from that pass over [eval]'s gallery
+   (exact launch counts), one query's 5 crop rows against the CPU;
+   [eval-fused] ``evaluate`` with the fused towers on 128 tiles and 64
+   queries (K4, K5), exact launch counts, that run's descriptors against
+   the CPU;
+7. [timing] MM forward of both configurations at batch 32 and 128
    (synchronised latency and back-to-back throughput), on the same inputs;
-7. [probe] the probe entry points' ``run()`` at b32: the stage-0 A/B (P2
+8. [probe] the probe entry points' ``run()`` at b32: the stage-0 A/B (P2
    vs K2) and the block0 A/B (P1 vs K3) at chunks 1, 3 and 9, each v2
    checked against v1 and both timed in the cold-L2 regime; exact launch
    counts: one P2 or P1 launch per v2 call, one K2 or K3 per v1 call.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
-JSON record (``launches`` summed over the four paths, split in
+JSON record (``launches`` summed over the seven paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the yardstick for part of the work
 where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
@@ -105,6 +126,9 @@ import torch
 IMAGE = 256
 N_TILES = 512  # default path's gallery
 N_TILES_FUSED = 128
+N_EVAL_Q = 256  # [eval]: queries over the default path's N_TILES tiles
+N_EVAL_CROP_Q = 32  # [eval-crops]: one MM forward of 5 x 32 crops
+N_EVAL_FUSED_Q = 64  # [eval-fused]: queries over N_TILES_FUSED tiles
 N_POINTS = 30000
 CHUNKS = (1, 3, 9)  # P1's taps per concatenated group
 # |kernel - plain| <= atol * max|plain| + rtol * |plain| elementwise, the
@@ -230,11 +254,16 @@ def device_ms(fn, n: int = 50) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    return profiled_ms(prof) / n
+
+
+def profiled_ms(prof) -> float:
+    """Device ms of every kernel a ``torch.profiler`` run recorded."""
     total = sum(e.self_device_time_total for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     if total <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return total / 1e3 / n
+    return total / 1e3
 
 
 def lidar(rng, n: int) -> np.ndarray:
@@ -1033,7 +1062,7 @@ def phase_serving(cfg, dev, n_tiles, label):
     rng = np.random.default_rng(0)
     seed_bn(mm, rng)
     seed_bn(db, rng)
-    cpu_mm = copy.deepcopy(mm)
+    cpu_mm, cpu_db = copy.deepcopy(mm), copy.deepcopy(db)
     idx = PlaceIndex(cfg, (mm.to(dev), db.to(dev)), device=dev)
 
     requests = []
@@ -1074,7 +1103,7 @@ def phase_serving(cfg, dev, n_tiles, label):
     log(f"[{label}] planted row {planted}: top-1 {i[0, 0]} d={d[0, 0]:.3g}")
     if i[0, 0] != planted:
         raise AssertionError("planted descriptor is not the top-1 hit")
-    return mm, cpu_mm, requests, counts
+    return (mm, db), (cpu_mm, cpu_db), requests, counts
 
 
 def phase_slice_parity(cfg, mm, cpu_mm, requests, dev, label):
@@ -1227,6 +1256,268 @@ def phase_probe(dev):
     return counts, down, blocks
 
 
+def eval_dataset(cfg, n_db, n_q, crops=False):
+    """The synthetic world at the full input sizes: 256 px images, clouds
+    of ``N_POINTS`` points (a quarter NaN padding), seed 0, so every eval
+    phase sees the same first ``n_db`` tiles.  ``crops``: five crops per
+    query, as a folder dataset cuts them (the query image resized to 1.2x
+    the crop, then the four corners and the centre)."""
+    from agplace_tpu_torch.data.synthetic import SyntheticDataset
+    from agplace_tpu_torch.evaluate import resize_bilinear
+
+    class CropQueries(SyntheticDataset):
+        def load_query_crops(self, idx, crop):
+            big = int(crop * 1.2)
+            img = resize_bilinear(self.load_query_image(idx), (big, big))
+            o, c = big - crop, (big - crop) // 2
+            return np.stack([img[y:y + crop, x:x + crop] for y, x in
+                             ((0, 0), (0, o), (o, 0), (o, o), (c, c))])
+
+    return (CropQueries if crops else SyntheticDataset)(
+        n_db=n_db, n_q=n_q, image_size=IMAGE, nmap=cfg.data.nmap,
+        n_points=N_POINTS, seed=0)
+
+
+def check_recalls(label, recalls, text):
+    ok = (np.isfinite(recalls).all() and (recalls >= 0).all()
+          and (recalls <= 100).all() and (np.diff(recalls) >= 0).all())
+    log(f"[{label}] {text} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: recalls {recalls}")
+
+
+def check_descriptors(label, what, gpu, cpu):
+    """Card descriptors against the CPU run of the same module."""
+    err = float(np.abs(gpu - cpu).max())
+    scale = float(np.abs(cpu).max())
+    ok = bool(np.isfinite(gpu).all()) and err <= SLICE_TOL * scale
+    log(f"[{label}] GPU vs CPU {what}: max_abs_err={err:.4g} (scale "
+        f"{scale:.4g}, tol {SLICE_TOL} x scale) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: {what} disagree with the CPU")
+
+
+def cpu_descriptors(cfg, ds, cpu_towers, n):
+    """The first ``n`` queries' and tiles' descriptors from the CPU copies
+    of the towers (the kernels' plain versions)."""
+    from agplace_tpu_torch.data.base import collate_cache_db, collate_cache_q
+    from agplace_tpu_torch.infer import compute_dtype
+
+    cpu_mm, cpu_db = cpu_towers
+    images, vox = collate_cache_q(ds, range(n), cfg, "cpu",
+                                  compute_dtype(cfg))
+    with torch.inference_mode():
+        q = cpu_mm(torch.from_numpy(images), vox)["embedding"]
+        db = cpu_db(torch.from_numpy(collate_cache_db(ds, range(n))))
+    return q.float().numpy(), db.float().numpy()
+
+
+def run_evaluate(cfg, ds, towers, dev):
+    """The path: ``evaluate(cfg, ds, ...)`` on the card, launch counts reset
+    just before it and read just after.  Its closures keep what they
+    return, so the checks read the descriptors ``evaluate`` itself used;
+    the dataset stamps its first query load, where the gallery pass has
+    ended (its descriptors fetched).  Returns (recalls, text, counts,
+    query and tile descriptors as numpy, wall s of evaluate, wall s of its
+    gallery pass)."""
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.evaluate import evaluate
+    from agplace_tpu_torch.infer import make_infer_fns
+
+    def keeping(fn, out):
+        def call(*args):
+            out.append(fn(*args))
+            return out[-1]
+        return call
+
+    q_out, db_out, first_q = [], [], []
+    load = ds.load_query_image
+
+    def stamped(i):
+        if not first_q:
+            first_q.append(time.perf_counter())
+        return load(i)
+
+    ds.load_query_image = stamped
+    embed_q, embed_db = make_infer_fns(*towers)
+    ops.reset_launches()  # ---- the path: evaluate
+    t0 = time.perf_counter()
+    recalls, text = evaluate(cfg, ds, keeping(embed_q, q_out),
+                             keeping(embed_db, db_out), device=dev)
+    t_eval = time.perf_counter() - t0
+    counts = ops.launches()  # ---- read just after the path
+    ds.load_query_image = load
+    q = torch.cat(q_out)[:ds.queries_num].float().cpu().numpy()
+    db = torch.cat(db_out)[:ds.database_num].float().cpu().numpy()
+    return recalls, text, counts, q, db, t_eval, first_q[0] - t0
+
+
+def phase_eval(cfg, towers, cpu_towers, dev):
+    """[eval]: ``evaluate`` with hard_resize on the card, 512 tiles and 256
+    queries at ``infer_batch_size`` 32: 16 aerial-tower and 8 MM forwards,
+    exact launch counts (``run_evaluate``).  On ``evaluate``'s own
+    descriptors: 4 queries' and 4 tiles' against the CPU; the card's search
+    against the CPU's; ``evaluate``'s recalls against ``evaluate_features``
+    on the CPU.  Then one more ``evaluate`` under the profiler (its device
+    total), 4 batches rendered with nothing sent to the card (the host's
+    share), and a gallery row duplicated into the index comes second,
+    after its original."""
+    from agplace_tpu_torch.data.base import collate_cache_db, collate_cache_q
+    from agplace_tpu_torch.evaluate import (evaluate, evaluate_features,
+                                            search)
+    from agplace_tpu_torch.infer import make_infer_fns
+    from agplace_tpu_torch.serving import PlaceIndex
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = eval_dataset(cfg, N_TILES, N_EVAL_Q)
+    bs = cfg.train.infer_batch_size
+    recalls, text, counts, q, db, t_eval, t_gallery = run_evaluate(
+        cfg, ds, towers, dev)
+    want = expected_launches(cfg, ds.database_num, -(-ds.queries_num // bs))
+    log(f"[eval] evaluate(hard_resize) of {ds.queries_num} queries over "
+        f"{ds.database_num} tiles in {t_eval:.3f} s; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    check_recalls("eval", recalls, text)
+    cq, cdb = cpu_descriptors(cfg, ds, cpu_towers, 4)
+    check_descriptors("eval", "descriptors of 4 queries", q[:4], cq)
+    check_descriptors("eval", "descriptors of 4 tiles", db[:4], cdb)
+
+    # the search on the card against the CPU's, on evaluate's descriptors
+    k = max(cfg.eval.recall_values)
+    t0 = time.perf_counter()
+    d, i = search(q, db, k, dev)
+    t_search = time.perf_counter() - t0
+    d_cpu, i_cpu = search(q, db, k, "cpu")
+    r_cpu = evaluate_features(cfg, ds, q, db, device="cpu")[0]
+    tol = 1e-5 * float(np.abs(d_cpu).max())
+    gap = np.diff(d_cpu, axis=1) > tol
+    apart = np.ones(i_cpu.shape, bool)
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    d_err = float(np.abs(d - d_cpu).max())
+    ok = ((i[apart] == i_cpu[apart]).all() and d_err <= tol
+          and (recalls == r_cpu).all())
+    log(f"[eval] card vs CPU search: indices equal at {int(apart.sum())} of "
+        f"{apart.size} places whose neighbours are over {tol:.3g} apart "
+        f"(all equal: {bool((i == i_cpu).all())}), max distance error "
+        f"{d_err:.3g}; evaluate's recalls {recalls.tolist()} vs "
+        f"evaluate_features on the CPU {r_cpu.tolist()} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's search disagrees with the CPU's")
+
+    # the device's share: evaluate once more, every kernel profiled
+    embed_q, embed_db = make_infer_fns(*towers)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate(cfg, ds, embed_q, embed_db, device=dev)
+        t_prof = time.perf_counter() - t0
+    busy = profiled_ms(prof) / 1e3
+    # the host's share: 4 batches rendered (the clouds voxelized) with
+    # nothing sent to the card
+    n_b = 4
+    t0 = time.perf_counter()
+    for s in range(0, n_b * bs, bs):
+        collate_cache_db(ds, range(s, s + bs))
+    h_db = (time.perf_counter() - t0) / n_b
+    t0 = time.perf_counter()
+    for s in range(0, n_b * bs, bs):
+        collate_cache_q(ds, range(s, s + bs), cfg, "cpu")
+    h_q = (time.perf_counter() - t0) / n_b
+    nb_db, nb_q = -(-ds.database_num // bs), -(-ds.queries_num // bs)
+    log(f"[eval] wall times of evaluate: gallery pass {t_gallery:.3f} s "
+        f"({nb_db} batches of {bs} tiles), then the query pass with its "
+        f"host prep, the search and Recall@N {t_eval - t_gallery:.3f} s "
+        f"({nb_q} batches); the search alone {t_search:.4f} s (k={k})")
+    log(f"[eval] device: evaluate under the profiler {t_prof:.3f} s wall, "
+        f"{busy:.4f} s of kernels (busy {busy / t_prof:.3f}); host alone: "
+        f"rendering {h_db:.4f} s per batch of {bs} tiles ({n_b} timed; x "
+        f"{nb_db} = {h_db * nb_db:.3f} s), rendering and voxelizing "
+        f"{h_q:.4f} s per batch of {bs} queries (x {nb_q} = "
+        f"{h_q * nb_q:.3f} s)")
+
+    idx = PlaceIndex(cfg, None, device=dev)
+    idx.add_descriptors(db)
+    dup = idx.add_descriptors(db[37:38]) - 1
+    _, hit = idx.search_descriptors(db[37:38], 3)
+    log(f"[eval] row 37 duplicated as row {dup}: top-3 {hit[0].tolist()}")
+    if hit[0, :2].tolist() != [37, dup]:
+        raise AssertionError("a tie did not come out lowest index first")
+    return counts, db
+
+
+def phase_eval_crops(cfg, towers, cpu_towers, db, dev):
+    """[eval-crops]: 32 queries' five crops in one MM forward at batch 160
+    (exact launch counts), nearest_crop and maj_voting from that one
+    embed pass over [eval]'s gallery, and one query's 5 crop rows against
+    the CPU."""
+    import dataclasses
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.embed import batched_embed_q_crops
+    from agplace_tpu_torch.evaluate import evaluate_features
+    from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
+
+    ds = eval_dataset(cfg, N_TILES, N_EVAL_CROP_Q, crops=True)
+    if not np.array_equal(ds.db_eastnorth,
+                          eval_dataset(cfg, N_TILES, 1).db_eastnorth):
+        raise AssertionError("the crop queries' world has other tiles")
+    embed_q, _ = make_infer_fns(*towers)
+    bs = cfg.train.infer_batch_size
+    ops.reset_launches()  # ---- the path: one crop pass, two merges
+    t0 = time.perf_counter()
+    q = batched_embed_q_crops(ds, range(ds.queries_num), embed_q, bs, cfg,
+                              dev)
+    t_query = time.perf_counter() - t0
+    results = {}
+    for method in ("nearest_crop", "maj_voting"):
+        c = cfg.replace(eval=dataclasses.replace(cfg.eval,
+                                                 test_method=method))
+        results[method] = evaluate_features(c, ds, q, db, device=dev)
+    counts = ops.launches()  # ---- read just after the path
+    want = expected_launches(cfg, 0, -(-ds.queries_num // bs))
+    log(f"[eval-crops] {q.shape[0]} crop descriptors ({ds.queries_num} "
+        f"queries x 5, batch {5 * bs}) in {t_query:.3f} s (host prep "
+        f"included); launches {counts}")
+    if counts != want or q.shape != (5 * ds.queries_num, 256):
+        raise AssertionError(f"launch counts {counts} != {want}, or crop "
+                             f"descriptors {q.shape}")
+    for method, (recalls, text) in results.items():
+        check_recalls(f"eval-crops {method}", recalls, text)
+    crops = ds.load_query_crops(0, cfg.data.q_resize)
+    pts = np.repeat(ds.load_query_points(0)[None], 5, axis=0)
+    with torch.inference_mode():
+        cpu = cpu_towers[0](torch.from_numpy(crops), prepare_query_vox(
+            cfg, pts, "cpu", compute_dtype(cfg)))["embedding"]
+    check_descriptors("eval-crops", "query 0's 5 crop rows", q[:5],
+                      cpu.float().numpy())
+    return counts
+
+
+def phase_eval_fused(cfg, towers, cpu_towers, dev):
+    """[eval-fused]: ``evaluate`` with the fused configuration's towers on
+    128 tiles and 64 queries (K4 and K5 on the eval path), exact launch
+    counts, 4 queries' and 4 tiles' descriptors of that run against the
+    CPU."""
+    ds = eval_dataset(cfg, N_TILES_FUSED, N_EVAL_FUSED_Q)
+    bs = cfg.train.infer_batch_size
+    recalls, text, counts, q, db, t_eval, _ = run_evaluate(cfg, ds, towers,
+                                                           dev)
+    want = expected_launches(cfg, ds.database_num, -(-ds.queries_num // bs))
+    log(f"[eval-fused] evaluate(hard_resize) of {ds.queries_num} queries "
+        f"over {ds.database_num} tiles in {t_eval:.3f} s; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    check_recalls("eval-fused", recalls, text)
+    cq, cdb = cpu_descriptors(cfg, ds, cpu_towers, 4)
+    check_descriptors("eval-fused", "descriptors of 4 queries", q[:4], cq)
+    check_descriptors("eval-fused", "descriptors of 4 tiles", db[:4], cdb)
+    return counts
+
+
 def main() -> None:
     import dataclasses
 
@@ -1261,20 +1552,26 @@ def main() -> None:
         parity = phase_parity(dev, masks[32], masks[128], mask16)
 
     # ---- the default path: K1, K2, K3
-    mm, cpu_mm, requests, counts = phase_serving(cfg, dev, N_TILES,
-                                                 "serving")
+    towers, cpu_towers, requests, counts = phase_serving(cfg, dev, N_TILES,
+                                                         "serving")
+    (mm, _), (cpu_mm, _) = towers, cpu_towers
     phase_slice_parity(cfg, mm, cpu_mm, requests, dev, "slice")
     # ---- the fused-stem / fused-head path: K1, K3, K4, K5
     mc = dataclasses.replace(cfg.model.mm, bev_pallas_head=True,
                              stem_pallas=True)
     dc = dataclasses.replace(cfg.model.db, stem_pallas=True)
     cfg_f = cfg.replace(model=dataclasses.replace(cfg.model, mm=mc, db=dc))
-    mm_f, cpu_mm_f, requests_f, counts_f = phase_serving(
+    towers_f, cpu_towers_f, requests_f, counts_f = phase_serving(
         cfg_f, dev, N_TILES_FUSED, "serving-fused")
+    (mm_f, _), (cpu_mm_f, _) = towers_f, cpu_towers_f
     phase_slice_parity(cfg_f, mm_f, cpu_mm_f, requests_f, dev,
                        "slice-fused")
     # ---- nuScenes with the fused head at its full grid: K1, K3, K4
     counts_n = phase_nuscenes_fused(dev)
+    # ---- the evaluation path: default (K1, K2, K3), crops, fused (K4, K5)
+    counts_e, db_feats = phase_eval(cfg, towers, cpu_towers, dev)
+    counts_c = phase_eval_crops(cfg, towers, cpu_towers, db_feats, dev)
+    counts_ef = phase_eval_fused(cfg_f, towers_f, cpu_towers_f, dev)
     phase_timing(cfg, {"default": mm, "fused": mm_f}, dev, name)
     # ---- the probe entry points: P2 vs K2, P1 vs K3
     with torch.inference_mode():
@@ -1308,11 +1605,15 @@ def main() -> None:
     kernels = [dict({"name": k, "route": "cuda", "source": src,
                      "replaces": rep,
                      "launches": (counts[k] + counts_f[k] + counts_n[k]
-                                  + counts_p[k]),
+                                  + counts_p[k] + counts_e[k] + counts_c[k]
+                                  + counts_ef[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
-                                          "probe": counts_p[k]},
+                                          "probe": counts_p[k],
+                                          "eval": counts_e[k],
+                                          "eval_crops": counts_c[k],
+                                          "eval_fused": counts_ef[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],

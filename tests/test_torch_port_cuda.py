@@ -781,3 +781,121 @@ def test_nuscenes_fused_mm_forward_at_its_full_grid(cuda):
     for k, v in want.items():
         err = float((got[k].cpu() - v).abs().max())
         assert err <= 5e-2 * float(v.abs().max()), (k, err)
+
+
+def _integer_world(seed=1):
+    """Small-integer rows: every distance and product is an exact integer
+    in fp32 whatever the summation order, so ties are exact on any device.
+    (queries, gallery, exact sq distances, exact inner products)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = rng.integers(-2, 3, (300, 8)).astype(np.float32)
+    q = np.concatenate([rng.integers(-2, 3, (13, 8)), g[[3, 3, 17]]]).astype(
+        np.float32)
+    qi, gi = q.astype(np.int64), g.astype(np.int64)
+    return q, g, ((qi[:, None] - gi[None]) ** 2).sum(-1), qi @ gi.T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 300, 310])
+def test_topk_ties_lowest_index_first_on_card(cuda, k):
+    """``l2_topk`` / ``ip_topk`` on CUDA tensors: equal values lowest index
+    first (``lax.top_k``'s order), also across the k-th place and with
+    k > N padding; the same as on the CPU."""
+    import numpy as np
+
+    from agplace_tpu_torch.retrieval import knn
+
+    q, g, d2, ip = _integer_world()
+    cols = np.arange(g.shape[0])
+    kk = min(k, g.shape[0])
+    for fn, vals in (("l2_topk", d2), ("ip_topk", -ip)):
+        want = np.stack([np.lexsort((cols, r)) for r in vals])[:, :kk]
+        d, i = getattr(knn, fn)(torch.from_numpy(q).to(cuda),
+                                torch.from_numpy(g).to(cuda), k)
+        d_cpu, i_cpu = getattr(knn, fn)(torch.from_numpy(q),
+                                        torch.from_numpy(g), k)
+        assert d.is_cuda and i.is_cuda
+        np.testing.assert_array_equal(i.cpu().numpy()[:, :kk], want)
+        np.testing.assert_array_equal(i.cpu().numpy(), i_cpu.numpy())
+        np.testing.assert_array_equal(d.cpu().numpy(), d_cpu.numpy())
+        assert (i.cpu().numpy()[:, kk:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 12, 50])
+def test_ascending_topk_on_card_equals_cpu(cuda, k):
+    """The top-k's two routes on the card: rows whose tie straddles the
+    k-th place (row 1 one value throughout, rows 3 and 4 few distinct
+    values) and rows where it does not, and k = N; the same indices and
+    value bits as on the CPU and as numpy's stable argsort."""
+    import numpy as np
+
+    from agplace_tpu_torch.retrieval import knn
+
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal((6, 50)).astype(np.float32)
+    v[:, :4] = [np.inf, -np.inf, -0.0, 0.0]
+    v[1] = 1.0
+    v[3] = v[3, rng.integers(0, 8, 50)]
+    v[4] = v[4, rng.integers(0, 25, 50)]
+    vals, idx = knn._ascending_topk(torch.from_numpy(v.copy()).to(cuda), k)
+    vals_cpu, idx_cpu = knn._ascending_topk(torch.from_numpy(v.copy()), k)
+    assert vals.is_cuda and idx.is_cuda
+    np.testing.assert_array_equal(idx.cpu().numpy(), idx_cpu.numpy())
+    np.testing.assert_array_equal(vals.cpu().numpy().view(np.int32),
+                                  vals_cpu.numpy().view(np.int32))
+    np.testing.assert_array_equal(
+        idx_cpu.numpy(),
+        np.argsort(v + np.float32(0.0), axis=1, kind="stable")[:, :k])
+
+
+@pytest.mark.cuda
+def test_evaluate_on_card_matches_cpu(cuda):
+    """``evaluate`` of ``synthetic_config()`` in bf16 on the card: exact
+    launch counts (4 aerial-tower and 2 MM forwards at batch 4), the
+    descriptors against the CPU run of the same towers, and the card's
+    search against the CPU's on the card's descriptors (the same indices
+    wherever neighbouring distances are apart, the same recalls)."""
+    import copy
+
+    import numpy as np
+
+    from agplace_tpu_torch.data.synthetic import SyntheticDataset
+    from agplace_tpu_torch.evaluate import evaluate, extract_features, \
+        search
+    from agplace_tpu_torch.infer import build_towers, make_infer_fns
+    from agplace_tpu_torch.retrieval.recall import compute_recalls
+
+    cfg = synthetic_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype="bfloat16"))
+    cpu = build_towers(cfg, "cpu", _gen())
+    card = [copy.deepcopy(t).to(cuda) for t in cpu]
+    ds = SyntheticDataset(n_db=16, n_q=7, n_points=2000, seed=0)
+    ops.reset_launches()
+    recalls, _ = evaluate(cfg, ds, *make_infer_fns(*card), device=cuda)
+    assert ops.launches() == {"fused_euler_ode": 6, "fused_conv0_down0": 2,
+                              "fused_eca_block_sm": 8, "fused_head": 0,
+                              "fused_affine_relu_maxpool": 0,
+                              "fused_eca_block": 0,
+                              "fused_eca_block_concat": 0,
+                              "fused_down_concat": 0}
+    assert np.isfinite(recalls).all() and (np.diff(recalls) >= 0).all()
+    q, db = extract_features(cfg, ds, *make_infer_fns(*card), cuda)
+    q_cpu, db_cpu = extract_features(cfg, ds, *make_infer_fns(*cpu), "cpu")
+    for got, want in ((q, q_cpu), (db, db_cpu)):
+        assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+    d, i = search(q, db, 16, cuda)
+    d_cpu, i_cpu = search(q, db, 16, "cpu")
+    tol = 1e-5 * np.abs(d_cpu).max()
+    gap = np.diff(d_cpu, axis=1) > tol
+    apart = np.ones(i.shape, bool)
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    np.testing.assert_array_equal(i[apart], i_cpu[apart])
+    assert np.abs(d - d_cpu).max() <= tol
+    np.testing.assert_array_equal(
+        compute_recalls(i, ds.soft_positives_per_query, (1, 5, 10))[0],
+        compute_recalls(i_cpu, ds.soft_positives_per_query, (1, 5, 10))[0])
