@@ -4,15 +4,26 @@ port reads no module of the JAX package.  Field names and defaults are the
 JAX package's, field for field (``tests/test_torch_port_isolation.py``
 holds the presets equal); comments that speak of the TPU describe the
 reference's kernels, whose flags the port honours with its CUDA kernels.
-The JAX package's argparse front end is not copied: the port has no
-command line yet.
+The flag table of the JAX package's argparse front end is copied too
+(``FLAG_TABLE``, held equal to JAX's by ``tests/test_torch_port_train_loop.
+py``); ``parse_arguments`` takes an entry point's set of honoured flags and
+raises on any other flag of the table that is given.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Collection, Optional, Tuple
+
+
+def _tuple_int(spec: str) -> Tuple[int, ...]:
+    return tuple(int(x) for x in spec.split("_"))
+
+
+def _tuple_str(spec: str) -> Tuple[str, ...]:
+    return tuple(spec.split("_"))
 
 
 @dataclass(frozen=True)
@@ -418,3 +429,311 @@ def synthetic_config(
         ),
         exp_name="synthetic",
     )
+
+
+# ---------------------------------------------------------------------------
+# CLI: the reference's full LIVE flag surface (tools/options.py:19-238),
+# table-driven onto the frozen dataclass tree.  Every flag defaults to "not
+# given" so dataset presets keep their values unless explicitly overridden.
+# ---------------------------------------------------------------------------
+
+def _str2bool(v: str) -> bool:
+    """Reference-style string-boolean coercion (tools/options.py:253-263)."""
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("true", "1", "yes"):
+        return True
+    if v.lower() in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"boolean expected, got {v!r}")
+
+
+def _opt(parser):
+    def parse(v: str):
+        return None if v.lower() in ("none", "null", "") else parser(v)
+
+    return parse
+
+
+def _tuple_float(spec: str) -> Tuple[float, ...]:
+    return tuple(float(x) for x in spec.split("_"))
+
+
+_KINDS = {
+    "int": int,
+    "float": float,
+    "str": str,
+    "bool": _str2bool,
+    "ints": _tuple_int,
+    "strs": _tuple_str,
+    "floats": _tuple_float,
+    "opt_int": _opt(int),
+    "opt_str": _opt(str),
+    "opt_float": _opt(float),
+}
+
+# (flag, dotted config path, kind[, choices]) — reference flag names kept
+# verbatim where they exist (PARITY.md carries the flag-by-flag table).
+FLAG_TABLE = [
+    # data (tools/options.py:19-72)
+    ("dataset", "data.dataset", "str",
+     ["kitti360", "nuscenes", "synthetic"]),
+    ("dataroot", "data.dataroot", "str"),
+    ("maptype", "data.maptype", "strs"),
+    ("camnames", "data.camnames", "strs"),
+    ("traindownsample", "data.traindownsample", "int"),
+    ("train_ratio", "data.train_ratio", "float"),
+    ("val_positive_dist_threshold", "data.val_positive_dist_threshold",
+     "float"),
+    ("train_positives_dist_threshold",
+     "data.train_positives_dist_threshold", "float"),
+    ("q_resize", "data.q_resize", "int"),
+    ("db_cropsize", "data.db_cropsize", "int"),
+    ("db_resize", "data.db_resize", "int"),
+    ("q_jitter", "data.q_jitter", "float"),
+    ("db_jitter", "data.db_jitter", "float"),
+    ("color_jitter", "data.color_jitter", "float"),
+    ("horizontal_flip", "data.horizontal_flip", "bool"),
+    ("rand_perspective", "data.rand_perspective", "float"),
+    ("random_resized_crop", "data.random_resized_crop", "float"),
+    ("random_rotation", "data.random_rotation", "float"),
+    ("brightness", "data.brightness", "opt_float"),
+    ("contrast", "data.contrast", "opt_float"),
+    ("saturation", "data.saturation", "opt_float"),
+    ("hue", "data.hue", "opt_float"),
+    ("norm_mean", "data.norm_mean", "floats"),
+    ("norm_std", "data.norm_std", "floats"),
+    ("nuscenes_cam_resize", "data.nuscenes_cam_resize", "int"),
+    ("read_pc", "data.read_pc", "bool"),
+    ("quant_size", "data.quant_size", "float"),
+    ("vox_max_points", "data.vox_max_points", "int"),
+    ("pc_rot_aug_deg", "data.pc_rot_aug_deg", "float"),
+    ("sph_size", "data.sph_size", "int"),
+    ("sph_jit", "data.sph_jit", "float"),
+    ("bev_jit", "data.bev_jit", "float"),
+    ("num_workers", "data.num_workers", "int"),
+    # model selection (options.py:90-114)
+    ("modelq", "model.modelq", "str",
+     ["mm", "minkloc", "minkloc_multimodal", "geoloc"]),
+    ("modeldb", "model.db.modeldb", "str", ["vanilla2d", "geoloc"]),
+    ("features_dim", "model.features_dim", "int"),
+    ("backbone", "model.backbone", "str"),
+    ("aggregation", "model.aggregation", "str"),
+    ("netvlad_clusters", "model.netvlad_clusters", "int"),
+    ("fc_output_dim", "model.fc_output_dim", "opt_int"),
+    ("l2", "model.l2", "str", ["before_pool", "after_pool", "none"]),
+    ("compute_dtype", "model.compute_dtype", "str",
+     ["float32", "bfloat16"]),
+    ("pretrained", "model.pretrained", "bool"),
+    ("pretrained_path", "model.pretrained_path", "opt_str"),
+    ("trunc_te", "model.trunc_te", "opt_int"),
+    ("freeze_te", "model.freeze_te", "opt_int"),
+    ("share_qdb", "model.share_qdb", "bool"),
+    # MM tower (options.py:100-156)
+    ("mm_imgfe", "model.mm.imgfe", "str"),
+    ("mm_imgfe_layers", "model.mm.imgfe_layers", "ints"),
+    ("mm_imgfe_planes", "model.mm.imgfe_planes", "ints"),
+    ("mm_imgfe_dim", "model.mm.imgfe_dim", "int"),
+    ("mm_voxfe_layers", "model.mm.voxfe_layers", "ints"),
+    ("mm_voxfe_planes", "model.mm.voxfe_planes", "ints"),
+    ("mm_voxfe_ntd", "model.mm.voxfe_ntd", "int"),
+    ("mm_voxfe_dim", "model.mm.voxfe_dim", "int"),
+    ("mm_voxfe_block", "model.mm.voxfe_block", "str",
+     ["eca", "basic", "aspp", "convnext"]),
+    ("voxfe_backend", "model.mm.voxfe_backend", "str",
+     ["bev", "dense", "sparse"]),
+    ("bev_pallas", "model.mm.bev_pallas", "bool"),
+    ("bev_pallas_head", "model.mm.bev_pallas_head", "bool"),
+    ("bev_fused_down", "model.mm.bev_fused_down", "bool"),
+    ("stem_pallas", "model.mm.stem_pallas", "bool"),
+    ("dbstem_pallas", "model.db.stem_pallas", "bool"),
+    ("vox_grid_extent", "model.mm.vox_grid_extent", "ints"),
+    ("stg2fuse_dim", "model.mm.stg2fuse_dim", "int"),
+    ("output_type", "model.mm.output_type", "strs"),
+    ("output_l2", "model.mm.output_l2", "bool"),
+    ("final_type", "model.mm.final_type", "strs"),
+    ("final_fusetype", "model.mm.final_fusetype", "str",
+     ["add", "cat", "catadd"]),
+    ("final_l2", "model.mm.final_l2", "bool"),
+    ("image_weight", "model.mm.image_weight", "float"),
+    ("image_learnweight", "model.mm.image_learnweight", "bool"),
+    ("vox_weight", "model.mm.vox_weight", "float"),
+    ("vox_learnweight", "model.mm.vox_learnweight", "bool"),
+    ("shallow_weight", "model.mm.shallow_weight", "float"),
+    ("shallow_learnweight", "model.mm.shallow_learnweight", "bool"),
+    ("imagevoxorg_weight", "model.mm.imagevoxorg_weight", "float"),
+    ("imagevoxorg_learnweight", "model.mm.imagevoxorg_learnweight", "bool"),
+    ("shalloworg_weight", "model.mm.shalloworg_weight", "float"),
+    ("shalloworg_learnweight", "model.mm.shalloworg_learnweight", "bool"),
+    ("stg2imagevox_weight", "model.mm.stg2imagevox_weight", "float"),
+    ("stg2imagevox_learnweight", "model.mm.stg2imagevox_learnweight",
+     "bool"),
+    ("stg2fuse_weight", "model.mm.stg2fuse_weight", "float"),
+    ("stg2fuse_learnweight", "model.mm.stg2fuse_learnweight", "bool"),
+    ("stg2gnn", "model.mm.stg2gnn", "str", ["qkv", "beltrami"]),
+    ("beltrami_k", "model.mm.beltrami_k", "int"),
+    ("stg2nlayers", "model.mm.stg2nlayers", "int"),
+    ("stg2fuse_type", "model.mm.stg2fuse_type", "str"),
+    ("stg2_type", "model.mm.stg2_type", "str"),
+    ("stg2_useproj", "model.mm.stg2_useproj", "bool"),
+    ("drop", "model.mm.drop", "opt_str"),
+    # DB tower
+    ("dbimage_fe", "model.db.image_fe", "str"),
+    ("dbimage_fe_layers", "model.db.image_fe_layers", "ints"),
+    ("share_dbfe", "model.db.share_dbfe", "bool"),
+    # ODE (options.py:130-138)
+    ("diff_type", "model.mm.ode.diff_type", "str"),
+    ("diff_direction", "model.mm.ode.diff_direction", "str",
+     ["forward", "backward"]),
+    ("odeint_method", "model.mm.ode.method", "str",
+     ["euler", "midpoint", "rk4", "dopri5"]),
+    ("odeint_size", "model.mm.ode.step_size", "float"),
+    ("odeint_rtol", "model.mm.ode.rtol", "float"),
+    ("odeint_atol", "model.mm.ode.atol", "float"),
+    ("dopri5_max_steps", "model.mm.ode.dopri5_max_steps", "int"),
+    ("use_pallas", "model.mm.ode.use_pallas", "bool"),
+    ("sdeint_method", "model.mm.ode.sdeint_method", "str"),
+    ("sdeint_size", "model.mm.ode.sdeint_size", "float"),
+    ("cdeint_method", "model.mm.ode.cdeint_method", "str"),
+    ("cdeint_size", "model.mm.ode.cdeint_size", "float"),
+    # train (options.py:33-58)
+    ("epochs_num", "train.epochs_num", "int"),
+    ("train_batch_size", "train.train_batch_size", "int"),
+    ("infer_batch_size", "train.infer_batch_size", "int"),
+    ("queries_per_epoch", "train.queries_per_epoch", "int"),
+    ("cache_refresh_rate", "train.cache_refresh_rate", "int"),
+    ("neg_samples_num", "train.neg_samples_num", "int"),
+    ("negs_num_per_query", "train.negs_num_per_query", "int"),
+    ("mining", "train.mining", "str",
+     ["partial", "partial_sep", "full", "full_gallery", "random",
+      "msls_weighted"]),
+    ("optim", "train.optim", "str", ["adam", "sgd"]),
+    ("lr", "train.lr", "float"),
+    ("lrpc", "train.lrpc", "float"),
+    ("lrdb", "train.lrdb", "float"),
+    ("lr_crn_layer", "train.lr_crn_layer", "float"),
+    ("lr_crn_net", "train.lr_crn_net", "float"),
+    ("seed", "train.seed", "int"),
+    ("patience", "train.patience", "int"),
+    ("train_modelq", "train.train_modelq", "bool"),
+    ("train_modeldb", "train.train_modeldb", "bool"),
+    ("save_dir", "train.save_dir", "str"),
+    ("resume", "train.resume", "opt_str"),
+    ("checkpoint_every_epochs", "train.checkpoint_every_epochs", "int"),
+    ("checkpoint_after_epoch", "train.checkpoint_after_epoch", "int"),
+    ("profile_steps", "train.profile_steps", "int"),
+    # losses (options.py:158-170)
+    ("criterion", "train.loss.criterion", "str",
+     ["triplet", "sare_ind", "sare_joint"]),
+    ("margin", "train.loss.margin", "float"),
+    ("tripletloss_weight", "train.loss.tripletloss_weight", "float"),
+    ("otherloss_type", "train.loss.otherloss_type", "str",
+     ["bce", "mse", "l1"]),
+    ("otherloss_weight", "train.loss.otherloss_weight", "float"),
+    ("infonceloss_weight", "train.loss.infonceloss_weight", "float"),
+    ("mm_lossweight", "train.loss.mm_lossweight", "floats"),
+    # eval (options.py:219-226)
+    ("recall_values", "eval.recall_values", "ints"),
+    ("test_method", "eval.test_method", "str",
+     ["hard_resize", "single_query", "central_crop", "five_crops",
+      "nearest_crop", "maj_voting"]),
+    ("majority_weight", "eval.majority_weight", "float"),
+    ("pca_dim", "eval.pca_dim", "opt_int"),
+    # mesh (no reference equivalent: its multi-device story is DataParallel)
+    ("data_parallel", "mesh.data_parallel", "int"),
+    ("gallery_parallel", "mesh.gallery_parallel", "int"),
+    ("exp_name", "exp_name", "str"),
+]
+
+
+def _replace_path(cfg, dotted: str, value):
+    parts = dotted.split(".")
+
+    def rec(obj, i):
+        if i == len(parts) - 1:
+            return dataclasses.replace(obj, **{parts[i]: value})
+        return dataclasses.replace(
+            obj, **{parts[i]: rec(getattr(obj, parts[i]), i + 1)})
+
+    return rec(cfg, 0)
+
+
+def _get_path(cfg, dotted: str):
+    obj = cfg
+    for p in dotted.split("."):
+        obj = getattr(obj, p)
+    return obj
+
+
+def build_exp_name(cfg: Config) -> str:
+    """The reference's experiment name from the hyperparameters
+    (``tools/options.py:294-307``), with tuple flags joined by '_' the way
+    argparse saw them."""
+    t, d = cfg.train, cfg.data
+    return (f"{t.seed}_ep{t.epochs_num}_{d.dataset}"
+            f"_{'_'.join(d.camnames)}_{t.cache_refresh_rate}"
+            f"_{t.queries_per_epoch}_{'_'.join(d.maptype)}"
+            f"_trbs{t.train_batch_size}_{t.infer_batch_size}"
+            f"_{d.traindownsample}_{d.train_ratio}"
+            f"_sph{d.sph_size}_pc{d.read_pc}")
+
+
+def parse_arguments(argv=None, honoured: Collection[str] = (),
+                    extra=None):
+    """(Config, argparse namespace) from ``argv``: the preset of
+    ``--dataset`` (default kitti360) with every given flag applied.  A
+    flag of ``FLAG_TABLE`` outside ``honoured`` raises NotImplementedError
+    when it is given.  ``extra(parser)`` adds an entry point's own
+    flags."""
+    p = argparse.ArgumentParser(
+        description="aerial-ground place recognition (the JAX package's "
+                    "flag names; unset flags keep the preset's values)")
+    for row in FLAG_TABLE:
+        flag, _, kind = row[:3]
+        choices = row[3] if len(row) > 3 else None
+        p.add_argument(f"--{flag}", type=_KINDS[kind], default=None,
+                       choices=choices)
+    if extra is not None:
+        extra(p)
+    args = p.parse_args(argv)
+    given = [row[0] for row in FLAG_TABLE
+             if getattr(args, row[0]) is not None]
+    refused = sorted(set(given) - set(honoured))
+    if refused:
+        raise NotImplementedError(
+            f"flags the port does not honour yet: "
+            f"{', '.join('--' + f for f in refused)}")
+
+    dataset = args.dataset or "kitti360"
+    cfg = {"nuscenes": nuscenes_config,
+           "synthetic": synthetic_config}.get(dataset, kitti360_config)()
+    for row in FLAG_TABLE:
+        val = getattr(args, row[0])
+        if val is not None:
+            cfg = _replace_path(cfg, row[1], val)
+    if args.exp_name is None:
+        cfg = dataclasses.replace(cfg, exp_name=build_exp_name(cfg))
+    _validate(cfg)
+    return cfg, args
+
+
+def _validate(cfg: Config) -> None:
+    """Cross-flag validation (the JAX package's ``_validate``)."""
+    known_final = {"imageorg", "voxorg", "shalloworg", "stg2image",
+                   "stg2vox", "stg2fuse"}
+    bad = set(cfg.model.mm.final_type) - known_final
+    if bad:
+        raise ValueError(f"unknown final_type components: {sorted(bad)}")
+    known_out = {"image", "vox", "shallow", "addorg"}
+    bad = set(cfg.model.mm.output_type) - known_out
+    if bad:
+        raise ValueError(f"unknown output_type components: {sorted(bad)}")
+    if cfg.data.dataset == "nuscenes":
+        bad = set(cfg.data.camnames) - set("fl f fr bl b br".split())
+        if bad:
+            raise ValueError(f"unknown nuscenes camnames: {sorted(bad)}")
+    if cfg.train.train_batch_size <= 0 or cfg.train.infer_batch_size <= 0:
+        raise ValueError("batch sizes must be positive")
+    if "shallow" in cfg.model.mm.output_type \
+            and "addorg" in cfg.model.mm.output_type:
+        raise ValueError("output_type: 'shallow' and 'addorg' are exclusive")

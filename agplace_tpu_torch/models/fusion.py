@@ -1,8 +1,9 @@
-"""Neural-ODE fusion blocks (``agplace_tpu/models/fusion.py``), eval mode.
+"""Neural-ODE fusion blocks (``agplace_tpu/models/fusion.py``).
 
 * ``FCODE`` / ``DiffBlock`` / ``FuseBlockToShallow``: the stage-1 chain.
   FCODE integrates dx/dt = act(xW + b) with Euler steps in fp32 whatever
-  the activation dtype; ``use_pallas`` routes it to the K1 wrapper.
+  the activation dtype; ``use_pallas`` routes it to K1 through its
+  autograd Function (``ode_step.euler_ode``), in eval and in training.
 * ``BasicBlock2D``, ``Basic``, ``FFNFuse``, ``GeM2D`` and the BEV branch of
   ``Stage2FuseBlockAdd`` (the voxel refine is a K3 call).
 
@@ -53,7 +54,7 @@ class FCODE(nn.Module):
 
     def forward(self, x):
         x = x.float()
-        run = (ode_step.fused_euler_ode if self.use_pallas
+        run = (ode_step.euler_ode if self.use_pallas
                else ode_step.euler_ode_plain)
         return run(x, self.kernel, self.bias, self.n_steps, self.dt,
                    self.act)
@@ -115,7 +116,7 @@ class FuseBlockToShallow(nn.Module):
 
 
 class BasicBlock2D(nn.Module):
-    """Dense conv residual block (convs with bias, eval BN), NHWC."""
+    """Dense conv residual block (convs with bias, BN), NHWC."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()

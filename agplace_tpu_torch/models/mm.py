@@ -1,5 +1,6 @@
-"""MM ground/query tower (``agplace_tpu/models/mm.py``), eval mode, with the
-``bev`` voxel backend.
+"""MM ground/query tower (``agplace_tpu/models/mm.py``) with the ``bev``
+voxel backend, in eval mode (the kernels' gates open) or training mode
+(batch statistics; K2-K5 gated off, K1 through its autograd Function).
 
 Input: ``query_image`` [B, H, W, 3] (NHWC) and a host-rasterized
 ``BEVGrid``.  Output: the reference's 7-key dict — imagevec_org,

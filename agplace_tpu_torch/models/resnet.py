@@ -1,11 +1,13 @@
-"""ResNet trunk (``agplace_tpu/models/resnet.py:28-169``), NHWC, eval mode.
+"""ResNet trunk (``agplace_tpu/models/resnet.py:28-169``), NHWC.
 
 Module and parameter names follow the flax tree (``conv1``, ``bn1``,
 ``layer{s}_{b}``, ``downsample_conv``/``downsample_bn``) so the weight
 bridge maps paths one to one.  The convolutions are cuDNN (XLA ran them
 outside any Pallas kernel).  The stem tail (BN, relu, maxpool 3x3/2) runs
-unfused, or, with ``use_pallas_stem`` on bf16 activations of even size, as
-K5 (``ops/stem_pool.py``), with JAX's gate (``resnet.py:134-138``).
+unfused, or, with ``use_pallas_stem`` in eval mode on bf16 activations of
+even size, as K5 (``ops/stem_pool.py``), with JAX's gate
+(``resnet.py:134-138``).  Training mode takes batch statistics in every
+BN (``models/norm.py``).
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ class ResNetFeatures(nn.Module):
 
     def forward(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         x = self.conv1(x)
-        if (self.use_pallas_stem and x.dtype == torch.bfloat16
+        if (self.use_pallas_stem and not self.training
+                and x.dtype == torch.bfloat16
                 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
             x = stem_pool.fused_affine_relu_maxpool(x, *self.bn1.affine())
         else:

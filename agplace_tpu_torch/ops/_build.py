@@ -153,7 +153,9 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     """Dispatch decision of every kernel wrapper: False when all inputs lie
     on the CPU (the plain version runs), True when all lie on one CUDA
     device (the kernel runs).  Anything else raises, as does a CUDA input
-    that needs a gradient: the kernels are forward-only."""
+    that needs a gradient: the wrappers are forward-only, and K1's
+    gradient goes through ``ode_step.euler_ode`` (an autograd Function,
+    whose forward runs without grad mode)."""
     devs = {t.device for t in tensors}
     if all(d.type == "cpu" for d in devs):
         return False
@@ -162,7 +164,8 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
                          f"{sorted(map(str, devs))}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("the CUDA kernels are forward-only: call them "
-                           "under torch.inference_mode() / no_grad()")
+                           "under torch.inference_mode() / no_grad(), or "
+                           "K1 through ode_step.euler_ode for a gradient")
     return True
 
 

@@ -215,14 +215,17 @@ def fused_eca_block_sm(x, mask, w1, w2, scale1, bias1, scale2, bias2,
     """x [B,X,Y,Z*Cin] (masked), mask [B,X,Y,Z] bool, w1 [3,3,Z*Cin,Z*Cout]
     and w2 [3,3,Z*Cout,Z*Cout] folded, scale/bias [Z*Cout] fp32 (BN eval
     affines), w_eca [k].  Channel-changing blocks pass the 1x1 residual: wd
-    [1,1,Z*Cin,Z*Cout], scale_d/bias_d.  Returns [B,X,Y,Z*Cout]."""
+    [1,1,Z*Cin,Z*Cout], scale_d/bias_d.  Returns [B,X,Y,Z*Cout]: bf16 from
+    the kernel, which takes x in bf16 and rounds at bf16 points whatever
+    the model's dtype, as JAX's does; the dtype of x from the plain
+    version."""
     ds = () if wd is None else (wd, scale_d, bias_d)
     if not _build.on_cuda(x, mask, w1, w2, scale1, bias1, scale2, bias2,
                           w_eca, *ds):
         return eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2,
                                bias2, w_eca, z, wd, scale_d, bias_d)
+    x = _build.aligned(x.to(_BF16))
     check_block_args("fused_eca_block_sm", x, w1, w2, z, wd)
-    x = _build.aligned(x)
     m = mask.contiguous()
     h = conv_phase(x, m, w1, scale1, bias1, z, pool=False)
     g, pool = conv_phase(h, m, w2, scale2, bias2, z, pool=True)

@@ -210,12 +210,12 @@ def down0_gemm(g0, mask, scale0, bias0, wd_folded, scale_d, bias_d,
 
 def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
                       scale_d, bias_d, *, z: int):
-    """feats [B,X,Y,Z*C0] (masked), mask [B,X,Y,Z] bool, w0_folded
-    [k0,k0,Z*C0,Z*C1], scale0/bias0 [Z*C1] fp32, wd_folded
-    [2,2,Z*C1,Zo*C2], scale_d/bias_d [Zo*C2] fp32.  X and Y must need no
-    ME alignment padding.  Returns (feats [B,X/2,Y/2,Zo*C2], mask_out
-    [B,X/2,Y/2,Zo]); bf16 from the kernel, the feats dtype from the plain
-    version."""
+    """feats [B,X,Y,Z*C0] (masked; the kernel takes them in bf16, as
+    JAX's does), mask [B,X,Y,Z] bool, w0_folded [k0,k0,Z*C0,Z*C1],
+    scale0/bias0 [Z*C1] fp32, wd_folded [2,2,Z*C1,Zo*C2], scale_d/bias_d
+    [Zo*C2] fp32.  X and Y must need no ME alignment padding.  Returns
+    (feats [B,X/2,Y/2,Zo*C2], mask_out [B,X/2,Y/2,Zo]); bf16 from the
+    kernel, the feats dtype from the plain version."""
     ins = (feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
            bias_d)
     if not _build.on_cuda(*ins):
@@ -223,7 +223,7 @@ def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
     _, x, y, _ = feats.shape
     k0 = int(w0_folded.shape[0])
     lo_z, hi_z, _ = me_down_align(z)
-    _build.check(feats.dtype == _BF16, "fused_conv0_down0: bf16 feats")
+    feats = feats.to(_BF16)  # the fp32 model's occupancy grid: exact
     _build.check(me_down_align(x)[:2] == (0, 0)
                  and me_down_align(y)[:2] == (0, 0),
                  f"fused_conv0_down0: spatial dims {x}x{y} need ME padding")

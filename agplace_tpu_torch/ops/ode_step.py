@@ -1,12 +1,18 @@
 """K1 — fused fixed-step Euler chain of the FCODE block.
 
-Port of ``agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode`` (forward
-only).  The CUDA kernel is ``csrc/ode_step.cu``: one launch of thread-block
-clusters, W resident across the shared memory of each cluster's blocks;
-``ode_tiling`` is its launch geometry, its one source.  ``euler_ode_plain``
-is the plain PyTorch version (the Python Euler loop of ``fusion.py:71-78``).
-The backward kernel (the Pallas ``_bwd``) is a later port: a CUDA input
-that needs a gradient raises.
+Port of ``agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode``.  The CUDA
+kernel is ``csrc/ode_step.cu``: one launch of thread-block clusters, W
+resident across the shared memory of each cluster's blocks; ``ode_tiling``
+is its launch geometry, its one source.  ``euler_ode_plain`` is the plain
+PyTorch version (the Python Euler loop of ``fusion.py:71-78``).
+
+Gradients go through ``euler_ode`` (``EulerODE``, the custom VJP of JAX's
+``ode_step.py:80-117``), and only through it: its forward is the kernel
+wrapper (on the CPU the plain version), and its backward, ``euler_ode_bwd``,
+recomputes the trajectory and runs the reverse loop in plain torch ops, as
+JAX computes its ``_bwd`` in XLA outside any Pallas kernel.  A direct
+wrapper call on CUDA inputs that need a gradient raises
+(``_build.on_cuda``); ``fused_euler_ode.launches`` counts forward launches.
 """
 
 from __future__ import annotations
@@ -66,6 +72,60 @@ def euler_ode_plain(x, w, b, n_steps: int = 10, dt: float = 0.1,
     for _ in range(n_steps):
         x = x + dt * fn(x @ w + b)
     return x
+
+
+def euler_ode_bwd(x, w, b, g, n_steps: int = 10, dt: float = 0.1,
+                  act: str = "relu"):
+    """(gx, gw, gb) of ``euler_ode_plain(x, w, b)`` against the output
+    cotangent ``g``: JAX's ``_bwd``.  The trajectory is recomputed, then a
+    reverse loop accumulates the three gradients in fp32."""
+    fn = _ACT_FNS[act]
+    xs, pres = [], []
+    for _ in range(n_steps):
+        pre = x @ w + b
+        xs.append(x)
+        pres.append(pre)
+        x = x + dt * fn(pre)
+    gx, gw, gb = g.float(), torch.zeros_like(w), torch.zeros_like(b)
+    for x_t, pre_t in zip(reversed(xs), reversed(pres)):
+        # y_{t+1} = x_t + dt * act(pre_t);  pre_t = x_t W + b
+        if act == "relu":
+            dact = (pre_t > 0).to(gx.dtype)
+        elif act == "tanh":
+            dact = 1.0 - torch.tanh(pre_t) ** 2
+        elif act == "sigmoid":
+            s = torch.sigmoid(pre_t)
+            dact = s * (1.0 - s)
+        else:
+            dact = torch.ones_like(pre_t)
+        gpre = gx * dt * dact
+        gw = gw + x_t.T @ gpre
+        gb = gb + gpre.sum(dim=0)
+        gx = gx + gpre @ w.T
+    return gx, gw, gb
+
+
+class EulerODE(torch.autograd.Function):
+    """K1 with JAX's custom VJP: the forward launches the kernel (the plain
+    version on the CPU) and saves (x, w, b); the backward is
+    ``euler_ode_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, n_steps: int, dt: float, act: str):
+        ctx.save_for_backward(x, w, b)
+        ctx.config = (n_steps, dt, act)
+        return fused_euler_ode(x, w, b, n_steps, dt, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        return (*euler_ode_bwd(x, w, b, g, *ctx.config), None, None, None)
+
+
+def euler_ode(x, w, b, n_steps: int = 10, dt: float = 0.1,
+              act: str = "relu"):
+    """``fused_euler_ode`` with a gradient (``EulerODE``)."""
+    return EulerODE.apply(x, w, b, n_steps, dt, act)
 
 
 def fused_euler_ode(x, w, b, n_steps: int = 10, dt: float = 0.1,

@@ -10,9 +10,9 @@ to the fp32 single-device gallery.
 Requests are padded to ``infer_batch_size`` (embedding) and to power-of-two
 query buckets (search), as the JAX index does.  The gallery is kept as a
 host fp32 buffer plus a device-resident copy rebuilt only after a change.
-``from_gallery`` builds a search-only index from a saved gallery.  The
-int8, sharded and audit paths, ``from_checkpoint`` and the HTTP front end
-are not ported yet.
+``from_gallery`` builds a search-only index from a saved gallery, and
+``from_checkpoint`` an index from a training checkpoint.  The int8,
+sharded and audit paths and the HTTP front end are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +53,22 @@ class PlaceIndex:
         self._dirty = False
         self._n_rows = 0
         self.upload_count = 0  # host->device gallery builds
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, save_dir: str, name: str,
+                        device="cuda") -> "PlaceIndex":
+        """An index over the towers of a training checkpoint (``ep@N__r1@R``
+        / ``best_model`` in ``save_dir``, or a path), on ``device``: the
+        card unless the caller passes ``"cpu"``."""
+        from agplace_tpu_torch.infer import build_towers
+        from agplace_tpu_torch.train.checkpoint import CheckpointManager
+
+        towers = build_towers(cfg, device)
+        saved = CheckpointManager(save_dir).read(
+            name, next(towers[0].parameters()).device)
+        for tower, key in zip(towers, ("mm", "db")):
+            tower.load_state_dict(saved["state"][key], strict=True)
+        return cls(cfg, towers, device)
 
     # -- gallery ------------------------------------------------------------
     def add_tiles(self, ds, indices: Optional[Sequence[int]] = None) -> int:

@@ -1,4 +1,4 @@
-"""BEV-folded voxel backend (``agplace_tpu/sparse/bev_grid.py``), eval mode.
+"""BEV-folded voxel backend (``agplace_tpu/sparse/bev_grid.py``).
 
 Representation (the JAX "z-major fold"):
     feats [B, X, Y, Z*C]   channel index z*C + c
@@ -13,9 +13,11 @@ the JAX package leaves them to XLA.  They always run in ``compute_dtype``
 (bf16) and round their result to bf16 before casting to the feats dtype,
 like ``BEVConv``.
 
-Three kernels plug in here: K2 (``ops/bev_down.py``) or, with
-``use_pallas_head``, K4 (``ops/bev_head.py``) at the stage-0 site of
-``BEVMinkFPN``, and K3 (``ops/bev_block_sm.py``) in ``BEVECABasicBlock``.
+Three kernels plug in here, in eval mode only, as in JAX: K2
+(``ops/bev_down.py``) or, with ``use_pallas_head``, K4 (``ops/bev_head.py``)
+at the stage-0 site of ``BEVMinkFPN``, and K3 (``ops/bev_block_sm.py``) in
+``BEVECABasicBlock``.  Training mode runs the unfused path, its BN
+statistics taken over the occupied cells (``bn_apply``).
 """
 
 from __future__ import annotations
@@ -122,11 +124,25 @@ def mask_down(mask: torch.Tensor, pad_x: Pad, pad_y: Pad,
     return F.max_pool3d(m, 2, 2)[:, 0] > 0
 
 
-def bn_apply(feats: torch.Tensor, bn: BatchNorm2D, z: int) -> torch.Tensor:
-    """Eval BN over the folded layout (``_bn_apply``): fp32 affine tiled
-    over z, applied in the feats dtype."""
-    s, b = bn.affine(z)
-    return feats * s.to(feats.dtype) + b.to(feats.dtype)
+def bn_apply(g: BEVGrid, bn: BatchNorm2D) -> torch.Tensor:
+    """BN over the folded layout (``_bn_apply``), unmasked output: the fp32
+    affine tiled over z, applied in the feats dtype.  In training mode the
+    statistics are the batch's over the occupied cells only, shared across
+    z (the count clamped to at least 1, the variance to at least 0), and
+    the running statistics move towards them."""
+    if bn.training:
+        b, x, y, zc = g.feats.shape
+        f = g.feats.reshape(b, x, y, g.z, zc // g.z).float()
+        m = g.mask[..., None].float()
+        cnt = torch.clamp(m.sum(), min=1.0)
+        mean = (f * m).sum(dim=(0, 1, 2, 3)) / cnt
+        var = torch.clamp((f.square() * m).sum(dim=(0, 1, 2, 3)) / cnt
+                          - mean.square(), min=0.0)
+        bn.track(mean, var)
+        s, b = bn.batch_affine(mean, var, g.z)
+    else:
+        s, b = bn.affine(g.z)
+    return g.feats * s.to(g.feats.dtype) + b.to(g.feats.dtype)
 
 
 def eca_apply(g: BEVGrid, conv_w: torch.Tensor) -> torch.Tensor:
@@ -208,9 +224,10 @@ class _ECAParam(nn.Module):
 
 
 class BEVECABasicBlock(nn.Module):
-    """Eval ECA basic block.  ``use_pallas`` routes to the K3 wrapper
-    (``ops/bev_block_sm.py``); otherwise the unfused path runs, which is
-    the same function as K3's plain version."""
+    """ECA basic block.  In eval mode ``use_pallas`` routes to the K3
+    wrapper (``ops/bev_block_sm.py``); otherwise the unfused block runs,
+    its BN on the running statistics in eval mode and on the batch's in
+    training mode (``bev_grid.py:496-512`` of the JAX package)."""
 
     def __init__(self, cin: int, planes: int, use_pallas: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16):
@@ -227,7 +244,30 @@ class BEVECABasicBlock(nn.Module):
         self.use_pallas = use_pallas
         self.compute_dtype = compute_dtype
 
+    def _conv(self, p: _ConvParam, feats: torch.Tensor, z: int):
+        k = p.kernel.shape[0]
+        return bev_conv2d(feats, p.folded(z, "s1", self.compute_dtype), 1,
+                          (k // 2, k // 2), (k // 2, k // 2),
+                          self.compute_dtype)
+
+    def _forward_unfused(self, g: BEVGrid) -> BEVGrid:
+        z = g.z
+        out = bn_apply(g.replace(feats=self._conv(self.conv1, g.feats, z)),
+                       self.norm1)
+        out = mask_bev(torch.relu(out), g.mask, z)
+        out = bn_apply(g.replace(feats=self._conv(self.conv2, out, z)),
+                       self.norm2)
+        out = eca_apply(g.replace(feats=out), self.eca.conv_w)
+        residual = g.feats
+        if self.need_ds:
+            residual = bn_apply(g.replace(feats=self._conv(
+                self.downsample_conv, residual, z)), self.downsample_bn)
+        return g.replace(feats=mask_bev(torch.relu(out + residual), g.mask,
+                                        z))
+
     def forward(self, g: BEVGrid) -> BEVGrid:
+        if self.training or not self.use_pallas:
+            return self._forward_unfused(g)
         z, cdt = g.z, self.compute_dtype
         s1, b1 = self.norm1.affine(z)
         s2, b2 = self.norm2.affine(z)
@@ -239,10 +279,7 @@ class BEVECABasicBlock(nn.Module):
         args = (g.feats, g.mask, self.conv1.folded(z, "s1", cdt),
                 self.conv2.folded(z, "s1", cdt), s1, b1, s2, b2,
                 self.eca.conv_w[:, 0, 0])
-        if self.use_pallas:
-            out = bev_block_sm.fused_eca_block_sm(*args, z=z, **kw)
-        else:
-            out = bev_block_sm.eca_block_plain(*args, z=z, **kw)
+        out = bev_block_sm.fused_eca_block_sm(*args, z=z, **kw)
         return g.replace(feats=out.to(g.feats.dtype))
 
 
@@ -302,15 +339,16 @@ class BEVMinkFPN(nn.Module):
 
     @staticmethod
     def _bn_relu_mask(g: BEVGrid, bn: BatchNorm2D) -> BEVGrid:
-        f = torch.relu(bn_apply(g.feats, bn, g.z))
+        f = torch.relu(bn_apply(g, bn))
         return g.replace(feats=mask_bev(f, g.mask, g.z))
 
     def forward(self, g: BEVGrid) -> Tuple[BEVGrid, List[BEVGrid]]:
         x, y = g.feats.shape[1], g.feats.shape[2]
         # the JAX stage-0 gates (bev_grid.py:669-681) minus the TPU check:
-        # spatial dims need no ME alignment padding; the fused head (K4)
-        # takes k0 in (3, 5) and wins over the fused down (K2)
-        fusible = (x % 2 == 0 and y % 2 == 0
+        # eval mode, spatial dims that need no ME alignment padding; the
+        # fused head (K4) takes k0 in (3, 5) and wins over the fused down
+        # (K2)
+        fusible = (not self.training and x % 2 == 0 and y % 2 == 0
                    and (x // 2) % 2 == 0 and (y // 2) % 2 == 0)
         fuse_head = self.use_pallas_head and fusible and self.k0 in (3, 5)
         fuse_down = (self.use_fused_down and not fuse_head and fusible

@@ -13,7 +13,8 @@ the flax scope names, so a leaf ``a/b/name`` lands on ``a.b.<torch name>``:
 * GeM ``p``, ECA ``conv_w`` [k,1,1] and learned scalar weights -> same name
 
 Every flax leaf is consumed exactly once and every entry of the target
-``state_dict`` is filled; anything else raises.
+``state_dict`` is filled; anything else raises.  ``flax_path`` maps a port
+name back to its flax path (the optimizer's groups are labelled on it).
 """
 
 from __future__ import annotations
@@ -25,6 +26,18 @@ import torch
 from torch import nn
 
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+_FLAX_NAME = {"running_mean": "mean", "running_var": "var"}
+
+
+def flax_path(name: str, tensor: torch.Tensor) -> Tuple[str, ...]:
+    """The flax path of the port's parameter or buffer ``name`` (dotted
+    scopes, then the leaf): ``weight`` is ``kernel`` for a conv or dense
+    weight and ``scale`` for a norm's, running statistics are ``mean`` /
+    ``var``, any other leaf keeps its name."""
+    *scope, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "scale" if tensor.ndim == 1 else "kernel"
+    return (*scope, _FLAX_NAME.get(leaf, leaf))
 
 
 def _leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:

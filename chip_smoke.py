@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Drives the port's two serving paths (``agplace_tpu_torch.serving.PlaceIndex``
-on ``kitti360_config()`` in bf16, full width, seeded random weights) and its
+on ``kitti360_config()`` in bf16, full width, seeded random weights), its
 evaluation path (``agplace_tpu_torch.evaluate``: Recall@N of a synthetic
-world, with the same towers) on the card and checks every hand-written
-kernel of the port:
+world, with the same towers) and its training path
+(``agplace_tpu_torch.train.loop.train`` on ``kitti360_config()`` in fp32) on
+the card and checks every hand-written kernel of the port:
 
 * the default configuration: K1 (FCODE), K2 (BEV stage 0), K3 (ECA blocks);
 * the fused-stem / fused-head configuration (``bev_pallas_head``,
@@ -98,10 +99,30 @@ K6 has no path; only its parity is checked.
 8. [probe] the probe entry points' ``run()`` at b32: the stage-0 A/B (P2
    vs K2) and the block0 A/B (P1 vs K3) at chunks 1, 3 and 9, each v2
    checked against v1 and both timed in the cold-L2 regime; exact launch
-   counts: one P2 or P1 launch per v2 call, one K2 or K3 per v1 call.
+   counts: one P2 or P1 launch per v2 call, one K2 or K3 per v1 call;
+9. [train-k1] K1's autograd Function (``ode_step.euler_ode``: the kernel
+   forward, JAX's backward in torch ops) against autograd through
+   ``euler_ode_plain`` on the card, B = 1, 16, 33, 128, relu and tanh:
+   y, gx, gw, gb within TRAIN_K1_TOL, and the device ms of forward plus
+   backward of both;
+10. [train-step] one train step at the full width of ``kitti360_config()``
+    (fp32, 2 triplets of 2 negatives) on the card against the CPU with the
+    same weights and batch: the loss, every gradient leaf (against its
+    bf16 noise, the CPU step with fp32 BEV convs), the parameters after
+    the update, the new BN statistics; exact launch counts (K1 3, K2-K6
+    0);
+11. [train] ``train()`` at the preset's full batch (16 x (2 + 10)),
+    partial_sep mining over 128 tiles and 128 queries, 6 steps, one epoch,
+    evaluation on 64 tiles and 32 queries: finite losses, exact launch
+    counts of the steps (K1 3 per step, nothing else), the mining and
+    evaluation passes' launches, the step wall time between step starts,
+    the last step's device time by kernel class and busy share under the
+    profiler, the peak device memory; the checkpoint restores the trained
+    parameters, and ``PlaceIndex.from_checkpoint`` answers one request.
+    Checkpoints go to ``_runs/`` (git-ignored) and are removed after.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
-JSON record (``launches`` summed over the seven paths, split in
+JSON record (``launches`` summed over the nine paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the yardstick for part of the work
 where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
@@ -170,6 +191,36 @@ ROUNDING_MIN_DIFFER = 0.25
 # GPU (kernels, cuDNN bf16) vs CPU (plain versions) embeddings: bf16 flips
 # propagate through ~30 layers; bound the error by the embedding's scale
 SLICE_TOL = 5e-2
+# Training.  [train-k1]: K1's Function against autograd through the plain
+# version on the card, both fp32; the kernel's forward sums in another
+# order (K1_TOL), and the backward's reverse loop accumulates gx, gw, gb in
+# another order than autograd does: each within TRAIN_K1_TOL of its scale.
+TRAIN_K1_TOL = 1e-4
+# [train-step]: the card against the CPU, fp32 model, each run twice from
+# the same weights: as configured (BEV convs in bf16) and as a twin with
+# those convs in fp32.  bf16 flips (as in the GPU-vs-CPU embeddings) move
+# the loss by a fraction of TRAIN_LOSS_TOL.  The fp32 twins: every
+# gradient leaf within TRAIN_FP32_TOL of its scale, no allowance for
+# noise (measured on the H100: median 1.2e-5, all but two leaves within
+# 2.4e-3, and in the image tower's last block 0.0197 (layer3_1.bn1.bias)
+# and 0.0109 (its conv1): the card's convs sum in another order, and the
+# block's 512 samples per channel leave its sums open to single elements
+# that fall on the other side of a ReLU).  A leaf zero in exact
+# arithmetic (the CPU twin's below TRAIN_ZERO_REL of its tower's largest:
+# the biases of the convs before a train-mode BN) is below that floor on
+# the card too.  As configured: a
+# leaf whose bf16 noise on the CPU (the reference: its bf16 leaf against
+# its fp32 twin's) is at most TRAIN_NOISE_CAP is held within
+# TRAIN_GRAD_TOL plus TRAIN_NOISE times that noise; the rest by the twins
+# alone (``phase_train_step``).  The BN statistics within TRAIN_STATS_TOL
+# of their scale.
+TRAIN_LOSS_TOL = 5e-3
+TRAIN_FP32_TOL = 5e-2
+TRAIN_ZERO_REL = 1e-6
+TRAIN_GRAD_TOL = 2e-2
+TRAIN_NOISE_CAP = 5e-2
+TRAIN_NOISE = 3.0
+TRAIN_STATS_TOL = 2e-2
 # The least time of a kernel's work (``bound``): the larger of its
 # operations over the card's peak for their type and its bytes (each input
 # read once, each output written once) over the memory rate.  Published
@@ -200,7 +251,7 @@ RECORD_KEYS = ("ms_by_chunk", "plain_ms_by_chunk", "device_ms_by_chunk",
                "queued", "z8", "z16", "ms_b128", "plain_ms_b128",
                "queued_ms", "queued_ms_b128", "device_ms", "device_ms_b128",
                "library_device_ms", "library_device_ms_b128",
-               "bound_ms_b128", "conv_phases_device_ms")
+               "bound_ms_b128", "conv_phases_device_ms", "train_k1")
 
 
 def log(*a):
@@ -1518,6 +1569,392 @@ def phase_eval_fused(cfg, towers, cpu_towers, dev):
     return counts
 
 
+# ------------------------------------------------------------ training
+def phase_train_k1(dev):
+    """[train-k1]: K1's autograd Function (the kernel forward, JAX's
+    backward in torch ops) against autograd through ``euler_ode_plain``,
+    both on the card, fp32, at B = 1, 16, 33, 128, relu and tanh; the
+    device ms of forward plus backward of each (the profiler's,
+    ``device_ms``).  Returns the record for the kernels line."""
+    from agplace_tpu_torch.ops import ode_step
+
+    rng = np.random.default_rng(7)
+    rec = {"tol": TRAIN_K1_TOL, "by_case": {}}
+    for act in ("relu", "tanh"):
+        for b in (1, 16, 33, 128):
+            x = torch.from_numpy(rng.standard_normal((b, 256)).astype(
+                np.float32)).to(dev).requires_grad_()
+            w = torch.from_numpy((rng.standard_normal((256, 256)) / 16)
+                                 .astype(np.float32)).to(dev).requires_grad_()
+            bias = torch.from_numpy(rng.normal(0, 0.1, 256).astype(
+                np.float32)).to(dev).requires_grad_()
+            g = torch.from_numpy(rng.standard_normal((b, 256)).astype(
+                np.float32)).to(dev)
+
+            def fwd_bwd(fn):
+                y = fn(x, w, bias, 10, 0.1, act)
+                return (y, *torch.autograd.grad(y, (x, w, bias), g))
+
+            got = fwd_bwd(ode_step.euler_ode)
+            want = fwd_bwd(ode_step.euler_ode_plain)
+            errs = {}
+            for name, a, e in zip(("y", "gx", "gw", "gb"), got, want):
+                errs[name] = float((a - e).detach().abs().max()) / float(
+                    e.detach().abs().max())
+            ms = device_ms(lambda: fwd_bwd(ode_step.euler_ode), n=20)
+            plain = device_ms(lambda: fwd_bwd(ode_step.euler_ode_plain),
+                              n=20)
+            ok = all(v <= TRAIN_K1_TOL for v in errs.values())
+            log(f"[train-k1] B={b} {act}: max error over scale "
+                + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+                + f" (tol {TRAIN_K1_TOL}); forward + backward device "
+                f"{ms:.4f} ms, autograd through the plain version "
+                f"{plain:.4f} ms {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[train-k1] B={b} {act}: the Function "
+                                     f"disagrees with autograd")
+            rec["by_case"][f"{act} b{b}"] = dict(errs, fwd_bwd_device_ms=ms,
+                                                 plain_fwd_bwd_device_ms=plain)
+    return rec
+
+
+def train_world(cfg, n_db, n_q, seed):
+    from agplace_tpu_torch.data.synthetic import SyntheticDataset
+
+    return SyntheticDataset(n_db=n_db, n_q=n_q, image_size=IMAGE,
+                            nmap=cfg.data.nmap, n_points=N_POINTS, seed=seed)
+
+
+def train_cfg(**train_kw):
+    """``kitti360_config()``: fp32 activations (the training default), no
+    pretrained-weight source (random init from the seed)."""
+    import dataclasses
+
+    from agplace_tpu_torch import kitti360_config
+
+    cfg = kitti360_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, pretrained=False),
+        train=dataclasses.replace(cfg.train, **train_kw))
+
+
+def _grads(state):
+    return {n: (None if p.grad is None else p.grad.detach().float().cpu())
+            for n, p in state.named_parameters()}
+
+
+def _leaf_err(got, want, ref=None):
+    scale = float((want if ref is None else ref).abs().max())
+    diff = float((got - want).abs().max())
+    return diff / scale if scale > 0 else diff
+
+
+def phase_train_step(dev):
+    """[train-step]: one step at the full width of ``kitti360_config()``
+    with 2 triplets of 2 negatives, on the card against the CPU (the
+    kernels' plain versions) with the same weights and the same collated
+    batch: the loss, every gradient leaf, the parameters after the update
+    and the new BN statistics.  The BEV convs round to bf16, and a weight
+    gradient of a conv before a train-mode BN is dominated by that
+    rounding (the BN takes out the mean of the terms it sums), so each
+    device also steps a twin with those convs in fp32, and the twins are
+    held to each other with no allowance for noise (the module header's
+    TRAIN_* constants).  Exact launch counts: K1 3, K2-K6 0."""
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.base import collate_train
+    from agplace_tpu_torch.data.pipeline import prefetch_to_device
+    from agplace_tpu_torch.train.mining import TripletMiner
+    from agplace_tpu_torch.train.step import init_state, make_train_step
+
+    def fp32_bev(st):
+        for m in st.mm.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float32
+        return st
+
+    cfg = train_cfg(train_batch_size=2, negs_num_per_query=2)
+    ds = train_world(cfg, 64, 16, 0)
+    rng = np.random.default_rng(3)
+    rows = TripletMiner(cfg, ds, "cpu").mine_random(rng, 2)
+    host = collate_train(ds, rows, cfg, rng)
+    gpu = init_state(cfg, dev, seed=0)
+    seed_bn(gpu.mm, np.random.default_rng(4))
+    seed_bn(gpu.db, np.random.default_rng(5))
+    copies = []
+    for where in (dev, "cpu", "cpu"):
+        st = init_state(cfg, where, seed=0)
+        st.mm.load_state_dict(gpu.mm.state_dict())
+        st.db.load_state_dict(gpu.db.state_dict())
+        copies.append(st)
+    gpu32, cpu16, cpu32 = copies
+    fp32_bev(gpu32)
+    fp32_bev(cpu32)
+    step = make_train_step(cfg)
+    (batch,) = prefetch_to_device([host], dev)
+    ops.reset_launches()  # ---- the path: one step on the card
+    t0 = time.perf_counter()
+    m = step(gpu, batch)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    counts = ops.launches()  # ---- read just after the path
+    m32 = step(gpu32, batch)
+    (cpu_batch,) = prefetch_to_device([host], "cpu")
+    t0 = time.perf_counter()
+    m_cpu = [step(st, cpu_batch) for st in (cpu16, cpu32)]
+    t_cpu = (time.perf_counter() - t0) / 2
+    want = dict.fromkeys(counts, 0)
+    want["fused_euler_ode"] = 3
+    log(f"[train-step] one step on the card {t_step * 1e3:.1f} ms (the "
+        f"first, unwarmed), on the CPU {t_cpu * 1e3:.1f} ms; launches "
+        f"{counts}")
+    if counts != want:
+        raise AssertionError(f"[train-step] launch counts {counts} != {want}")
+    for tag, a, c in (("", m, m_cpu[0]), (" (fp32 BEV convs)", m32,
+                                          m_cpu[1])):
+        loss, loss_cpu = float(a["loss"]), float(c["loss"])
+        loss_err = abs(loss - loss_cpu) / abs(loss_cpu)
+        log(f"[train-step] loss{tag} card {loss:.6f} CPU {loss_cpu:.6f}: "
+            f"relative error {loss_err:.3g} (tol {TRAIN_LOSS_TOL})")
+        if not (np.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL):
+            raise AssertionError("[train-step] loss disagrees with the CPU")
+    g_gpu, g_cpu = _grads(gpu), _grads(cpu16)
+    g_gpu32, g_cpu32 = _grads(gpu32), _grads(cpu32)
+    floor = {}
+    for name, c in g_cpu32.items():
+        if c is not None:
+            tower = name.split(".")[0]
+            floor[tower] = max(floor.get(tower, 0.0), float(c.abs().max()))
+    floor = {t: TRAIN_ZERO_REL * v for t, v in floor.items()}
+    errs32, errs16, zero = [], [], []
+    for name, c32 in g_cpu32.items():
+        got = (g_gpu32[name], g_gpu[name], g_cpu[name])
+        if c32 is None or any(g is None for g in got):
+            if not (c32 is None and all(g is None for g in got)):
+                raise AssertionError(f"[train-step] {name}: a gradient on "
+                                     f"some runs only")
+            continue
+        a32, a16, c16 = got
+        lim = floor[name.split(".")[0]]
+        if float(c32.abs().max()) < lim:  # zero in exact arithmetic
+            zero.append((max(float(a32.abs().max()),
+                             float(a16.abs().max())) / lim, name))
+            continue
+        errs32.append((_leaf_err(a32, c32), name))
+        noise = _leaf_err(c16, c32, c16)
+        if noise <= TRAIN_NOISE_CAP:
+            bound = TRAIN_GRAD_TOL + TRAIN_NOISE * noise
+            errs16.append((_leaf_err(a16, c16) / bound, name))
+    errs32.sort(reverse=True)
+    errs16.sort(reverse=True)
+    n32, n16 = len(errs32), len(errs16)
+    log(f"[train-step] fp32 twins: {n32} gradient leaves, error over scale "
+        f"median {errs32[n32 // 2][0]:.3g}, the worst "
+        + ", ".join(f"{nm} {e:.3g}" for e, nm in errs32[:5])
+        + f" (tol {TRAIN_FP32_TOL}); {len(zero)} zero in exact arithmetic, "
+        f"on the card at most {max(zero)[0] if zero else 0:.3g} of the "
+        f"floor ({TRAIN_ZERO_REL} of their tower's largest)")
+    log(f"[train-step] as configured: {n16} of {n32} leaves with a CPU bf16 "
+        f"noise <= {TRAIN_NOISE_CAP}, held within {TRAIN_GRAD_TOL} + "
+        f"{TRAIN_NOISE} x that noise; closest to their bounds: "
+        + ", ".join(f"{nm} {e:.3f}" for e, nm in errs16[:3]))
+    if errs32[0][0] > TRAIN_FP32_TOL:
+        raise AssertionError(f"[train-step] fp32-twin gradient of "
+                             f"{errs32[0][1]}: error {errs32[0][0]:.3g} of "
+                             f"scale > {TRAIN_FP32_TOL}")
+    if zero and max(zero)[0] >= 1.0:
+        raise AssertionError(f"[train-step] gradient of {max(zero)[1]}: "
+                             f"zero on the CPU, not on the card")
+    if errs16 and errs16[0][0] > 1.0:
+        raise AssertionError(f"[train-step] gradient of {errs16[0][1]} "
+                             f"outside its bound")
+    if n16 < n32 // 2:
+        raise AssertionError("[train-step] too few leaves held as "
+                             "configured")
+    # parameters where the gradient's sign and size are sure (Adam's first
+    # step is about -lr * sign(g)), and the new BN statistics
+    lr = gpu.opt.per_param(gpu.opt.lr)
+    bad_p, sure, total, stat_err = 0, 0, 0, 0.0
+    sd_gpu = {**{f"mm.{k}": v for k, v in gpu.mm.state_dict().items()},
+              **{f"db.{k}": v for k, v in gpu.db.state_dict().items()}}
+    sd_cpu = {**{f"mm.{k}": v for k, v in cpu16.mm.state_dict().items()},
+              **{f"db.{k}": v for k, v in cpu16.db.state_dict().items()}}
+    for name, t in sd_gpu.items():
+        a, c = t.float().cpu(), sd_cpu[name].float()
+        if name.endswith(("running_mean", "running_var")):
+            stat_err = max(stat_err, _leaf_err(a, c))
+        elif name in lr:
+            g, gc = g_gpu[name], g_cpu[name]
+            if g is None:
+                continue
+            ok = (gc.abs() > 1e-6) & ((g - gc).abs() < 1e-2 * gc.abs())
+            sure += int(ok.sum())
+            total += ok.numel()
+            tol = 5e-2 * lr[name].cpu() + 1e-6
+            bad_p += int(((a - c).abs() > tol)[ok].sum())
+    log(f"[train-step] parameters after the update: {bad_p} of {sure} "
+        f"compared elements ({sure / total:.3f} of the trained ones, where "
+        f"the gradient is sure) off by more than 5 % of their learning "
+        f"rate; BN statistics max error {stat_err:.3g} of scale (tol "
+        f"{TRAIN_STATS_TOL})")
+    if bad_p or sure < 0.3 * total or stat_err > TRAIN_STATS_TOL:
+        raise AssertionError("[train-step] the update or the statistics "
+                             "disagree with the CPU")
+    return counts
+
+
+def _step_recorder(train_mod, n_steps, rec):
+    """Wrap ``make_train_step`` as ``train`` imports it: each call's start
+    on the host clock, a sync before the last step, whose device work
+    runs under the profiler, and a sync after it (the loop fetches the
+    round's losses there anyway)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    real = train_mod.make_train_step
+
+    def make(cfg):
+        step = real(cfg)
+
+        def timed(state, batch):
+            rec["starts"].append(time.perf_counter())
+            if len(rec["starts"]) < n_steps:
+                return step(state, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = step(state, batch)
+                torch.cuda.synchronize()
+            rec["profiled_wall_s"] = time.perf_counter() - t0
+            rec["prof"] = prof
+            return out
+        return timed
+    return make
+
+
+def phase_train(dev):
+    """[train]: ``train()`` at the preset's full batch (16 triplets of 10
+    negatives: 16 queries and 176 aerial tiles per step), partial_sep
+    mining over a 128-tile, 128-query world, one round of 96 queries (6
+    steps), one epoch, evaluation on 64 tiles and 32 queries of the next
+    seed, a checkpoint, then a restore and ``PlaceIndex.from_checkpoint``
+    answering one request."""
+    import shutil
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.serving import PlaceIndex
+    from agplace_tpu_torch.train import loop
+    from agplace_tpu_torch.train.checkpoint import CheckpointManager
+    from agplace_tpu_torch.train.mining import TripletMiner
+    from agplace_tpu_torch.train.step import init_state
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    from profile_torch_mm import classify
+
+    save_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "_runs", "chip_smoke_train")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = train_cfg(queries_per_epoch=96, cache_refresh_rate=96,
+                    neg_samples_num=128, epochs_num=1,
+                    checkpoint_after_epoch=-1, save_dir=save_dir)
+    n_steps = 96 // cfg.train.train_batch_size
+    train_ds = train_world(cfg, 128, 128, 0)
+    test_ds = train_world(cfg, 64, 32, 1)
+
+    # launch counts of the mining and evaluation passes, read around them
+    parts = {"mining": dict.fromkeys(ops.launches(), 0),
+             "eval": dict.fromkeys(ops.launches(), 0)}
+
+    def counted(fn, part):
+        def call(*a, **kw):
+            before = ops.launches()
+            out = fn(*a, **kw)
+            for k, v in ops.launches().items():
+                parts[part][k] += v - before[k]
+            return out
+        return call
+
+    rec = {"starts": []}
+    real = (TripletMiner.mine, loop.evaluate, loop.make_train_step)
+    TripletMiner.mine = counted(TripletMiner.mine, "mining")
+    loop.evaluate = counted(loop.evaluate, "eval")
+    loop.make_train_step = _step_recorder(loop, n_steps, rec)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ops.reset_launches()  # ---- the path: train()
+        t0 = time.perf_counter()
+        out = loop.train(cfg, train_ds, test_ds, device=dev)
+        t_train = time.perf_counter() - t0
+        counts = ops.launches()  # ---- read just after the path
+    finally:
+        TripletMiner.mine, loop.evaluate, loop.make_train_step = real
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = out["history"][0]
+    losses = hist["losses"]
+    steps = {k: counts[k] - parts["mining"][k] - parts["eval"][k]
+             for k in counts}
+    log(f"[train] train() in {t_train:.2f} s: {out['state'].step} steps "
+        f"of 16 x (2 + 10); phases {json.dumps(out['phase_times'])}; "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"[train] launches: all {counts}; mining {parts['mining']}; "
+        f"steps {steps}; evaluation {parts['eval']}")
+    log(f"[train] losses {losses}; recalls {hist['recalls'].tolist()}")
+    starts = rec["starts"]
+    walls = [(b - a) * 1e3 for a, b in zip(starts[1:], starts[2:])]
+    log(f"[train] step wall ms (host clock between step starts, steps 2-"
+        f"{n_steps - 1}): median {statistics.median(walls):.1f}, min "
+        f"{min(walls):.1f}, max {max(walls):.1f} = "
+        f"{16e3 / statistics.median(walls):.2f} triplets/s")
+    by_class = {}
+    for evt in rec["prof"].key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            key = classify(evt.key)
+            by_class[key] = by_class.get(key, 0.0) + \
+                evt.self_device_time_total / 1e3
+    dev_ms = sum(by_class.values())
+    wall_ms = rec["profiled_wall_s"] * 1e3
+    log(f"[train] the last step alone under the profiler (synchronised "
+        f"before and after, batch already on the card): wall {wall_ms:.1f} "
+        f"ms, device {dev_ms:.1f} ms, busy {dev_ms / wall_ms:.3f}; device "
+        f"ms by class " + json.dumps({k: round(v, 3) for k, v in sorted(
+            by_class.items(), key=lambda kv: -kv[1])}))
+    want_steps = dict.fromkeys(counts, 0)
+    want_steps["fused_euler_ode"] = 3 * n_steps
+    if (out["state"].step != n_steps or len(losses) != n_steps
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"[train] steps {out['state'].step}, losses "
+                             f"{losses}")
+    if steps != want_steps:
+        raise AssertionError(f"[train] the steps' launches {steps} != "
+                             f"{want_steps}")
+    if not all(parts["mining"][k] and parts["eval"][k] for k in
+               ("fused_euler_ode", "fused_conv0_down0",
+                "fused_eca_block_sm")):
+        raise AssertionError("[train] an eval kernel did not run in mining "
+                             "or evaluation")
+    check_recalls("train", hist["recalls"], "evaluation after the epoch")
+
+    ckpt = CheckpointManager(save_dir)
+    name = ckpt.latest()
+    restored, meta = ckpt.restore(name, init_state(cfg, dev, seed=123))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        out["state"].named_parameters(), restored.named_parameters()))
+    log(f"[train] checkpoint {name} ({os.path.getsize(os.path.join(save_dir, name)) / 2 ** 20:.0f} MiB) restored: "
+        f"parameters equal {same}, epoch {meta['epoch_num']}")
+    if not same:
+        raise AssertionError("[train] the restored parameters differ")
+    idx = PlaceIndex.from_checkpoint(cfg, save_dir, "best_model", dev)
+    idx.add_tiles(test_ds)
+    d, i = idx.search(test_ds.load_query_image(0)[None],
+                      test_ds.load_query_points(0)[None], k=5)
+    log(f"[train] from_checkpoint: {idx._n_rows} tiles, one request "
+        f"-> top-5 {i[0].tolist()}")
+    if not (np.isfinite(d).all() and ((i >= 0) & (i < 64)).all()):
+        raise AssertionError("[train] from_checkpoint answered badly")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return counts
+
+
 def main() -> None:
     import dataclasses
 
@@ -1581,6 +2018,10 @@ def main() -> None:
     parity["fused_eca_block_concat"]["probe_ab"] = {
         r["chunk"]: {k: r[k] for k in ("v1_shipped", "v2_concat")}
         for r in blocks}
+    # ---- training: K1's Function, one step against the CPU, train()
+    parity["fused_euler_ode"]["train_k1"] = phase_train_k1(dev)
+    counts_ts = phase_train_step(dev)
+    counts_t = phase_train(dev)
 
     sources = {
         "fused_euler_ode": ("agplace_tpu_torch/csrc/ode_step.cu",
@@ -1606,14 +2047,17 @@ def main() -> None:
                      "replaces": rep,
                      "launches": (counts[k] + counts_f[k] + counts_n[k]
                                   + counts_p[k] + counts_e[k] + counts_c[k]
-                                  + counts_ef[k]),
+                                  + counts_ef[k] + counts_ts[k]
+                                  + counts_t[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
                                           "probe": counts_p[k],
                                           "eval": counts_e[k],
                                           "eval_crops": counts_c[k],
-                                          "eval_fused": counts_ef[k]},
+                                          "eval_fused": counts_ef[k],
+                                          "train_step": counts_ts[k],
+                                          "train": counts_t[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],

@@ -899,3 +899,78 @@ def test_evaluate_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(
         compute_recalls(i, ds.soft_positives_per_query, (1, 5, 10))[0],
         compute_recalls(i_cpu, ds.soft_positives_per_query, (1, 5, 10))[0])
+
+
+@pytest.mark.cuda
+def test_k2_and_k3_take_fp32_feats_as_their_bf16(cuda):
+    """The fp32 model's eval (mining, evaluation) hands K2 and K3 fp32
+    feats; they take them in bf16, as JAX's kernels do
+    (``ops/pallas/bev_down.py``, ``bev_block_sm.py``: ``x.astype(bf16)``):
+    the same outputs as for the bf16 feats."""
+    args = _stage0_args(_gen(), 2, 32, 64, cuda)
+    _, bargs, kw = _block_args(_gen(), 64, 128, 8, 2, cuda)
+    with torch.inference_mode():
+        want = bev_down.fused_conv0_down0(*args, z=4)
+        got = bev_down.fused_conv0_down0(args[0].float(), *args[1:], z=4)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        want = bev_block_sm.fused_eca_block_sm(*bargs, z=2, **kw)
+        got = bev_block_sm.fused_eca_block_sm(bargs[0].float(), *bargs[1:],
+                                              z=2, **kw)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh", "sigmoid", "id"])
+@pytest.mark.parametrize("b", [1, 33])
+def test_k1_function_grads_match_autograd_on_card(cuda, act, b):
+    """K1's Function (the kernel forward, JAX's backward) against autograd
+    through the plain version, fp32 on the card; a direct call still
+    counts its forward launch only."""
+    g = _gen()
+    x = torch.randn(b, 256, generator=g).to(cuda).requires_grad_()
+    w = (torch.randn(256, 256, generator=g) / 16).to(cuda).requires_grad_()
+    bias = (torch.randn(256, generator=g) * .1).to(cuda).requires_grad_()
+    cot = torch.randn(b, 256, generator=g).to(cuda)
+    ops.reset_launches()
+    y = ode_step.euler_ode(x, w, bias, 10, 0.1, act)
+    got = torch.autograd.grad(y, (x, w, bias), cot)
+    assert ops.launches()["fused_euler_ode"] == 1
+    y_p = ode_step.euler_ode_plain(x, w, bias, 10, 0.1, act)
+    want = torch.autograd.grad(y_p, (x, w, bias), cot)
+    for a, e in zip((y, *got), (y_p, *want)):
+        e = e.detach()
+        assert float((a.detach() - e).abs().max()) <= 1e-4 * float(
+            e.abs().max())
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_runs_k1_only_and_matches_cpu(cuda):
+    """One train step of a small preset on the card: launches K1 3 (one
+    MM forward), K2-K6 0; the loss within 5e-3 of the CPU step's with the
+    same weights and batch (bf16 BEV convs on both)."""
+    import numpy as np
+
+    from agplace_tpu_torch.data.base import collate_train
+    from agplace_tpu_torch.data.pipeline import prefetch_to_device
+    from agplace_tpu_torch.data.synthetic import SyntheticDataset
+    from agplace_tpu_torch.train.mining import TripletMiner
+    from agplace_tpu_torch.train.step import init_state, make_train_step
+
+    cfg = synthetic_config(batch_size=2, image_size=32, vox_max_points=128)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, pretrained=False))
+    ds = SyntheticDataset(n_db=24, n_q=16, image_size=32, seed=0)
+    rng = np.random.default_rng(0)
+    host = collate_train(ds, TripletMiner(cfg, ds, "cpu").mine_random(rng, 2),
+                         cfg, rng)
+    card, cpu = init_state(cfg, cuda), init_state(cfg, "cpu")
+    cpu.mm.load_state_dict(card.mm.state_dict())
+    cpu.db.load_state_dict(card.db.state_dict())
+    step = make_train_step(cfg)
+    (batch,) = prefetch_to_device([host], cuda)
+    ops.reset_launches()
+    loss = float(step(card, batch)["loss"])
+    counts = ops.launches()
+    assert counts == {**dict.fromkeys(counts, 0), "fused_euler_ode": 3}
+    (cbatch,) = prefetch_to_device([host], "cpu")
+    want = float(step(cpu, cbatch)["loss"])
+    assert np.isfinite(loss) and abs(loss - want) <= 5e-3 * abs(want)

@@ -98,8 +98,26 @@ def _prepare_query_vox(device=None):
     return voxels.prepare_query_vox(_tiny_cfg(), _points(), *args)
 
 
+def _init_state(device=None):
+    from agplace_tpu_torch.train.step import init_state
+
+    cfg = _tiny_cfg()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, pretrained=False))
+    return init_state(cfg, *(() if device is None else (device,)))
+
+
+def _miner(device=None):
+    from agplace_tpu_torch.data.synthetic import SyntheticDataset
+    from agplace_tpu_torch.train.mining import TripletMiner
+
+    ds = SyntheticDataset(n_db=8, n_q=4, image_size=16, seed=0)
+    return TripletMiner(_tiny_cfg(), ds,
+                        *(() if device is None else (device,)))
+
+
 ENTRY_POINTS = {"build_towers": _build_towers, "PlaceIndex": _place_index,
-                "prepare_query_vox": _prepare_query_vox}
+                "prepare_query_vox": _prepare_query_vox,
+                "init_state": _init_state, "TripletMiner": _miner}
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
