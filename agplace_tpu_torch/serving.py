@@ -1,22 +1,27 @@
-"""Serving: a place-recognition index (``agplace_tpu/serving.py``), limited
-to the fp32 single-device gallery.
+"""Serving: a place-recognition index (``agplace_tpu/serving.py``) on one
+device.
 
     mm, db = build_towers(cfg, generator=g)      # on the card, or converted
-    idx = PlaceIndex(cfg, (mm, db))
+    idx = PlaceIndex(cfg, (mm, db))              # quant="int8", audit_rate
     idx.add_tiles(ds)                            # embed + index the gallery
     d, i = idx.search(images, points, k=5)       # (sq distances, indices)
     d, i, en = idx.locate(images, points, k=5)   # + the hits' UTM east/north
 
 Requests are padded to ``infer_batch_size`` (embedding) and to power-of-two
 query buckets (search), as the JAX index does.  The gallery is kept as a
-host fp32 buffer plus a device-resident copy rebuilt only after a change.
+host fp32 buffer plus a device-resident copy rebuilt only after a change:
+fp32 rows, or with ``quant="int8"`` per-row int8 rows (4x less device
+memory) whose candidates are re-ranked exactly on the host copy, with an
+optional every-Nth-call audit against an exact host search.
 ``from_gallery`` builds a search-only index from a saved gallery, and
-``from_checkpoint`` an index from a training checkpoint.  The int8,
-sharded and audit paths and the HTTP front end are not ported yet.
+``from_checkpoint`` an index from a training checkpoint; ``serving_http``
+puts an index behind a JSON API.  The sharded galleries (JAX's
+``gallery_mesh``) are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,17 +33,36 @@ from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.embed import (batched_embed_db, drain, padded_batches,
                                      to_device)
 from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
-from agplace_tpu_torch.retrieval.knn import l2_topk_blocked
+from agplace_tpu_torch.retrieval.knn import (l2_candidates_int8,
+                                             l2_topk_blocked, quantize_rows)
 
 
 class PlaceIndex:
     GALLERY_VERSION = 1
 
-    def __init__(self, cfg: Config, towers=None, device=None):
+    def __init__(self, cfg: Config, towers=None, device=None,
+                 quant: Optional[str] = None, audit_rate: float = 0.0):
         """``towers``: (MM, DBVanilla2D) from ``infer.build_towers``, or
         None for a search-only index.  ``device`` defaults to the towers'
         device, and for a search-only index to the card (``"cpu"`` keeps
-        it on the CPU; without a card anything else raises)."""
+        it on the CPU; without a card anything else raises).
+
+        ``quant="int8"``: the device gallery holds per-row int8 rows; a
+        search takes 4x oversampled candidates from them on the device and
+        re-ranks those exactly in fp32 on the host copy, so it returns the
+        fp32 path's (distance, index) pairs whenever the true top-k
+        survives the candidate scan.  ``audit_rate`` in [0, 1] (int8 only):
+        every ``round(1 / audit_rate)``-th search is checked against an
+        exact host top-k, and candidate misses are counted in
+        ``audit_stats`` and logged."""
+        if quant not in (None, "int8"):
+            raise ValueError(f"unsupported quant mode {quant!r}")
+        if not 0.0 <= audit_rate <= 1.0:
+            raise ValueError(f"audit_rate must be in [0, 1]: {audit_rate}")
+        self.quant = quant
+        self.audit_rate = audit_rate
+        self.audit_stats = {"searches": 0, "audited": 0,
+                            "miss_queries": 0, "missed_rows": 0}
         self.cfg = cfg
         if towers is None:
             self._embed_q = self._embed_db = None
@@ -50,25 +74,23 @@ class PlaceIndex:
         self._parts: list = []  # host fp32 [n_i, C]
         self._pos_parts: list = []  # [n_i, 2] UTM east/north, or None
         self._gallery: Optional[torch.Tensor] = None
+        # (int8 rows, scales, exact sq norms), rows padded to a multiple of 8
+        self._quant_gallery: Optional[Tuple[torch.Tensor, ...]] = None
         self._dirty = False
         self._n_rows = 0
         self.upload_count = 0  # host->device gallery builds
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, save_dir: str, name: str,
-                        device="cuda") -> "PlaceIndex":
+                        device="cuda", quant: Optional[str] = None,
+                        audit_rate: float = 0.0) -> "PlaceIndex":
         """An index over the towers of a training checkpoint (``ep@N__r1@R``
         / ``best_model`` in ``save_dir``, or a path), on ``device``: the
         card unless the caller passes ``"cpu"``."""
-        from agplace_tpu_torch.infer import build_towers
-        from agplace_tpu_torch.train.checkpoint import CheckpointManager
+        from agplace_tpu_torch.train.checkpoint import load_towers
 
-        towers = build_towers(cfg, device)
-        saved = CheckpointManager(save_dir).read(
-            name, next(towers[0].parameters()).device)
-        for tower, key in zip(towers, ("mm", "db")):
-            tower.load_state_dict(saved["state"][key], strict=True)
-        return cls(cfg, towers, device)
+        towers, _ = load_towers(cfg, save_dir, name, device)
+        return cls(cfg, towers, device, quant=quant, audit_rate=audit_rate)
 
     # -- gallery ------------------------------------------------------------
     def add_tiles(self, ds, indices: Optional[Sequence[int]] = None) -> int:
@@ -144,9 +166,28 @@ class PlaceIndex:
         if self._dirty or self._gallery is None:
             self._gallery = torch.from_numpy(self._host_gallery()).to(
                 self.device)
+            self._quant_gallery = None
             self.upload_count += 1
             self._dirty = False
         return self._gallery
+
+    def _device_gallery_int8(self) -> Tuple[torch.Tensor, ...]:
+        """(int8 rows [N8, C8], scales [N8], exact sq norms [N8]) on the
+        device, built like the fp32 copy (which it drops).  Rows and
+        columns are zero-padded to multiples of 8 for the card's int8 GEMM
+        (``knn.int8_cross``); a padded row has scale 0 and norm +inf."""
+        if self._dirty or self._quant_gallery is None:
+            q, scale, sq = quantize_rows(self._host_gallery())
+            n, c = q.shape
+            q = np.pad(q, ((0, -n % 8), (0, -c % 8)))
+            scale = np.pad(scale[:, 0], (0, -n % 8))
+            sq = np.pad(sq, (0, -n % 8), constant_values=np.inf)
+            self._quant_gallery = tuple(
+                torch.from_numpy(a).to(self.device) for a in (q, scale, sq))
+            self._gallery = None
+            self.upload_count += 1
+            self._dirty = False
+        return self._quant_gallery
 
     def __len__(self) -> int:
         return self._n_rows
@@ -181,10 +222,11 @@ class PlaceIndex:
 
     @classmethod
     def from_gallery(cls, path: str, cfg: Optional[Config] = None,
-                     device=None) -> "PlaceIndex":
+                     device=None, quant: Optional[str] = None,
+                     audit_rate: float = 0.0) -> "PlaceIndex":
         """Search-only index over a gallery saved by ``save_gallery``:
         ``search_descriptors`` / ``locate_descriptors`` only."""
-        idx = cls(cfg, None, device)
+        idx = cls(cfg, None, device, quant=quant, audit_rate=audit_rate)
         idx.load_gallery(path)
         return idx
 
@@ -246,9 +288,11 @@ class PlaceIndex:
 
     def search_descriptors(self, q_feats: np.ndarray, k: int
                            ) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k of [Q, C] descriptors.  The query count is bucketed
-        to a power of two (min 8, padded with the last row) and k to a
-        power of two, then sliced, as the JAX index does."""
+        """Top-k of [Q, C] descriptors: (sq distances [Q, k] fp32, indices
+        [Q, k] int64), faiss's +inf / -1 padding for k > rows.  The query
+        count is bucketed to a power of two (min 8, padded with the last
+        row) and the device's k to a power of two, then sliced, as the JAX
+        index does."""
         q = np.asarray(q_feats, np.float32)
         nq = q.shape[0]
         if nq == 0:
@@ -256,5 +300,71 @@ class PlaceIndex:
         bq = self._pow2(nq, lo=8)
         if bq != nq:
             q = np.concatenate([q, np.repeat(q[-1:], bq - nq, 0)])
+        d, i = self._search_impl(q, k)
+        d, i = d[:nq], i[:nq]
+        if self.quant == "int8" and self.audit_rate > 0.0:
+            self.audit_stats["searches"] += 1
+            stride = max(1, int(round(1.0 / self.audit_rate)))
+            if (self.audit_stats["searches"] - 1) % stride == 0:
+                self._audit_int8(q[:nq], k, d, i)
+        return d, i
+
+    def _search_impl(self, q: np.ndarray, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        if self.quant == "int8":
+            return self._search_int8(q, k)
         d, i = l2_topk_blocked(q, self._device_gallery(), self._pow2(k))
-        return d[:nq, :k], i[:nq, :k]
+        return d[:, :k], i[:, :k]
+
+    def _audit_int8(self, q: np.ndarray, k: int, d_int8: np.ndarray,
+                    i_int8: np.ndarray) -> None:
+        """Exact host fp32 full-gallery top-k of this search's queries;
+        counts the ranks where the exact distance beats the int8 path's (a
+        candidate the scan dropped, which the re-rank cannot recover).
+        Distances are compared, not indices: equal-distance ties with
+        other indices are not misses."""
+        host = self._host_gallery()
+        kk = min(k, self._n_rows)
+        d2 = (np.einsum("qc,qc->q", q, q)[:, None]
+              + np.einsum("nc,nc->n", host, host)[None]
+              - 2.0 * q @ host.T)
+        d_exact = np.sort(np.maximum(d2, 0.0), axis=1)[:, :kk]
+        miss = d_exact < d_int8[:, :kk] - 1e-4  # [Q, kk]
+        self.audit_stats["audited"] += 1
+        n_rows = int(miss.sum())
+        n_q = int(miss.any(axis=1).sum())
+        self.audit_stats["missed_rows"] += n_rows
+        self.audit_stats["miss_queries"] += n_q
+        if n_rows:
+            logging.warning(
+                "int8 audit: %d/%d queries missed %d true top-%d rows "
+                "(exact d2 beat the int8 result; raise the candidate "
+                "oversampling if this recurs)", n_q, q.shape[0], n_rows, kk)
+
+    def _search_int8(self, q: np.ndarray, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """int8 candidate scan on the device, then the exact fp32 re-rank
+        of the candidates on the host copy (a stable sort), with faiss's
+        +inf / -1 padding for k > rows."""
+        kk = min(k, self._n_rows)
+        # 4x oversampling (min 16) absorbs the cross term's rounding
+        nc = min(self._pow2(4 * kk, lo=16), self._n_rows)
+        db_i8, scale, sq = self._device_gallery_int8()
+        _, cand = l2_candidates_int8(
+            torch.from_numpy(q).to(self.device), db_i8, scale, sq, nc)
+        cand = cand.cpu().numpy()  # [Q, nc]
+        host = self._host_gallery()
+        rows = host[cand]  # [Q, nc, C] re-rank set
+        d2 = np.maximum(
+            np.einsum("qc,qc->q", q, q)[:, None]
+            + np.einsum("qnc,qnc->qn", rows, rows)
+            - 2.0 * np.einsum("qc,qnc->qn", q, rows), 0.0)
+        order = np.argsort(d2, axis=1, kind="stable")[:, :kk]
+        d = np.take_along_axis(d2, order, axis=1).astype(np.float32)
+        i = np.take_along_axis(cand, order, axis=1).astype(np.int64)
+        if kk < k:
+            d = np.concatenate(
+                [d, np.full((q.shape[0], k - kk), np.inf, np.float32)], 1)
+            i = np.concatenate(
+                [i, np.full((q.shape[0], k - kk), -1, np.int64)], 1)
+        return d, i

@@ -19,6 +19,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from agplace_tpu_torch.config import Config
+from agplace_tpu_torch.infer import build_towers
 from agplace_tpu_torch.train.state import TrainState
 
 
@@ -87,3 +89,15 @@ class CheckpointManager:
         if not cands:
             return None
         return max(cands, key=lambda d: int(d.split("@")[1].split("__")[0]))
+
+
+def load_towers(cfg: Config, save_dir: str, name: str, device="cuda"):
+    """((MM, DBVanilla2D) in eval mode on ``device`` with the parameters
+    and BN statistics of checkpoint ``name``, its epoch number): the
+    towers a server or an evaluation restores, without the optimizer."""
+    towers = build_towers(cfg, device)
+    saved = CheckpointManager(save_dir).read(
+        name, next(towers[0].parameters()).device)
+    for tower, key in zip(towers, ("mm", "db")):
+        tower.load_state_dict(saved["state"][key], strict=True)
+    return towers, int(saved["epoch_num"])

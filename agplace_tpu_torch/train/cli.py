@@ -1,14 +1,16 @@
 """Training entry point (the JAX package's ``train.py``):
 
-    python -m agplace_tpu_torch.train --dataset synthetic
+    python -m agplace_tpu_torch.train --dataset kitti360 --dataroot D
+    python -m agplace_tpu_torch.train --dataset nuscenes --dataroot D \\
+        --camnames fl_f_fr_bl_b_br
     python -m agplace_tpu_torch.train --dataset synthetic --device cpu \\
         --q_resize 32 --train_batch_size 2 --negs_num_per_query 2
 
 It takes the JAX package's flags (``config.FLAG_TABLE``) for the fields
-the training path reads (``HONOURED``); any other flag of that table
-raises, as does a dataset other than ``synthetic`` (the KITTI-360 and
-nuScenes readers are not ported yet).  ``--device`` picks the device: the
-card by default, which raises "no CUDA device" without one.
+the training path and the readers read (``HONOURED``); any other flag of
+that table raises.  ``--device`` picks the device: the card by default,
+which raises "no CUDA device" without one.  ``build_datasets`` is also the
+dataset front of ``python -m agplace_tpu_torch.test`` and ``.serve``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ from typing import Optional, Sequence
 from agplace_tpu_torch.config import Config, parse_arguments
 
 HONOURED = frozenset("""
-dataset val_positive_dist_threshold train_positives_dist_threshold q_resize
-maptype quant_size vox_max_points pc_rot_aug_deg num_workers
+dataset dataroot camnames traindownsample train_ratio db_cropsize db_resize
+q_jitter db_jitter brightness contrast saturation hue norm_mean norm_std
+nuscenes_cam_resize val_positive_dist_threshold
+train_positives_dist_threshold q_resize maptype quant_size vox_max_points pc_rot_aug_deg num_workers
 modelq modeldb features_dim aggregation compute_dtype pretrained
 pretrained_path freeze_te share_qdb
 mm_imgfe mm_imgfe_layers mm_imgfe_planes mm_imgfe_dim mm_voxfe_layers
@@ -45,13 +49,21 @@ data_parallel gallery_parallel exp_name
 
 
 def build_datasets(cfg: Config):
-    """(train, test) datasets of ``cfg.data.dataset``: the synthetic world
+    """(train, test) datasets of ``cfg.data.dataset``: the KITTI-360-AG or
+    nuScenes-AG readers over ``cfg.data.dataroot``, or the synthetic world
     of the JAX entry point (64 tiles; 64 training and 32 test queries)."""
+    if cfg.data.dataset == "kitti360":
+        from agplace_tpu_torch.data.kitti360 import KITTI360Dataset
+
+        return KITTI360Dataset(cfg, "train"), KITTI360Dataset(cfg, "test")
+    if cfg.data.dataset == "nuscenes":
+        from agplace_tpu_torch.data.nuscenes import NuScenesDataset
+
+        return NuScenesDataset(cfg, "train"), NuScenesDataset(cfg, "test")
     if cfg.data.dataset != "synthetic":
         raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r}: the port reads the synthetic "
-            f"world only (the KITTI-360 and nuScenes readers are ROADMAP "
-            f"Queue 1 items 11-12)")
+            f"dataset {cfg.data.dataset!r}: the port reads kitti360, "
+            f"nuscenes and synthetic")
     from agplace_tpu_torch.data.synthetic import SyntheticDataset
 
     kw = dict(n_db=64, image_size=cfg.data.q_resize, nmap=cfg.data.nmap)

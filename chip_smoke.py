@@ -5,9 +5,11 @@
 Drives the port's two serving paths (``agplace_tpu_torch.serving.PlaceIndex``
 on ``kitti360_config()`` in bf16, full width, seeded random weights), its
 evaluation path (``agplace_tpu_torch.evaluate``: Recall@N of a synthetic
-world, with the same towers) and its training path
-(``agplace_tpu_torch.train.loop.train`` on ``kitti360_config()`` in fp32) on
-the card and checks every hand-written kernel of the port:
+world, with the same towers), its training path
+(``agplace_tpu_torch.train.loop.train`` on ``kitti360_config()`` in fp32),
+the int8 and HTTP serving, the KITTI-360-AG and nuScenes-AG readers on
+seeded trees, and the ``serve`` / ``test`` entry points on the card and
+checks every hand-written kernel of the port:
 
 * the default configuration: K1 (FCODE), K2 (BEV stage 0), K3 (ECA blocks);
 * the fused-stem / fused-head configuration (``bev_pallas_head``,
@@ -119,10 +121,38 @@ K6 has no path; only its parity is checked.
     the last step's device time by kernel class and busy share under the
     profiler, the peak device memory; the checkpoint restores the trained
     parameters, and ``PlaceIndex.from_checkpoint`` answers one request.
-    Checkpoints go to ``_runs/`` (git-ignored) and are removed after.
+    Checkpoints go to ``_runs/`` (git-ignored) and are removed after;
+12. [serve-int8] a gallery of 1,048,576 seeded unit rows, 32 queries at
+    k = 5: the int8 path's int32 cross term, quantized queries and top-64
+    candidates (approximate distances bit-equal) on the card equal the
+    CPU's on a 4,096-row slice; its final (d, i) equal the fp32 path's on every
+    query without an audit miss; ms per search and peak device memory of
+    both galleries, ``upload_count``, ``audit_stats`` at ``audit_rate`` 1;
+    [serve-http] two in-process HTTP nodes of 65,536 rows each behind
+    ``ShardedSearchClient``: the merge equals the flat index; ms per
+    request;
+13. [data-kitti360] a KITTI-360-AG tree written under ``_runs/``
+    (``scripts/write_torch_trees.py``: 2 drives of 80 frames 1 m apart,
+    1198 x 320 PNG queries, 320 x 320 tiles, 30,000-point clouds):
+    ``train()`` at ``kitti360_config()`` for 2 steps on its reader and the
+    evaluation after it (exact step launches, K1-K3 in mining and
+    evaluation), the reader's host ms per batch on one thread and through
+    the ``Prefetcher``'s threads; [data-kitti360-fused] the
+    fused towers at the real aspect (256 x 958 queries) against the CPU
+    (K4; K5 in the aerial tower, and in the MM only at an even stem map);
+14. [data-nuscenes] a nuScenes-AG tree (cached index, six 455 x 256 JPEG
+    cameras, 64 samples and tiles) and ``evaluate`` at
+    ``nuscenes_config()``: exact launch counts (K2 at z = 8), 2 queries and
+    tiles against the CPU;
+15. [serve-cli] ``python -m agplace_tpu_torch.serve build``, then at once
+    ``serve search --resume``, ``serve search --queries --quant int8``,
+    ``serve http`` with a fan-out ``serve search`` and ``test --resume``,
+    as subprocesses on the card on [data-kitti360]'s checkpoint: each
+    exits 0 and answers as the in-process index (their launches are not
+    counted).  The whole wall time is logged.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
-JSON record (``launches`` summed over the nine paths, split in
+JSON record (``launches`` summed over the twelve paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the yardstick for part of the work
 where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
@@ -1955,6 +1985,529 @@ def phase_train(dev):
     return counts
 
 
+# ---- serving extras, the real readers and the entry points --------------
+
+SERVE_ROWS = 1 << 20  # [serve-int8]: 1 GiB of fp32 rows, 256 MiB of int8
+HTTP_ROWS = 1 << 17  # [serve-http]: two nodes of 65,536 rows each
+N_SERVE_Q = 32
+KITTI_FRAMES = 80  # per drive, 2 drives, 1 m apart: 2 steps of 16 queries
+NUSC_QUERIES = 64  # [data-nuscenes]: 64 samples and 64 tiles
+# The int8 path's final distances come from its exact host re-rank; the
+# fp32 path's from the card's fp32 matmul: the two agree to fp32 rounding
+SERVE_D_TOL = 1e-5
+
+
+def unit_rows(n, seed, dev):
+    """[n, 256] L2-normalised rows made on the card from a seed, on the
+    host as float32 numpy."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, 256), generator=g, device=dev)
+    return torch.nn.functional.normalize(x, dim=1).cpu().numpy()
+
+
+def near_queries(gallery, n, seed):
+    """``n`` unit queries, each a gallery row plus noise (norm ~0.3)."""
+    rng = np.random.default_rng(seed)
+    q = gallery[rng.choice(len(gallery), n, replace=False)] + 0.02 * \
+        rng.standard_normal((n, gallery.shape[1])).astype(np.float32)
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def ties_aside(i, i_ref, d_ref, gap=1e-4):
+    """Rows of ``i`` and ``i_ref`` equal wherever the reference's
+    neighbouring distances are more than ``gap`` apart: the count of
+    queries where they differ elsewhere."""
+    d = np.asarray(d_ref, np.float64)
+    with np.errstate(invalid="ignore"):  # inf - inf past the rows
+        close = np.zeros(d.shape, bool)
+        close[:, 1:] |= np.diff(d, axis=1) < gap
+        close[:, :-1] |= np.diff(d, axis=1) < gap
+    return int(((i != i_ref) & ~close).any(axis=1).sum())
+
+
+def timed_searches(idx, q, k, n=20):
+    """Median host ms of ``n`` searches (each ends in a host fetch)."""
+    idx.search_descriptors(q, k)
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        idx.search_descriptors(q, k)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def phase_serve_int8(dev):
+    """[serve-int8]: 1,048,576 seeded unit rows, 32 queries near gallery
+    rows, k = 5.  The int8 cross term on the card equals the CPU's on a
+    4,096-row slice; the int8 path's final (d, i) equal the fp32 path's on
+    every query without an audit miss (indices, distances within
+    SERVE_D_TOL); ms per search of both paths, the peak device memory
+    while each gallery is built and searched, ``upload_count``, and
+    ``audit_stats`` of one search at ``audit_rate`` 1."""
+    from agplace_tpu_torch.retrieval import knn
+    from agplace_tpu_torch.serving import PlaceIndex
+
+    t0 = time.perf_counter()
+    gal = unit_rows(SERVE_ROWS, 11, dev)
+    q = near_queries(gal, N_SERVE_Q, 12)
+    log(f"[serve-int8] {SERVE_ROWS} x 256 rows made in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    db_i8, scale, sq = knn.quantize_rows(gal[:4096])
+    q_i8, _ = knn.quantize_queries(torch.from_numpy(q))
+    q_i8_card, _ = knn.quantize_queries(torch.from_numpy(q).to(dev))
+    cross_cpu = knn.int8_cross(q_i8, torch.from_numpy(db_i8))
+    cross = knn.int8_cross(q_i8.to(dev), torch.from_numpy(db_i8).to(dev))
+    cand = [knn.l2_candidates_int8(*(torch.from_numpy(a).to(d) for a in
+                                     (q, db_i8, scale[:, 0], sq)), 64)
+            for d in (dev, "cpu")]
+    same = [torch.equal(cross.cpu(), cross_cpu),
+            torch.equal(q_i8_card.cpu(), q_i8),
+            torch.equal(cand[0][0].cpu(), cand[1][0]),
+            torch.equal(cand[0][1].cpu(), cand[1][1])]
+    log(f"[serve-int8] card vs CPU on a 4,096-row slice: the int32 cross "
+        f"term [32, 4096] equal {same[0]}; the quantized queries equal "
+        f"{same[1]}; the top-64 candidates' approximate distances "
+        f"bit-equal {same[2]}, indices equal {same[3]}")
+    if not all(same):
+        raise AssertionError("[serve-int8] the int8 scan differs from the "
+                             "CPU's")
+
+    out = {}
+    for quant in (None, "int8"):
+        label = quant or "fp32"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        idx = PlaceIndex(None, device=dev, quant=quant)
+        idx.add_descriptors(gal)
+        t0 = time.perf_counter()
+        d, i = idx.search_descriptors(q, 5)  # builds the device gallery
+        t_first = time.perf_counter() - t0
+        ms = timed_searches(idx, q, 5)
+        gallery = (idx._quant_gallery if quant else (idx._gallery,))
+        held = sum(t.numel() * t.element_size() for t in gallery)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"[serve-{label}] gallery on the card {held / 2 ** 20:.1f} MiB,"
+            f" peak device memory over building and searching "
+            f"{peak / 2 ** 20:.1f} MiB; first search (upload) "
+            f"{t_first * 1e3:.1f} ms, then {ms:.3f} ms per search of 32 "
+            f"queries at k = 5 (median of 20, host clock); upload_count "
+            f"{idx.upload_count}")
+        if idx.upload_count != 1:
+            raise AssertionError(f"[serve-{label}] {idx.upload_count} "
+                                 f"uploads")
+        out[label] = (d, i, idx if quant else None)
+        del idx, gallery  # the fp32 rows leave the card before int8's
+    d32, i32, _ = out["fp32"]
+    d8, i8, idx8 = out["int8"]
+    idx8.audit_rate = 1.0
+    t0 = time.perf_counter()
+    idx8.search_descriptors(q, 5)
+    log(f"[serve-int8] one audited search in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms: audit_stats "
+        f"{idx8.audit_stats}")
+    missed = (d32 < d8 - 1e-4).any(axis=1)  # the audit's rule, vs the card
+    clean = ~missed
+    bad = ties_aside(i8[clean], i32[clean], d32[clean])
+    err = float(np.abs(d8[clean] - d32[clean]).max())
+    log(f"[serve-int8] int8 vs fp32 final (d, i): {int(missed.sum())} "
+        f"queries with a candidate miss (audit: "
+        f"{idx8.audit_stats['miss_queries']}); on the other "
+        f"{int(clean.sum())}: {bad} differ in indices, max |d| error "
+        f"{err:.3g} (tol {SERVE_D_TOL})")
+    if (bad or err > SERVE_D_TOL
+            or idx8.audit_stats["miss_queries"] != int(missed.sum())):
+        raise AssertionError("[serve-int8] int8 and fp32 answers differ")
+
+
+def phase_serve_http(dev):
+    """[serve-http]: two in-process nodes (``serving_http``) of 65,536 rows
+    each on the card behind ``ShardedSearchClient``; 32 queries at k = 5
+    equal the flat index's; ms per request (median of 10)."""
+    import threading
+
+    from agplace_tpu_torch.serving import PlaceIndex
+    from agplace_tpu_torch.serving_http import (ShardedSearchClient,
+                                                make_http_server)
+
+    gal = unit_rows(HTTP_ROWS, 13, dev)
+    pos = np.random.default_rng(14).uniform(0, 1e4, (HTTP_ROWS, 2))
+    q = near_queries(gal, N_SERVE_Q, 15)
+    flat = PlaceIndex(None, device=dev)
+    flat.add_descriptors(gal, positions=pos)
+    d_ref, i_ref, p_ref = flat.locate_descriptors(q, 5)
+    servers = []
+    try:
+        for half in (slice(0, HTTP_ROWS // 2), slice(HTTP_ROWS // 2, None)):
+            node = PlaceIndex(None, device=dev)
+            node.add_descriptors(gal[half], positions=pos[half])
+            srv = make_http_server(node)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            servers.append(srv)
+        client = ShardedSearchClient(
+            ["http://%s:%d" % s.server_address for s in servers])
+        d, i, p = client.search(q, 5)
+        ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            client.search(q, 5)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    bad = ties_aside(i, i_ref, d_ref)
+    err = float(np.abs(d - d_ref).max())
+    log(f"[serve-http] 2 nodes x {HTTP_ROWS // 2} rows: {len(client)} rows;"
+        f" {statistics.median(ms):.2f} ms per request of 32 queries at "
+        f"k = 5 (median of 10, min {min(ms):.2f}); merge vs the flat index:"
+        f" {bad} queries differ in indices, max |d| error {err:.3g}")
+    if bad or err > SERVE_D_TOL or not np.array_equal(
+            p[i == i_ref], p_ref[i == i_ref]):
+        raise AssertionError("[serve-http] the merge differs from the flat "
+                             "index")
+
+
+def runs_dir(name):
+    import shutil
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_runs",
+                        name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def write_trees():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import write_torch_trees
+
+    return write_torch_trees
+
+
+def phase_data_kitti360(dev):
+    """[data-kitti360]: a KITTI-360-AG tree under ``_runs/`` (2 drives of
+    80 frames 1 m apart; 1198 x 320 PNG queries, 320 x 320 satellite and
+    roadmap tiles, 30,000-point clouds), ``train()`` at
+    ``kitti360_config()`` (16 x (1 + 1 + 10), fp32) for 2 steps on its
+    reader, then its evaluation of the test split (24 queries, 24 tiles);
+    the host time of the reader per batch; launch counts of the steps
+    (K1 3 each), mining and evaluation (K1, K2, K3).  Then, with the fused
+    towers in bf16, one MM forward of 2 test queries at the real aspect
+    (256 x 958) and one aerial-tower forward of 2 tiles, against the CPU
+    (K4; K5 in the aerial tower, and in the MM only if its stem map is
+    even).  Returns (counts, fused counts, tree, save dir)."""
+    import dataclasses
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.base import (collate_cache_db,
+                                             collate_cache_q, collate_train)
+    from agplace_tpu_torch.data.pipeline import Prefetcher
+    from agplace_tpu_torch.infer import build_towers
+    from agplace_tpu_torch.train import loop
+    from agplace_tpu_torch.train.cli import build_datasets
+    from agplace_tpu_torch.train.mining import TripletMiner
+
+    root = runs_dir("chip_smoke_kitti360")
+    tree, save_dir = os.path.join(root, "KITTI-360"), os.path.join(root,
+                                                                   "run")
+    t0 = time.perf_counter()
+    write_trees().kitti360_tree(tree, frames=KITTI_FRAMES)
+    log(f"[data-kitti360] tree of 2 x {KITTI_FRAMES} frames written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = train_cfg(queries_per_epoch=32, cache_refresh_rate=32,
+                    epochs_num=1, checkpoint_after_epoch=-1,
+                    save_dir=save_dir)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataroot=tree))
+    train_ds, test_ds = build_datasets(cfg)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, neg_samples_num=train_ds.database_num))
+    log(f"[data-kitti360] train: {train_ds.queries_num} queries / "
+        f"{train_ds.database_num} tiles; test: {test_ds.queries_num} / "
+        f"{test_ds.database_num}; query image "
+        f"{train_ds.load_query_image(0).shape}")
+    rng = np.random.default_rng(0)
+    trip = np.stack([rng.choice(train_ds.database_num, 12, replace=False)
+                     for _ in range(16)])
+    trip[:, 0] = rng.choice(train_ds.queries_num, 16, replace=False)
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        collate_train(train_ds, trip, cfg, rng)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_workers = cfg.data.num_workers
+    batches = [trip] * (2 * n_workers)
+    t0 = time.perf_counter()
+    for _ in Prefetcher(batches, lambda t: collate_train(
+            train_ds, t, cfg, np.random.default_rng(0)), n_workers):
+        pass
+    par_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    log(f"[data-kitti360] reader: one training batch (16 queries, 176 tiles"
+        f", 16 clouds voxelized) collated on one host thread in "
+        f"{min(ms):.0f} ms ({ms}); {len(batches)} batches through the "
+        f"Prefetcher's {n_workers} threads: {par_ms:.0f} ms per batch")
+
+    parts = {"mining": dict.fromkeys(ops.launches(), 0),
+             "eval": dict.fromkeys(ops.launches(), 0)}
+
+    def counted(fn, part):
+        def call(*a, **kw):
+            before = ops.launches()
+            result = fn(*a, **kw)
+            for k, v in ops.launches().items():
+                parts[part][k] += v - before[k]
+            return result
+        return call
+
+    real = (TripletMiner.mine, loop.evaluate)
+    TripletMiner.mine = counted(TripletMiner.mine, "mining")
+    loop.evaluate = counted(loop.evaluate, "eval")
+    try:
+        ops.reset_launches()  # ---- the path: train() on the reader
+        t0 = time.perf_counter()
+        out = loop.train(cfg, train_ds, test_ds, device=dev)
+        t_train = time.perf_counter() - t0
+        counts = ops.launches()  # ---- read just after the path
+    finally:
+        TripletMiner.mine, loop.evaluate = real
+    hist = out["history"][0]
+    steps = {k: counts[k] - parts["mining"][k] - parts["eval"][k]
+             for k in counts}
+    phases = out["phase_times"]
+    log(f"[data-kitti360] train() in {t_train:.2f} s: {out['state'].step} "
+        f"steps of 16 x (2 + 10), {phases['train'] / 2 * 1e3:.0f} ms per "
+        f"step (collation waits included), mining {phases['mining']:.2f} s,"
+        f" evaluation {phases['eval']:.2f} s; losses {hist['losses']}; "
+        f"recalls {hist['recalls'].tolist()}")
+    log(f"[data-kitti360] launches: all {counts}; mining {parts['mining']};"
+        f" steps {steps}; evaluation {parts['eval']}")
+    want_steps = dict.fromkeys(counts, 0)
+    want_steps["fused_euler_ode"] = 3 * 2
+    if out["state"].step != 2 or not np.isfinite(hist["losses"]).all():
+        raise AssertionError(f"[data-kitti360] {out['state'].step} steps")
+    if steps != want_steps:
+        raise AssertionError(f"[data-kitti360] steps' launches {steps}")
+    if not all(parts[p][k] for p in parts for k in
+               ("fused_euler_ode", "fused_conv0_down0",
+                "fused_eca_block_sm")):
+        raise AssertionError("[data-kitti360] an eval kernel did not run")
+    check_recalls("data-kitti360", hist["recalls"], "evaluation recalls")
+
+    # the fused towers at the real aspect: K4, and K5 where it may run
+    mc = dataclasses.replace(cfg.model.mm, bev_pallas_head=True,
+                             stem_pallas=True)
+    dc = dataclasses.replace(cfg.model.db, stem_pallas=True)
+    cfg_f = cfg.replace(model=dataclasses.replace(
+        cfg.model, mm=mc, db=dc, compute_dtype="bfloat16"))
+    mm, db = build_towers(cfg_f, "cpu", torch.Generator().manual_seed(3))
+    seed_bn(mm, np.random.default_rng(3))
+    seed_bn(db, np.random.default_rng(4))
+    cpu_mm, cpu_db = copy.deepcopy(mm), copy.deepcopy(db)
+    mm.to(dev)
+    db.to(dev)
+    images, vox = collate_cache_q(test_ds, [0, 1], cfg_f, dev,
+                                  torch.bfloat16)
+    maps = collate_cache_db(test_ds, [0, 1])
+    stem_w = (images.shape[2] - 1) // 2 + 1
+    with torch.inference_mode():
+        ops.reset_launches()  # ---- the path: MM + aerial tower forwards
+        gq = mm(torch.from_numpy(images).to(dev), vox)["embedding"]
+        gd = db(torch.from_numpy(maps).to(dev))
+        torch.cuda.synchronize()
+        counts_f = ops.launches()  # ---- read just after the path
+        cq = cpu_mm(torch.from_numpy(images), collate_cache_q(
+            test_ds, [0, 1], cfg_f, "cpu", torch.bfloat16)[1])["embedding"]
+        cd = cpu_db(torch.from_numpy(maps))
+    want = dict.fromkeys(counts_f, 0)
+    want.update(fused_euler_ode=3, fused_eca_block_sm=4, fused_head=1,
+                fused_affine_relu_maxpool=cfg_f.data.nmap
+                + (stem_w % 2 == 0))
+    log(f"[data-kitti360-fused] query images {images.shape} (stem map "
+        f"{(images.shape[1] - 1) // 2 + 1} x {stem_w}: K5 "
+        f"{'runs' if stem_w % 2 == 0 else 'is gated off, as in JAX'} in "
+        f"the MM); launches {counts_f}")
+    if counts_f != want:
+        raise AssertionError(f"[data-kitti360-fused] launches {counts_f} "
+                             f"!= {want}")
+    check_descriptors("data-kitti360-fused", "query embeddings "
+                      f"({images.shape[1]} x {images.shape[2]})",
+                      gq.float().cpu().numpy(), cq.float().numpy())
+    check_descriptors("data-kitti360-fused", "tile descriptors",
+                      gd.float().cpu().numpy(), cd.float().numpy())
+    return counts, counts_f, tree, save_dir
+
+
+def phase_data_nuscenes(dev):
+    """[data-nuscenes]: a nuScenes-AG tree (cached index JSON, 6 cameras of
+    455 x 256 JPEG in the ``_size256`` dirs, 30,000-point clouds, 64
+    samples and 64 tiles of the test split) and ``evaluate`` on it at
+    ``nuscenes_config()`` (fp32, 128 x 128 x 8 grid, 192 x 2046
+    panoramas): exact launch counts (K1, K2 at z = 8, K3); 2 queries' and
+    2 tiles' descriptors against the CPU."""
+    import dataclasses
+    import shutil
+
+    from agplace_tpu_torch import nuscenes_config
+    from agplace_tpu_torch.data.nuscenes import NuScenesDataset
+    from agplace_tpu_torch.infer import build_towers
+
+    root = runs_dir("chip_smoke_nuscenes")
+    t0 = time.perf_counter()
+    write_trees().nuscenes_tree(root, queries=NUSC_QUERIES)
+    cfg = nuscenes_config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataroot=root))
+    ds = NuScenesDataset(cfg, "test")
+    log(f"[data-nuscenes] tree written and read in "
+        f"{time.perf_counter() - t0:.1f} s: {ds.queries_num} queries, "
+        f"{ds.database_num} tiles; panorama {ds.load_query_image(0).shape}")
+    mm, db = build_towers(cfg, "cpu", torch.Generator().manual_seed(5))
+    seed_bn(mm, np.random.default_rng(5))
+    seed_bn(db, np.random.default_rng(6))
+    cpu_towers = (copy.deepcopy(mm), copy.deepcopy(db))
+    towers = (mm.to(dev), db.to(dev))
+    recalls, text, counts, q, dbf, t_eval, t_gal = run_evaluate(
+        cfg, ds, towers, dev)
+    n_fwd = -(-ds.queries_num // cfg.train.infer_batch_size)
+    want = expected_launches(cfg, ds.database_num, n_fwd)
+    log(f"[data-nuscenes] evaluate in {t_eval:.2f} s (gallery pass "
+        f"{t_gal:.2f} s): {text}; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"[data-nuscenes] launches {counts} != {want}")
+    check_recalls("data-nuscenes", recalls, "recalls")
+    cq, cd = cpu_descriptors(cfg, ds, cpu_towers, 2)
+    check_descriptors("data-nuscenes", "2 queries' descriptors", q[:2], cq)
+    check_descriptors("data-nuscenes", "2 tiles' descriptors", dbf[:2], cd)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def cli(*args, wait=True):
+    """``python -m agplace_tpu_torch.<args>`` from the checkout; with
+    ``wait`` its (stdout, stderr) once it exits 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen([sys.executable, "-m", *args], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    return finish(p, args) if wait else p
+
+
+def finish(p, args, timeout=300):
+    out, err = p.communicate(timeout=timeout)
+    if p.returncode != 0:
+        raise AssertionError(f"[serve-cli] {' '.join(args[:2])} exited "
+                             f"{p.returncode}: {err[-2000:]}")
+    return out, err
+
+
+def check_rows(label, out, d, i, pos):
+    """The search lines against the in-process answers (indices aside
+    where distances tie within 1e-4, distances within 1e-4)."""
+    rows = [json.loads(line) for line in out.strip().splitlines()]
+    got_i = np.array([r["indices"] for r in rows])
+    got_d = np.array([[np.inf if v is None else v for v in r["sq_distances"]]
+                      for r in rows])
+    bad = ties_aside(got_i, i, d)
+    err = float(np.abs(got_d - d).max())
+    ok = (len(rows) == len(i) and bad == 0 and err <= 1e-4
+          and all(len(r["east_north"]) == i.shape[1] for r in rows))
+    log(f"[serve-cli] {label}: {len(rows)} lines, {bad} differ in indices, "
+        f"max |d| error {err:.3g} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[serve-cli] {label} disagrees")
+
+
+def phase_serve_cli(dev, tree, save_dir):
+    """[serve-cli]: the entry points as subprocesses on the card, on the
+    checkpoint [data-kitti360] wrote: ``serve build``, then at once
+    ``serve search --resume``, ``serve search --queries --quant int8``,
+    ``serve http`` with a fan-out ``serve search`` over it, and ``test
+    --resume``; each exits 0 and answers as the in-process index (its
+    launches are not counted)."""
+    import shutil
+    import socket
+
+    from agplace_tpu_torch.config import parse_arguments
+    from agplace_tpu_torch.embed import batched_embed_q
+    from agplace_tpu_torch.evaluate import evaluate
+    from agplace_tpu_torch.infer import make_infer_fns
+    from agplace_tpu_torch.serving import PlaceIndex
+    from agplace_tpu_torch.train.checkpoint import load_towers
+    from agplace_tpu_torch.train.cli import HONOURED, build_datasets
+
+    data = ["--dataset", "kitti360", "--dataroot", tree, "--save_dir",
+            save_dir, "--resume", "best_model"]
+    gal, qpath = (os.path.join(save_dir, f) for f in ("g.npz", "q.npy"))
+    t0 = time.perf_counter()
+    out, _ = cli("agplace_tpu_torch.serve", "build", "--gallery_out", gal,
+                 *data)
+    t_build = time.perf_counter() - t0
+    built = json.loads(out.strip().splitlines()[-1])
+
+    cfg, _ = parse_arguments(data, HONOURED)
+    _, test_ds = build_datasets(cfg)
+    idx = PlaceIndex.from_checkpoint(cfg, save_dir, "best_model", dev)
+    idx.load_gallery(gal)
+    q = batched_embed_q(test_ds, list(range(test_ds.queries_num)),
+                        idx._embed_q, cfg.train.infer_batch_size, cfg, dev)
+    np.save(qpath, q)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = {
+        "search --resume": cli("agplace_tpu_torch.serve", "search",
+                               "--gallery", gal, "--k", "5", *data,
+                               wait=False),
+        "search --quant int8": cli("agplace_tpu_torch.serve", "search",
+                                   "--gallery", gal, "--queries", qpath,
+                                   "--k", "5", "--quant", "int8",
+                                   wait=False),
+        "test --resume": cli("agplace_tpu_torch.test", *data, wait=False),
+        "http": cli("agplace_tpu_torch.serve", "http", "--gallery", gal,
+                    "--port", str(port), wait=False)}
+    try:
+        ready = json.loads(procs["http"].stdout.readline())
+        client_out, _ = cli("agplace_tpu_torch.serve", "search", "--gallery",
+                            f"http://127.0.0.1:{port}", "--queries", qpath,
+                            "--k", "5")
+    finally:
+        procs["http"].terminate()
+        procs["http"].wait(timeout=60)
+    outs = {k: finish(p, k.split())[0] for k, p in procs.items()
+            if k != "http"}
+    log(f"[serve-cli] build in {t_build:.1f} s -> {built}; the other four "
+        f"processes at once in {time.perf_counter() - t0:.1f} s; http node "
+        f"{ready}")
+    with np.load(gal) as z:
+        feats = z["feats"]
+    towers, _ = load_towers(cfg, save_dir, "best_model", dev)
+    ref = PlaceIndex(cfg, towers, dev)
+    ref.add_tiles(test_ds)
+    err = float(np.abs(feats - ref._host_gallery()).max())
+    log(f"[serve-cli] build's gallery vs the in-process add_tiles: max "
+        f"|err| {err:.3g}")
+    if built["rows"] != test_ds.database_num or err > 1e-4:
+        raise AssertionError("[serve-cli] build's gallery differs")
+    check_rows("search --resume", outs["search --resume"],
+               *idx.locate_descriptors(q, 5))
+    check_rows("search --queries --quant int8", outs["search --quant int8"],
+               *PlaceIndex.from_gallery(gal, device=dev, quant="int8")
+               .locate_descriptors(q, 5))
+    check_rows("http node + fan-out search", client_out,
+               *PlaceIndex.from_gallery(gal, device=dev)
+               .locate_descriptors(q, 5))
+    _, text = evaluate(cfg, test_ds, *make_infer_fns(*towers), device=dev)
+    got = outs["test --resume"].strip().splitlines()[-1]
+    log(f"[serve-cli] test --resume: {got!r}; in-process evaluate: "
+        f"{text!r}")
+    if got != text:
+        raise AssertionError("[serve-cli] test --resume's recalls differ")
+    shutil.rmtree(os.path.dirname(save_dir), ignore_errors=True)
+
+
 def main() -> None:
     import dataclasses
 
@@ -1967,11 +2520,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
                          "this smoke needs an NVIDIA GPU")
+    t_start = time.perf_counter()
     name = card()
     log(name)
     dev = torch.device("cuda")
+    import PIL
+    import PIL.features
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; the readers' Pillow "
+        f"{PIL.__version__} (jpg {PIL.features.check('jpg')}, zlib "
+        f"{PIL.features.check('zlib')})")
     phase_build()
 
     cfg = kitti360_config()
@@ -2022,6 +2581,12 @@ def main() -> None:
     parity["fused_euler_ode"]["train_k1"] = phase_train_k1(dev)
     counts_ts = phase_train_step(dev)
     counts_t = phase_train(dev)
+    # ---- serving extras, the real readers and the entry points
+    phase_serve_int8(dev)
+    phase_serve_http(dev)
+    counts_k, counts_kf, tree, save_dir = phase_data_kitti360(dev)
+    counts_ns = phase_data_nuscenes(dev)
+    phase_serve_cli(dev, tree, save_dir)
 
     sources = {
         "fused_euler_ode": ("agplace_tpu_torch/csrc/ode_step.cu",
@@ -2048,7 +2613,8 @@ def main() -> None:
                      "launches": (counts[k] + counts_f[k] + counts_n[k]
                                   + counts_p[k] + counts_e[k] + counts_c[k]
                                   + counts_ef[k] + counts_ts[k]
-                                  + counts_t[k]),
+                                  + counts_t[k] + counts_k[k]
+                                  + counts_kf[k] + counts_ns[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
@@ -2057,7 +2623,11 @@ def main() -> None:
                                           "eval_crops": counts_c[k],
                                           "eval_fused": counts_ef[k],
                                           "train_step": counts_ts[k],
-                                          "train": counts_t[k]},
+                                          "train": counts_t[k],
+                                          "data_kitti360": counts_k[k],
+                                          "data_kitti360_fused":
+                                              counts_kf[k],
+                                          "data_nuscenes": counts_ns[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],
@@ -2068,6 +2638,8 @@ def main() -> None:
                     **{x: parity[k][x] for x in RECORD_KEYS
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of wall time "
+        f"(after imports)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -974,3 +974,39 @@ def test_train_step_on_card_runs_k1_only_and_matches_cpu(cuda):
     (cbatch,) = prefetch_to_device([host], "cpu")
     want = float(step(cpu, cbatch)["loss"])
     assert np.isfinite(loss) and abs(loss - want) <= 5e-3 * abs(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,n,c", [(1, 8, 256), (8, 4096, 256),
+                                    (33, 1003, 100)])
+def test_int8_search_on_card_equals_cpu(cuda, nq, n, c):
+    """``knn.int8_cross`` (cuBLASLt's int8 GEMM behind ``torch._int_mm``,
+    the queries padded to > 16 rows) equals the CPU's int32 product, and a
+    search-only ``PlaceIndex(quant="int8")`` on the card (its rows and
+    columns padded to multiples of 8) returns the CPU index's distances
+    and indices."""
+    import numpy as np
+
+    from agplace_tpu_torch.retrieval import knn
+    from agplace_tpu_torch.serving import PlaceIndex
+
+    rng = np.random.default_rng(nq + n)
+    g = rng.standard_normal((n, c)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    q = g[rng.choice(n, nq)] + 0.05 * rng.standard_normal(
+        (nq, c)).astype(np.float32)
+    q_i8, _ = knn.quantize_queries(torch.from_numpy(q))
+    db_i8 = torch.from_numpy(knn.quantize_rows(g)[0])
+    want = knn.int8_cross(q_i8, db_i8) if n % 8 == c % 8 == 0 else None
+    if want is not None:
+        got = knn.int8_cross(q_i8.to(cuda), db_i8.to(cuda))
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    card = PlaceIndex(None, device=cuda, quant="int8")
+    cpu = PlaceIndex(None, device="cpu", quant="int8")
+    for idx in (card, cpu):
+        idx.add_descriptors(g)
+    for k in (1, 5, n + 2):
+        d, i = card.search_descriptors(q, k)
+        d_cpu, i_cpu = cpu.search_descriptors(q, k)
+        np.testing.assert_array_equal(i, i_cpu)
+        np.testing.assert_array_equal(d, d_cpu)

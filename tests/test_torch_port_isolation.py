@@ -47,6 +47,11 @@ def test_the_scan_sees_the_port():
     assert "chip_smoke.py" in PORT_FILES
     assert "scripts/profile_torch_mm.py" in PORT_FILES
     assert "scripts/probe_torch_block_sm_v2.py" in PORT_FILES
+    for path in ("serving_http.py", "serve.py", "test.py", "data/geo.py",
+                 "data/transforms.py", "data/kitti360.py",
+                 "data/nuscenes.py", "data/validate.py"):
+        assert f"agplace_tpu_torch/{path}" in PORT_FILES
+    assert "scripts/write_torch_trees.py" in PORT_FILES
     assert not any(p.startswith("agplace_tpu/") for p in PORT_FILES)
 
 

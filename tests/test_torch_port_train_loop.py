@@ -131,17 +131,35 @@ def test_entry_point_runs_on_the_cpu(tmp_path):
     assert any(f.startswith("ep@0") for f in os.listdir(tmp_path))
 
 
-@pytest.mark.parametrize("flag", [["--hue", "0.1"], ["--odeint_rtol", "1"],
+@pytest.mark.parametrize("flag", [["--color_jitter", "0.1"],
+                                  ["--odeint_rtol", "1"],
                                   ["--patience", "3"],
-                                  ["--dataroot", "/data"]])
+                                  ["--read_pc", "false"]])
 def test_a_flag_not_honoured_raises(flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.main(["--dataset", "synthetic", "--device", "cpu", *flag])
 
 
 def test_real_datasets_and_missing_card_raise(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="kitti360"):
-        cli.main(["--dataset", "kitti360", "--device", "cpu"])
+    from agplace_tpu_torch.data.kitti360 import KITTI360Dataset
+    from agplace_tpu_torch.data.nuscenes import NuScenesDataset
+
+    # the readers are built for the real datasets (a tree without drives
+    # gives empty splits, as JAX's reader does)
+    cfg, _ = config.parse_arguments(["--dataset", "kitti360", "--dataroot",
+                                     str(tmp_path)], cli.HONOURED)
+    assert all(isinstance(ds, KITTI360Dataset) and ds.queries_num == 0
+               for ds in cli.build_datasets(cfg))
+    nusc = tmp_path / "nuscenes"
+    nusc.mkdir()
+    for split, version in (("train", "v1.0-trainval"),
+                           ("test", "v1.0-test")):
+        (nusc / f"agplace_index_{version}_{split}.json").write_text(
+            '{"queries": []}')
+    cfg, _ = config.parse_arguments(["--dataset", "nuscenes", "--dataroot",
+                                     str(nusc)], cli.HONOURED)
+    assert all(isinstance(ds, NuScenesDataset)
+               for ds in cli.build_datasets(cfg))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([*TINY_FLAGS, "--save_dir", str(tmp_path)])
