@@ -16,6 +16,7 @@ Outputs are exactly equal to the JAX package's (tested in
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -31,13 +32,25 @@ GRID_RADIUS = 64  # static half-extent of the occupancy grid, in voxels
 
 @dataclass
 class SparseVoxels:
-    """Padded voxel set: coords [B, N, 3] int32, feats [B, N, 1], mask
-    [B, N] bool (the JAX ``SparseVoxels`` fields the slice reads)."""
+    """Padded voxel set: coords [B, N, 3] int32, feats [B, N, C], mask
+    [B, N] bool, and the tensor stride (JAX's ``SparseVoxels``; the device
+    geometry is ``sparse/voxels.py``)."""
 
     coords: torch.Tensor
     feats: torch.Tensor
     mask: torch.Tensor
     stride: int = 1
+
+    @property
+    def capacity(self) -> int:
+        return self.coords.shape[1]
+
+    @property
+    def channels(self) -> int:
+        return self.feats.shape[-1]
+
+    def replace(self, **kw) -> "SparseVoxels":
+        return dataclasses.replace(self, **kw)
 
 
 def me_down_align(cells: int) -> Tuple[int, int, int]:

@@ -28,8 +28,9 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init with the flax initialisers' scales: conv and
-    dense weights lecun-normal (std 1/sqrt(fan_in)), BEV 3-D kernels
-    kaiming-normal (std sqrt(2/fan_in)), norms ones/zeros, GeM p = 3.
+    dense weights lecun-normal (std 1/sqrt(fan_in)), voxel conv kernels
+    ([k,k,k,cin,cout], sparse [K,cin,cout]) kaiming-normal (std
+    sqrt(2/fan_in)), norms ones/zeros, GeM p = 3.
     Running statistics keep their defaults (mean 0, var 1)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -42,7 +43,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 continue
             if leaf == "kernel" and p.ndim == 5:
                 std = math.sqrt(2.0 / (p.shape[0] ** 3 * p.shape[3]))
-            elif leaf == "kernel":  # FCODE [in, out]
+            elif leaf == "kernel" and p.ndim == 3:  # sparse [K, cin, cout]
+                std = math.sqrt(2.0 / (p.shape[0] * p.shape[1]))
+            elif leaf in ("kernel", "fc_kernel"):  # [in, out]
                 std = 1.0 / math.sqrt(p.shape[0])
             elif leaf == "conv_w":  # ECA [k, 1, 1]
                 std = 1.0 / math.sqrt(p.shape[0])

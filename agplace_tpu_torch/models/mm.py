@@ -1,16 +1,28 @@
-"""MM ground/query tower (``agplace_tpu/models/mm.py``) with the ``bev``
-voxel backend, in eval mode (the kernels' gates open) or training mode
-(batch statistics; K2-K5 gated off, K1 through its autograd Function).
+"""MM ground/query tower (``agplace_tpu/models/mm.py``) with every option
+JAX's ``MM`` builds, in eval mode (the kernels' gates open) or training
+mode (batch statistics; K2-K5 gated off, K1 through its autograd Function).
 
-Input: ``query_image`` [B, H, W, 3] (NHWC) and a host-rasterized
-``BEVGrid``.  Output: the reference's 7-key dict — imagevec_org,
+Voxel backends (``voxfe_backend``), one parameter tree for ``bev`` and
+``dense`` and its [K, Cin, Cout] reshape for ``sparse``:
+
+* ``bev``: a folded ``BEVGrid`` (host-rasterized, the serving path) or
+  ``SparseVoxels`` (folded on the device); K2 / K4 at stage 0, K3 in the
+  ECA blocks;
+* ``dense``: ``SparseVoxels`` scattered into the [X, Y, Z] grid;
+* ``sparse``: ``SparseVoxels`` as they are, the only backend that keeps a
+  cloud beyond ``vox_grid_extent`` (the grids crop it).
+
+Options: ``drop`` (image / pc), ``output_type`` with ``shallow`` or
+``addorg``, ``final_fusetype`` (add / cat / catadd), and through the
+submodules ``voxfe_ntd``, ``voxfe_block``, the integrators and
+``stg2_useproj``.  Output: the reference's dict — imagevec_org,
 voxvec_org, shallowvec_org, stg2fusevec, stg2imagevec, stg2voxvec,
-embedding — with the weighted final sum of ``mm.py:250-288``.
+embedding.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 from torch import nn
@@ -23,10 +35,12 @@ from agplace_tpu_torch.models.fusion import (
 from agplace_tpu_torch.models.image_fe import ImageFE
 from agplace_tpu_torch.models.layers import Dense, l2n
 from agplace_tpu_torch.models.pooling import GeM
+from agplace_tpu_torch.sparse import dense_grid, minkfpn, modules, voxels
 from agplace_tpu_torch.sparse.bev_grid import (
     BEVGrid,
     BEVMinkFPN,
     BEVMinkGeM,
+    bev_densify,
     bev_global_avg,
 )
 
@@ -51,41 +65,56 @@ class MM(nn.Module):
     def __init__(self, config: MMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
-        if cfg.voxfe_backend != "bev":
+        if "image" not in cfg.output_type:
             raise NotImplementedError(
-                f"voxfe_backend={cfg.voxfe_backend!r} (port: 'bev' only)")
-        if cfg.drop is not None or cfg.final_fusetype != "add":
-            raise NotImplementedError("drop / non-'add' final fusion")
-        if "image" not in cfg.output_type or "addorg" in cfg.output_type:
-            raise NotImplementedError(f"output_type={cfg.output_type}")
+                f"output_type={cfg.output_type}: the stage-2 fusion needs "
+                f"the image branch (JAX fails there too)")
+        if cfg.final_fusetype not in ("add", "cat", "catadd"):
+            raise NotImplementedError(cfg.final_fusetype)
+        backend = cfg.voxfe_backend
+        if backend not in ("bev", "dense", "sparse"):
+            raise NotImplementedError(f"voxfe_backend={backend!r}")
         self.dtype = dtype
         self.use_vox = "vox" in cfg.output_type
         self.use_shallow = "shallow" in cfg.output_type
+        self.use_addorg = "addorg" in cfg.output_type
         self.image_fe = ImageFE(cfg.imgfe, cfg.imgfe_layers, dtype,
                                 use_pallas_stem=cfg.stem_pallas)
         self.image_pool = GeM()
         if self.use_vox:
-            self.vox_fe = BEVMinkFPN(
-                in_channels=1, out_channels=cfg.voxfe_planes[-1],
-                planes=cfg.voxfe_planes, layers=cfg.voxfe_layers,
-                num_top_down=cfg.voxfe_ntd, conv0_kernel_size=5,
-                block=cfg.voxfe_block, use_pallas=cfg.bev_pallas,
-                use_pallas_head=cfg.bev_pallas_head,
-                use_fused_down=cfg.bev_fused_down)
-            self.vox_pool = BEVMinkGeM()
+            kw = dict(in_channels=1, out_channels=cfg.voxfe_planes[-1],
+                      planes=cfg.voxfe_planes, layers=cfg.voxfe_layers,
+                      num_top_down=cfg.voxfe_ntd, conv0_kernel_size=5,
+                      block=cfg.voxfe_block)
+            if backend == "bev":
+                self.vox_fe = BEVMinkFPN(
+                    **kw, use_pallas=cfg.bev_pallas,
+                    use_pallas_head=cfg.bev_pallas_head,
+                    use_fused_down=cfg.bev_fused_down)
+                self.vox_pool = BEVMinkGeM()
+            elif backend == "dense":
+                self.vox_fe = dense_grid.DenseMinkFPN(**kw)
+                self.vox_pool = dense_grid.GridMinkGeM()
+            else:
+                self.vox_fe = minkfpn.MinkFPN(**kw)
+                self.vox_pool = modules.MinkGeM()
         if self.use_shallow:
             n = len(cfg.imgfe_planes)
+            # the FPN's maps from n - 1 - ntd on carry its out_channels
+            vp, ntd = cfg.voxfe_planes, cfg.voxfe_ntd
+            vox_dims = tuple(vp[-1] if i >= len(vp) - 1 - ntd else c
+                             for i, c in enumerate(vp))
             self.fuseblocktoshallow = FuseBlockToShallow(
                 dims=tuple(cfg.stg2fuse_dim for _ in range(n)),
                 img_dims=cfg.imgfe_planes,
-                vox_dims=cfg.voxfe_planes if self.use_vox else None,
+                vox_dims=vox_dims if self.use_vox else None,
                 ode=cfg.ode)
         self.stg2fuseblock = Stage2FuseBlockAdd(
             fusedim=cfg.stg2fuse_dim, imgdim=cfg.imgfe_dim,
-            voxdim=cfg.voxfe_dim, with_vox=self.use_vox,
-            nlayers=cfg.stg2nlayers, stg2fuse_type=cfg.stg2fuse_type,
-            use_proj=cfg.stg2_useproj, dtype=dtype,
-            bev_pallas=cfg.bev_pallas)
+            voxdim=cfg.voxfe_dim, vox_backend=backend if self.use_vox
+            else None, nlayers=cfg.stg2nlayers,
+            stg2fuse_type=cfg.stg2fuse_type, use_proj=cfg.stg2_useproj,
+            dtype=dtype, bev_pallas=cfg.bev_pallas)
         self.stg2fusefc = Dense(cfg.stg2fuse_dim, cfg.stg2fuse_dim)
         # component weights: a parameter when learned (flax name), else a
         # constant, as ``MM._weight``
@@ -106,11 +135,54 @@ class MM(nn.Module):
         return self._weights[name] if name in self._weights \
             else getattr(self, name)
 
-    def forward(self, query_image: torch.Tensor,
-                vox: Optional[BEVGrid] = None) -> Dict[str, torch.Tensor]:
+    def _drop(self, query_image, vox):
+        """The modality-drop ablation (``mm.py:67-86``): a zero image, or
+        the cloud reduced to one voxel (the grid's centre cell, or one row
+        at the origin: ME requantises zeroed coordinates into one voxel)."""
+        drop = self.config.drop
+        if drop == "image":
+            query_image = query_image * 0
+        elif drop == "pc" and vox is not None:
+            if isinstance(vox, BEVGrid):
+                b, gx, gy, gz = vox.mask.shape
+                m0 = torch.zeros_like(vox.mask)
+                m0[:, gx // 2, gy // 2, gz // 2] = True
+                vox = BEVGrid(feats=m0.to(vox.feats.dtype), mask=m0,
+                              z=vox.z, stride=vox.stride)
+            else:
+                keep = torch.zeros_like(vox.mask)
+                keep[:, 0] = True
+                vox = vox.replace(coords=vox.coords * 0, mask=keep)
+        return query_image, vox
+
+    def _voxel_branch(self, vox):
+        """(final map, per-stage maps, keys or None, pooled vector)."""
+        cfg, backend = self.config, self.config.voxfe_backend
+        keys = None
+        if backend == "bev":
+            if isinstance(vox, BEVGrid):
+                g = vox.replace(feats=vox.feats.to(self.dtype))
+            else:
+                g = bev_densify(vox, cfg.vox_grid_extent, self.dtype,
+                                ones_feats=True)
+            fmap, maps = self.vox_fe(g)
+        elif isinstance(vox, BEVGrid):
+            raise TypeError("a host-rasterized BEVGrid needs "
+                            "voxfe_backend='bev'")
+        elif backend == "dense":
+            g = dense_grid.densify(vox, extent=cfg.vox_grid_extent)
+            fmap, maps = self.vox_fe(g.replace(feats=g.feats.to(self.dtype)))
+        else:
+            fmap, keys, maps = self.vox_fe(vox)
+            maps = [m for m, _ in maps]
+        return fmap, maps, keys, self.vox_pool(fmap)
+
+    def forward(self, query_image: torch.Tensor, vox=None
+                ) -> Dict[str, torch.Tensor]:
         cfg = self.config
         outputs: Dict[str, torch.Tensor] = {}
         components = []
+        query_image, vox = self._drop(query_image, vox)
         use_vox = self.use_vox and vox is not None
 
         imagefeatmap, imagemaplist = self.image_fe(query_image)
@@ -120,11 +192,9 @@ class MM(nn.Module):
         outputs["imagevec_org"] = v
         components.append(v * self._w("image_weight"))
 
-        voxfeatmap = voxmaplist = None
+        voxfeatmap = voxmaplist = vox_keys = None
         if use_vox:
-            bev = vox.replace(feats=vox.feats.to(self.dtype))
-            voxfeatmap, voxmaplist = self.vox_fe(bev)
-            v = self.vox_pool(voxfeatmap)
+            voxfeatmap, voxmaplist, vox_keys, v = self._voxel_branch(vox)
             if cfg.output_l2:
                 v = l2n(v)
             outputs["voxvec_org"] = v
@@ -133,16 +203,29 @@ class MM(nn.Module):
         shallow = None
         if self.use_shallow:
             imageveclist = [m.mean(dim=(1, 2)) for m in imagemaplist]
-            voxveclist = ([bev_global_avg(g) for g in voxmaplist]
-                          if use_vox else None)
+            voxveclist = None
+            if use_vox:
+                avg = {"bev": bev_global_avg,
+                       "dense": dense_grid.grid_global_avg,
+                       "sparse": voxels.masked_global_avg}[cfg.voxfe_backend]
+                voxveclist = [avg(g) for g in voxmaplist]
             shallow = self.fuseblocktoshallow(imageveclist, voxveclist)
             outputs["shallowvec_org"] = shallow
             if cfg.output_l2:
                 shallow = l2n(shallow)
             components.append(shallow * self._w("shallow_weight"))
+        elif self.use_addorg:
+            addorg = outputs["imagevec_org"]
+            if use_vox:
+                addorg = addorg + outputs["voxvec_org"]
+            if cfg.output_l2:
+                addorg = l2n(addorg)
+            outputs["shallowvec_org"] = addorg
+            components.append(addorg * self._w("shallow_weight"))
 
         fuse, stg2image, stg2vox = self.stg2fuseblock(
-            imagefeatmap, voxfeatmap if use_vox else None, components[-1])
+            imagefeatmap, voxfeatmap if use_vox else None, components[-1],
+            vox_keys)
         outputs["stg2fusevec"] = self.stg2fusefc(fuse)
         outputs["stg2imagevec"] = stg2image
         if stg2vox is not None:
@@ -156,7 +239,11 @@ class MM(nn.Module):
         final = [present[t] * self._w(_FINAL[t][2])
                  for t in _FINAL if t in cfg.final_type
                  and present[t] is not None]
-        outputs["embedding"] = sum(final)
-        if cfg.final_l2:
-            outputs["embedding"] = l2n(outputs["embedding"])
+        if cfg.final_fusetype == "add":
+            x = sum(final)
+        elif cfg.final_fusetype == "cat":
+            x = torch.cat(final, dim=-1)
+        else:  # catadd
+            x = torch.cat(final[:-1], dim=-1) + final[-1]
+        outputs["embedding"] = l2n(x) if cfg.final_l2 else x
         return outputs

@@ -21,10 +21,23 @@ folded z axis.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+
+
+def masked_moments(x: torch.Tensor, m: torch.Tensor, dims: Sequence[int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (mean, biased variance) per channel of ``x`` over ``dims``,
+    counting only where the broadcast mask ``m`` is set (ME's batch norm):
+    the count clamped to at least 1, the variance to at least 0."""
+    f, m = x.float(), m.float()
+    cnt = torch.clamp(m.sum(), min=1.0)
+    mean = (f * m).sum(dim=tuple(dims)) / cnt
+    var = torch.clamp((f.square() * m).sum(dim=tuple(dims)) / cnt
+                      - mean.square(), min=0.0)
+    return mean, var
 
 
 class BatchNorm2D(nn.Module):

@@ -13,6 +13,11 @@ the JAX package leaves them to XLA.  They always run in ``compute_dtype``
 (bf16) and round their result to bf16 before casting to the feats dtype,
 like ``BEVConv``.
 
+``BEVMinkFPN`` takes the ECA, basic, ASPP and ConvNeXt blocks and
+``num_top_down`` levels of the dense backend's transposed conv on the
+unfolded grid (``dense_grid.GridConvTranspose``); ``bev_densify`` folds
+``SparseVoxels`` on the device.
+
 Three kernels plug in here, in eval mode only, as in JAX: K2
 (``ops/bev_down.py``) or, with ``use_pallas_head``, K4 (``ops/bev_head.py``)
 at the stage-0 site of ``BEVMinkFPN``, and K3 (``ops/bev_block_sm.py``) in
@@ -32,7 +37,7 @@ from torch import nn
 
 from agplace_tpu_torch.data.voxels import me_down_align
 from agplace_tpu_torch.models.layers import conv2d_nhwc
-from agplace_tpu_torch.models.norm import BatchNorm2D
+from agplace_tpu_torch.models.norm import BatchNorm2D, masked_moments
 from agplace_tpu_torch.ops import bev_block_sm, bev_down, bev_head
 
 Pad = Tuple[int, int]
@@ -51,6 +56,33 @@ class BEVGrid:
 
     def replace(self, **kw) -> "BEVGrid":
         return dataclasses.replace(self, **kw)
+
+
+def fold(g) -> BEVGrid:
+    """DenseVoxelGrid [B,X,Y,Z,C] -> BEVGrid [B,X,Y,Z*C] (a free reshape)."""
+    b, x, y, z, c = g.feats.shape
+    return BEVGrid(feats=g.feats.reshape(b, x, y, z * c), mask=g.mask, z=z,
+                   stride=g.stride)
+
+
+def unfold(g: BEVGrid):
+    from agplace_tpu_torch.sparse.dense_grid import DenseVoxelGrid
+
+    b, x, y, zc = g.feats.shape
+    return DenseVoxelGrid(feats=g.feats.reshape(b, x, y, g.z, zc // g.z),
+                          mask=g.mask, stride=g.stride)
+
+
+def bev_densify(sv, extent: Tuple[int, int, int],
+                dtype: torch.dtype = torch.bfloat16,
+                ones_feats: bool = False) -> BEVGrid:
+    """SparseVoxels -> folded grid on the device (``densify`` + ``fold``);
+    the serving path rasterizes on the host instead
+    (``data/voxels.prepare_query_vox``)."""
+    from agplace_tpu_torch.sparse.dense_grid import densify
+
+    g = densify(sv, extent=extent, ones_feats=ones_feats)
+    return fold(g.replace(feats=g.feats.to(dtype)))
 
 
 def mask_bev(feats: torch.Tensor, mask: torch.Tensor, z: int) -> torch.Tensor:
@@ -132,12 +164,8 @@ def bn_apply(g: BEVGrid, bn: BatchNorm2D) -> torch.Tensor:
     the running statistics move towards them."""
     if bn.training:
         b, x, y, zc = g.feats.shape
-        f = g.feats.reshape(b, x, y, g.z, zc // g.z).float()
-        m = g.mask[..., None].float()
-        cnt = torch.clamp(m.sum(), min=1.0)
-        mean = (f * m).sum(dim=(0, 1, 2, 3)) / cnt
-        var = torch.clamp((f.square() * m).sum(dim=(0, 1, 2, 3)) / cnt
-                          - mean.square(), min=0.0)
+        mean, var = masked_moments(g.feats.reshape(b, x, y, g.z, zc // g.z),
+                                   g.mask[..., None], (0, 1, 2, 3))
         bn.track(mean, var)
         s, b = bn.batch_affine(mean, var, g.z)
     else:
@@ -297,9 +325,93 @@ class BEVMinkGeM(nn.Module):
         return pooled ** (1.0 / self.p)
 
 
+class BEVBasicBlock(nn.Module):
+    """Plain basic block in the folded layout (the dense backend's tree)."""
+
+    def __init__(self, cin: int, planes: int,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        cdt = compute_dtype
+        self.conv1 = BEVConv(cin, planes, 3, mask_output=False,
+                             compute_dtype=cdt)
+        self.norm1 = BatchNorm2D(planes)
+        self.conv2 = BEVConv(planes, planes, 3, mask_output=False,
+                             compute_dtype=cdt)
+        self.norm2 = BatchNorm2D(planes)
+        self.need_ds = cin != planes
+        if self.need_ds:
+            self.downsample_conv = BEVConv(cin, planes, 1, mask_output=False,
+                                           compute_dtype=cdt)
+            self.downsample_bn = BatchNorm2D(planes)
+
+    def forward(self, g: BEVGrid) -> BEVGrid:
+        out = self.conv1(g)
+        out = mask_bev(torch.relu(bn_apply(out, self.norm1)), g.mask, g.z)
+        out = bn_apply(self.conv2(g.replace(feats=out)), self.norm2)
+        residual = g.feats
+        if self.need_ds:
+            residual = bn_apply(self.downsample_conv(g), self.downsample_bn)
+        return g.replace(feats=mask_bev(torch.relu(out + residual), g.mask,
+                                        g.z))
+
+
+class BEVASPP(nn.Module):
+    """Three parallel convs (k = 3, 5, 7), each BN + relu, summed."""
+
+    def __init__(self, cin: int, planes: int,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        for i, k in enumerate((3, 5, 7)):
+            setattr(self, f"conv{i + 1}",
+                    BEVConv(cin, planes, k, mask_output=False,
+                            compute_dtype=compute_dtype))
+            setattr(self, f"bn{i + 1}", BatchNorm2D(planes))
+
+    def forward(self, g: BEVGrid) -> BEVGrid:
+        feats = None
+        for i in (1, 2, 3):
+            r = torch.relu(bn_apply(getattr(self, f"conv{i}")(g),
+                                    getattr(self, f"bn{i}")))
+            feats = r if feats is None else feats + r
+        return g.replace(feats=mask_bev(feats, g.mask, g.z))
+
+
+class BEVConvNextBlock(nn.Module):
+    """conv k -> BN (masked) -> 1x1 expand 4x -> relu -> 1x1 project, plus
+    the identity (a 1x1 when the channels change); no final relu."""
+
+    def __init__(self, cin: int, planes: int, kernel_size: int = 3,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        cdt = compute_dtype
+        self.conv1 = BEVConv(cin, planes, kernel_size, mask_output=False,
+                             compute_dtype=cdt)
+        self.bn = BatchNorm2D(planes)
+        self.conv2 = BEVConv(planes, 4 * planes, 1, mask_output=False,
+                             compute_dtype=cdt)
+        self.conv3 = BEVConv(4 * planes, planes, 1, mask_output=False,
+                             compute_dtype=cdt)
+        self.need_ds = cin != planes
+        if self.need_ds:
+            self.downsample_conv = BEVConv(cin, planes, 1, mask_output=False,
+                                           compute_dtype=cdt)
+
+    def forward(self, g: BEVGrid) -> BEVGrid:
+        out = self.conv1(g)
+        out = out.replace(feats=mask_bev(bn_apply(out, self.bn), g.mask, g.z))
+        out = self.conv2(out)
+        out = self.conv3(out.replace(feats=torch.relu(out.feats)))
+        residual = self.downsample_conv(g).feats if self.need_ds else g.feats
+        return g.replace(feats=mask_bev(out.feats + residual, g.mask, g.z))
+
+
 class BEVMinkFPN(nn.Module):
-    """MinkFPN in the folded layout with ``num_top_down=0`` and ECA blocks
-    (the live configuration).  Returns (final BEVGrid, per-stage maps)."""
+    """MinkFPN in the folded layout, the dense backend's parameter tree:
+    conv0 -> BN -> relu; per stage a k2s2 down -> BN -> relu -> blocks
+    (``block``: eca, basic, aspp, convnext); a final 1x1; and
+    ``num_top_down`` levels of the dense backend's transposed conv on the
+    unfolded grid plus a lateral 1x1.  Returns (final BEVGrid, per-stage
+    maps)."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 256,
                  planes: Tuple[int, ...] = (64, 128, 256),
@@ -309,12 +421,14 @@ class BEVMinkFPN(nn.Module):
                  use_fused_down: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if num_top_down != 0 or block != "eca":
-            raise NotImplementedError(
-                f"num_top_down={num_top_down}, block={block!r}: the port "
-                f"has the live configuration (0, 'eca') only")
+        from agplace_tpu_torch.sparse.dense_grid import GridConvTranspose
+        from agplace_tpu_torch.sparse.voxels import check_top_down
+
+        check_top_down(num_top_down, len(planes))
+        block_cls = BEV_BLOCKS[block]
         cdt = compute_dtype
-        self.n_stages = len(planes)
+        n = self.n_stages = len(planes)
+        self.ntd = num_top_down
         self.k0 = conv0_kernel_size
         self.use_pallas_head = use_pallas_head
         self.use_fused_down = use_fused_down
@@ -322,20 +436,32 @@ class BEVMinkFPN(nn.Module):
                              mask_output=False, compute_dtype=cdt)
         self.bn0 = BatchNorm2D(planes[0])
         c = planes[0]
+        lateral_c = []
         self.stages = []
-        for i in range(self.n_stages):
+        for i in range(n):
             down = BEVConv(c, c, 2, 2, mask_output=False, compute_dtype=cdt)
             setattr(self, f"down{i}", down)
             setattr(self, f"down_bn{i}", BatchNorm2D(c))
             blocks = []
             for b in range(layers[i]):
-                blk = BEVECABasicBlock(c, planes[i], use_pallas, cdt)
+                if block_cls is BEVECABasicBlock:
+                    blk = block_cls(c, planes[i], use_pallas, cdt)
+                else:
+                    blk = block_cls(c, planes[i], compute_dtype=cdt)
                 setattr(self, f"block{i}_{b}", blk)
                 blocks.append(blk)
                 c = planes[i]
+            if n - 1 - num_top_down <= i < n - 1:
+                lateral_c.append(c)
             self.stages.append((down, getattr(self, f"down_bn{i}"), blocks))
         self.lateral_top = BEVConv(c, out_channels, 1, mask_output=False,
                                    compute_dtype=cdt)
+        for ndx in range(num_top_down):
+            setattr(self, f"tconv{ndx}",
+                    GridConvTranspose(out_channels, out_channels, cdt))
+            setattr(self, f"lateral{ndx}",
+                    BEVConv(lateral_c[-ndx - 1], out_channels, 1,
+                            compute_dtype=cdt))
 
     @staticmethod
     def _bn_relu_mask(g: BEVGrid, bn: BatchNorm2D) -> BEVGrid:
@@ -343,12 +469,14 @@ class BEVMinkFPN(nn.Module):
         return g.replace(feats=mask_bev(f, g.mask, g.z))
 
     def forward(self, g: BEVGrid) -> Tuple[BEVGrid, List[BEVGrid]]:
+        n = self.n_stages
         x, y = g.feats.shape[1], g.feats.shape[2]
-        # the JAX stage-0 gates (bev_grid.py:669-681) minus the TPU check:
-        # eval mode, spatial dims that need no ME alignment padding; the
-        # fused head (K4) takes k0 in (3, 5) and wins over the fused down
-        # (K2)
-        fusible = (not self.training and x % 2 == 0 and y % 2 == 0
+        # the JAX stage-0 gates (bev_grid.py:668-684) minus the TPU check:
+        # eval mode, the full-resolution map not needed as a lateral,
+        # spatial dims that need no ME alignment padding; the fused head
+        # (K4) takes k0 in (3, 5) and wins over the fused down (K2)
+        fusible = (not self.training and self.ntd < n
+                   and x % 2 == 0 and y % 2 == 0
                    and (x // 2) % 2 == 0 and (y // 2) % 2 == 0)
         fuse_head = self.use_pallas_head and fusible and self.k0 in (3, 5)
         fuse_down = (self.use_fused_down and not fuse_head and fusible
@@ -370,14 +498,29 @@ class BEVMinkFPN(nn.Module):
                         stride=g.stride * 2)
         else:
             g = self._bn_relu_mask(self.conv0(g), self.bn0)
+        laterals = []
         out_maps = []
         for i, (down, down_bn, blocks) in enumerate(self.stages):
             if not (fused and i == 0):
                 g = self._bn_relu_mask(down(g), down_bn)
             for blk in blocks:
                 g = blk(g)
+            if n - 1 - self.ntd <= i < n - 1:
+                laterals.append(g)
             out_maps.append(g)
         # bias-free 1x1 of a masked map: exact without an output mask
         g = self.lateral_top(g)
         out_maps[-1] = g
+        for ndx in range(self.ntd):
+            fine = laterals[-ndx - 1]
+            up = fold(getattr(self, f"tconv{ndx}")(unfold(g), fine.mask))
+            lat = getattr(self, f"lateral{ndx}")(fine)
+            g = up.replace(feats=mask_bev(up.feats + lat.feats, fine.mask,
+                                          fine.z))
+            out_maps[-2 - ndx] = g
         return g, out_maps
+
+
+BEV_BLOCKS = {"eca": BEVECABasicBlock, "basic": BEVBasicBlock,
+              "aspp": BEVASPP, "convnext": BEVConvNextBlock}
+

@@ -6,8 +6,11 @@ the flax scope names, so a leaf ``a/b/name`` lands on ``a.b.<torch name>``:
 
 * ``kernel`` of a 2-D conv (HWIO)          -> ``weight`` (OIHW)
 * ``kernel`` of a ``Dense`` ([in, out])    -> ``weight`` ([out, in])
-* ``kernel`` of a BEV 3-D conv ([k,k,k,cin,cout]) or of an FCODE
-  ([in, out]) -> ``kernel``, unchanged (folded / used as is at run time)
+* ``kernel`` of a voxel conv (BEV / dense [k,k,k,cin,cout], their
+  transposed conv [2,2,2,cin,cout], sparse [K,cin,cout] and 1x1
+  [cin,cout], sparse transposed [8,cin,cout]) or of an FCODE ([in, out])
+  -> ``kernel``, unchanged (folded / used as is at run time); Beltrami's
+  ``fc_kernel`` / ``fc_bias`` keep their names
 * BN / LayerNorm ``scale``                 -> ``weight``; ``bias`` -> ``bias``
 * BN ``batch_stats`` ``mean`` / ``var``    -> ``running_mean`` / ``running_var``
 * GeM ``p``, ECA ``conv_w`` [k,1,1] and learned scalar weights -> same name

@@ -8,8 +8,11 @@ evaluation path (``agplace_tpu_torch.evaluate``: Recall@N of a synthetic
 world, with the same towers), its training path
 (``agplace_tpu_torch.train.loop.train`` on ``kitti360_config()`` in fp32),
 the int8 and HTTP serving, the KITTI-360-AG and nuScenes-AG readers on
-seeded trees, and the ``serve`` / ``test`` entry points on the card and
-checks every hand-written kernel of the port:
+seeded trees, the ``serve`` / ``test`` entry points, and the MM's option
+tail (the dense and sparse voxel backends, the midpoint / rk4 / dopri5
+integrators, the FPN's top-down pass and blocks, the fusion options, the
+graph-ODE and SDE / CDE library, sparse training) on the card and checks
+every hand-written kernel of the port:
 
 * the default configuration: K1 (FCODE), K2 (BEV stage 0), K3 (ECA blocks);
 * the fused-stem / fused-head configuration (``bev_pallas_head``,
@@ -151,8 +154,35 @@ K6 has no path; only its parity is checked.
     exits 0 and answers as the in-process index (their launches are not
     counted).  The whole wall time is logged.
 
+16. [mm-backends] the MM at b32 on the ``dense`` and ``sparse`` voxel
+    backends beside ``bev`` (one set of weights, the sparse backend's
+    reshaped), on LiDAR clouds cropped to the grid extent: exact launch
+    counts (bev: K1 3, K2 1, K3 4; dense and sparse: K1 3 only), each
+    backend against its CPU run and against the card's bev MM, ms per
+    forward (CUDA events, median of 20) and peak device memory of each;
+17. [mm-ode] the MM at b32 with ``odeint_method`` midpoint, rk4 and dopri5
+    beside Euler: K1 0 times, each against its CPU run, dopri5's accepted
+    steps per FCODE equal on the card and the CPU, ms per forward of each;
+18. [mm-options] at b8: ``voxfe_ntd`` 1 and 2 and the basic / ASPP /
+    ConvNeXt blocks on each backend, ``drop`` image / pc (on the BEV grid
+    and the sparse voxels), ``final_fusetype`` cat / catadd, ``addorg``,
+    ``stg2_useproj=False``: exact launch counts and each against its CPU
+    run (``num_top_down`` = 3 is refused, as JAX's FPNs fail there);
+19. [ode-lib] QKVAttention and BeltramiODE on the stage-2 image tokens
+    [32, 256, 256] (and with repeated tokens: top-k ties), the top-k tie
+    order, ``odeint_adjoint``'s gradients against direct backprop,
+    ``sdeint_euler`` at sigma = 0 against Euler, ``cdeint`` euler / rk4:
+    card against CPU;
+20. [sync-free] ``quantize``, ``sort_by_key``, ``downsample_coords``,
+    ``build_neighbor_table`` and a dopri5 FCODE under
+    ``torch.cuda.set_sync_debug_mode("error")``; ``quantize`` equals the
+    host voxelizer;
+21. [train-sparse] ``train()`` at 16 x (2 + 10), fp32, 2 steps on the
+    sparse backend with rk4: finite losses, parameters moved, no kernel
+    launched by the steps, step wall time, peak device memory.
+
 Every phase raises on failure.  The second-to-last line is the per-kernel
-JSON record (``launches`` summed over the twelve paths, split in
+JSON record (``launches`` summed over the fifteen paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the yardstick for part of the work
 where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
@@ -2508,6 +2538,522 @@ def phase_serve_cli(dev, tree, save_dir):
     shutil.rmtree(os.path.dirname(save_dir), ignore_errors=True)
 
 
+# ---- the MM's option tail: voxel backends, integrators, options ----------
+
+# [mm-backends] .. [mm-options] hold the card's run against the CPU run of
+# the same module on the first OPT_CPU_Q queries of the batch (eval mode is
+# per sample; the CPU runs the plain versions), at SLICE_TOL of the
+# embedding's scale, as [slice].  The backends against the card's bev MM
+# with the same weights: each layout sums its bf16 convs in another order
+# (the CPU tests hold the three to 2e-2 of the outputs' scale), BACKEND_TOL.
+OPT_CPU_Q = 2
+BACKEND_TOL = 5e-2
+OPT_BATCH = 8  # [mm-options]
+# [ode-lib]: fp32 on both devices, TF32 off: summation order only
+# (measured up to 6.3e-7 of scale on the H100).  BeltramiODE's kNN graph:
+# a neighbour within rounding of the k-th similarity can swap places,
+# moving that token's row, and a repeated token's similarities to itself
+# and to its copy are two GEMM sums that need not round alike; at most
+# BELTRAMI_ROWS of the rows may be off by more than ODE_LIB_TOL (measured
+# 0.27 % of the rows for distinct tokens, 0.81 % for repeated ones).
+ODE_LIB_TOL = 1e-4
+BELTRAMI_ROWS = 5e-2
+OPTION_VARIANTS = (
+    ("bev ntd1 basic", dict(voxfe_ntd=1, voxfe_block="basic")),
+    ("bev ntd2 aspp", dict(voxfe_ntd=2, voxfe_block="aspp")),
+    ("bev convnext", dict(voxfe_block="convnext")),
+    ("dense ntd1 basic", dict(voxfe_backend="dense", voxfe_ntd=1,
+                              voxfe_block="basic")),
+    ("dense ntd2 aspp", dict(voxfe_backend="dense", voxfe_ntd=2,
+                             voxfe_block="aspp")),
+    ("dense convnext", dict(voxfe_backend="dense", voxfe_block="convnext")),
+    ("sparse ntd1 basic", dict(voxfe_backend="sparse", voxfe_ntd=1,
+                               voxfe_block="basic")),
+    ("sparse ntd2 aspp", dict(voxfe_backend="sparse", voxfe_ntd=2,
+                              voxfe_block="aspp")),
+    ("sparse convnext", dict(voxfe_backend="sparse",
+                             voxfe_block="convnext")),
+    ("drop image", dict(drop="image")),
+    ("drop pc", dict(drop="pc")),
+    ("drop pc sparse", dict(voxfe_backend="sparse", drop="pc")),
+    ("final cat", dict(final_fusetype="cat")),
+    ("final catadd", dict(final_fusetype="catadd",
+                          final_type=("shalloworg", "stg2vox"))),
+    ("addorg", dict(output_type=("image", "vox", "addorg"))),
+    ("stg2 no proj", dict(stg2_useproj=False)),
+)
+
+
+def option_cfg(base, **over):
+    """``base`` with ``over`` on ``model.mm`` (``ode`` a dict of fields)."""
+    import dataclasses
+
+    mm_over = dict(over)
+    ode = mm_over.pop("ode", None)
+    if ode:
+        mm_over["ode"] = dataclasses.replace(base.model.mm.ode, **ode)
+    return base.replace(model=dataclasses.replace(
+        base.model, mm=dataclasses.replace(base.model.mm, **mm_over)))
+
+
+def build_mm(cfg, dev, seed=0, state=None):
+    """``cfg``'s MM in eval mode, seeded weights and non-trivial BN
+    statistics (or ``state``), as ``build_towers`` places it: (card copy,
+    CPU copy)."""
+    from agplace_tpu_torch.infer import compute_dtype, init_weights
+    from agplace_tpu_torch.models.mm import MM
+
+    mm = MM(cfg.model.mm, dtype=compute_dtype(cfg))
+    if state is None:
+        init_weights(mm, torch.Generator().manual_seed(seed))
+        seed_bn(mm, np.random.default_rng(seed))
+    else:
+        mm.load_state_dict(state)
+    mm.eval()
+    cpu = copy.deepcopy(mm)
+    mm.to(dev)
+    for p in mm.parameters():
+        if p.ndim == 4:
+            p.data = p.data.contiguous(memory_format=torch.channels_last)
+    return mm, cpu
+
+
+def sparse_state(grid_state):
+    """The bev / dense weights in the sparse backend's layout: [k,k,k,cin,
+    cout] kernels as [k^3, cin, cout], 1x1 as [cin, cout], the transposed
+    convs' taps flipped (JAX's dense one reads tap 1 - a where its sparse
+    one reads tap a)."""
+    out = {}
+    for k, t in grid_state.items():
+        if k.endswith("kernel") and t.ndim == 5:
+            if ".tconv" in k:
+                t = t.flip(0, 1, 2)
+            t = t.reshape(-1, *t.shape[3:])
+            if t.shape[0] == 1:
+                t = t[0]
+        out[k] = t
+    return out
+
+
+def expected_mm(cfg, n):
+    """K1..K6 launches of ``n`` eval forwards of ``cfg``'s MM (default
+    stem and head): K1 per FCODE where JAX's gate is open (uniform Euler,
+    ``use_pallas``); on the bev backend K2 once at stage 0 and K3 per ECA
+    block of the FPN plus stage 2's voxel refine; nothing else."""
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.ode.integrators import fixed_steps
+
+    m, o = cfg.model.mm, cfg.model.mm.ode
+    uniform = abs(fixed_steps(o.step_size) * o.step_size - 1.0) < 1e-9
+    k1 = (len(m.imgfe_planes) * len(o.diff_type.split("_"))
+          if "shallow" in m.output_type and o.use_pallas
+          and o.method == "euler" and uniform else 0)
+    bev = m.voxfe_backend == "bev"
+    k3 = ((sum(m.voxfe_layers) if m.voxfe_block == "eca" else 0)
+          + m.stg2nlayers) if bev else 0
+    want = dict.fromkeys(ops.launches(), 0)
+    want.update(fused_euler_ode=n * k1, fused_conv0_down0=n * int(bev),
+                fused_eca_block_sm=n * k3)
+    return want
+
+
+def counted_forward(label, cfg, mm, images, vox):
+    """One eval forward on the card with the launch counts reset just
+    before and read just after; they must equal ``expected_mm``."""
+    from agplace_tpu_torch import ops
+
+    with torch.inference_mode():
+        ops.reset_launches()  # ---- the path: one MM forward
+        out = mm(images, vox)
+        torch.cuda.synchronize()
+        counts = ops.launches()  # ---- read just after the path
+    want = expected_mm(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"[{label}] launch counts {counts} != {want}")
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError(f"[{label}] non-finite outputs")
+    return out, counts
+
+
+def against_cpu(label, cfg, gpu_out, cpu_mm, images, points,
+                keys=("embedding",)):
+    """The card's outputs for the first OPT_CPU_Q queries against the CPU
+    run of the same module on those queries."""
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+
+    q = OPT_CPU_Q
+    with torch.inference_mode():
+        cpu = cpu_mm(torch.from_numpy(images[:q]),
+                     prepare_query_vox(cfg, points[:q], "cpu"))
+    worst = 0.0
+    for k in keys:
+        g, c = gpu_out[k][:q].float().cpu(), cpu[k].float()
+        if g.shape != c.shape:
+            raise AssertionError(f"[{label}] {k} {tuple(g.shape)} vs "
+                                 f"{tuple(c.shape)}")
+        worst = max(worst, float((g - c).abs().max() / c.abs().max()))
+    if worst > SLICE_TOL:
+        raise AssertionError(f"[{label}] card vs CPU {worst:.3g} of scale "
+                             f"> {SLICE_TOL}")
+    return worst
+
+
+def mm_inputs(seed, n, cfg):
+    """``n`` query images and LiDAR-like clouds, cropped to the grid extent
+    (the condition of JAX's backend-equivalence tests)."""
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(np.float32)
+    points = lidar(rng, n)
+    half = np.array(cfg.model.mm.vox_grid_extent) // 2 * cfg.data.quant_size
+    inside = np.all((points >= -half) & (points < half), axis=-1)
+    return images, np.where(inside[..., None], points, np.nan), float(
+        1 - inside.mean())
+
+
+def phase_mm_backends(cfg, dev, name):
+    """[mm-backends]: the MM at b32 on the dense and sparse backends
+    beside bev (one set of weights; sparse's reshaped), on clouds cropped
+    to the extent: exact launch counts, each against its CPU run and
+    against the card's bev MM, and the ms per forward (CUDA events, median
+    of 20) and peak memory of each."""
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+
+    images, points, cut = mm_inputs(21, 32, cfg)
+    bev, bev_cpu = build_mm(cfg, dev)
+    state = bev_cpu.state_dict()
+    img = torch.from_numpy(images).to(dev)
+    outs, counts, rec = {}, {}, {}
+    for backend in ("bev", "dense", "sparse"):
+        c = option_cfg(cfg, voxfe_backend=backend)
+        if backend == "bev":
+            mm, cpu_mm = bev, bev_cpu
+        else:
+            mm, cpu_mm = build_mm(c, dev, state=sparse_state(state)
+                                  if backend == "sparse" else state)
+        vox = prepare_query_vox(c, points, dev)
+        outs[backend], counts[backend] = counted_forward(
+            f"mm-backends {backend}", c, mm, img, vox)
+        err = against_cpu(f"mm-backends {backend}", c, outs[backend],
+                          cpu_mm, images, points)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: mm(img, vox), warmup=2, iters=20)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        rec[backend] = {"ms": ms, "peak_gib": peak, "cpu_err": err}
+        del mm, cpu_mm
+    for backend in ("dense", "sparse"):
+        e = outs[backend]["embedding"].float()
+        b = outs["bev"]["embedding"].float()
+        rec[backend]["vs_bev"] = float((e - b).abs().max() / b.abs().max())
+        if rec[backend]["vs_bev"] > BACKEND_TOL:
+            raise AssertionError(f"[mm-backends] {backend} vs bev "
+                                 f"{rec[backend]['vs_bev']:.3g} of scale")
+    log(f"[mm-backends] b32, bf16, KITTI-360 widths, {cut:.4%} of the "
+        f"points outside the extent (dropped): " + json.dumps(
+            {k: {x: round(y, 6) for x, y in v.items()}
+             for k, v in rec.items()}) + f" ({name}); launches "
+        + json.dumps(counts))
+    total = dict.fromkeys(counts["bev"], 0)
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] += v
+    return total
+
+
+def phase_mm_ode(cfg, dev, name):
+    """[mm-ode]: the MM at b32 with midpoint, rk4 and dopri5 beside Euler
+    (K1): K1 launches 0 times; each against its CPU run; dopri5's accepted
+    steps per FCODE on the card equal the CPU's on the same batch (its
+    error estimate is a mean over the whole batch, so both run the same
+    OPT_CPU_Q queries)."""
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.models.fusion import FCODE
+
+    images, points, _ = mm_inputs(22, 32, cfg)
+    img = torch.from_numpy(images).to(dev)
+    vox = prepare_query_vox(cfg, points, dev)
+    total, rec = None, {}
+    for method in ("euler", "midpoint", "rk4", "dopri5"):
+        c = option_cfg(cfg, ode={"method": method})
+        mm, cpu_mm = build_mm(c, dev)
+        out, counts = counted_forward(f"mm-ode {method}", c, mm, img, vox)
+        if method != "euler":
+            total = counts if total is None else {
+                k: total[k] + v for k, v in counts.items()}
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: mm(img, vox), warmup=2, iters=20)
+        rec[method] = {"ms": ms}
+        if method == "euler":
+            continue
+        q = OPT_CPU_Q
+        with torch.inference_mode():
+            small = mm(img[:q], prepare_query_vox(c, points[:q], dev))
+        rec[method]["cpu_err"] = against_cpu(f"mm-ode {method}", c, small,
+                                             cpu_mm, images, points)
+        if method == "dopri5":
+            steps = [[int(f.accepted_steps) for f in m.modules()
+                      if isinstance(f, FCODE)] for m in (mm, cpu_mm)]
+            rec[method]["accepted_steps_card_cpu"] = steps
+            if steps[0] != steps[1]:
+                raise AssertionError(f"[mm-ode] dopri5 accepted steps "
+                                     f"{steps[0]} on the card, {steps[1]} "
+                                     f"on the CPU")
+        del mm, cpu_mm
+    log(f"[mm-ode] b32 ms per forward and card vs CPU ({name}): "
+        + json.dumps(rec))
+    return total
+
+
+def phase_mm_options(cfg, dev):
+    """[mm-options]: each option of OPTION_VARIANTS at b8, exact launch
+    counts, against its CPU run."""
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+
+    images, points, _ = mm_inputs(23, OPT_BATCH, cfg)
+    img = torch.from_numpy(images).to(dev)
+    total, rec = None, {}
+    for label, over in OPTION_VARIANTS:
+        c = option_cfg(cfg, **over)
+        mm, cpu_mm = build_mm(c, dev)
+        out, counts = counted_forward(f"mm-options {label}", c, mm, img,
+                                      prepare_query_vox(c, points, dev))
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+        rec[label] = {"cpu_err": round(against_cpu(
+            f"mm-options {label}", c, out, cpu_mm, images, points), 6),
+            "dim": out["embedding"].shape[-1],
+            "k1_k2_k3": [counts[k] for k in ("fused_euler_ode",
+                                             "fused_conv0_down0",
+                                             "fused_eca_block_sm")]}
+        del mm, cpu_mm
+    log("[mm-options] b8: " + json.dumps(rec))
+    return total
+
+
+def phase_ode_lib(cfg, dev, mm):
+    """[ode-lib]: QKVAttention and BeltramiODE on the stage-2 image map's
+    tokens of the default MM ([32, 256, 256], fp32), a Beltrami case with
+    repeated tokens (ties in its top-k), the top-k's tie order, the
+    adjoint's gradients against direct backprop, sdeint_euler with sigma =
+    0 against Euler, cdeint (euler and rk4): each against the CPU."""
+    from agplace_tpu_torch.config import ODEConfig
+    from agplace_tpu_torch.infer import init_weights
+    from agplace_tpu_torch.models.fusion import (BeltramiODE, QKVAttention,
+                                                 topk_lowest_index)
+    from agplace_tpu_torch.ode import integrators, sde
+
+    rng = np.random.default_rng(24)
+    images = rng.standard_normal((32, IMAGE, IMAGE, 3)).astype(np.float32)
+    with torch.inference_mode():
+        fmap, _ = mm.image_fe(torch.from_numpy(images).to(dev))
+    tokens = fmap.float().reshape(32, -1, fmap.shape[-1]).clone()
+    rec = {}
+
+    def both(label, fn, fn_cpu, *args, rows=False):
+        """``fn`` on the card against ``fn_cpu`` on the CPU; ``rows``: the
+        share of output rows off by more than ODE_LIB_TOL of the scale
+        (BeltramiODE: a neighbour within rounding of the k-th similarity
+        can swap places) must stay within BELTRAMI_ROWS."""
+        with torch.no_grad():
+            g = fn(*[a.to(dev) for a in args]).cpu()
+            c = fn_cpu(*[a.cpu() for a in args])
+        diff = (g - c).abs() / c.abs().max()
+        rec[label] = float(diff.max())
+        bad = float((diff.amax(dim=-1) > ODE_LIB_TOL).float().mean())
+        if rows:
+            rec[label + " rows off"] = bad
+        if (bad > (BELTRAMI_ROWS if rows else 0.0)
+                or not bool(torch.isfinite(g).all())):
+            raise AssertionError(f"[ode-lib] {label}: {rec}")
+
+    gen = torch.Generator().manual_seed(24)
+    qkv = QKVAttention(256)
+    bel = BeltramiODE(256, k=16, ode=ODEConfig())
+    for mod in (qkv, bel):
+        init_weights(mod, gen)
+    qkv_cpu, bel_cpu = copy.deepcopy(qkv), copy.deepcopy(bel)
+    qkv.to(dev)
+    bel.to(dev)
+    both("qkv [32,256,256]", qkv, qkv_cpu, tokens)
+    both("beltrami [32,256,256]", bel, bel_cpu, tokens, rows=True)
+    dup = tokens.clone()
+    half = dup.shape[1] // 2
+    dup[:, half:2 * half] = dup[:, :half]  # every token twice: ties
+    both("beltrami ties", bel, bel_cpu, dup, rows=True)
+    ties = torch.from_numpy(rng.integers(0, 4, (64, 256)).astype(
+        np.float32))
+    _, i_gpu = topk_lowest_index(ties.to(dev), 16)
+    _, i_cpu = topk_lowest_index(ties, 16)
+    stable = torch.sort(-ties, dim=1, stable=True).indices[:, :16]
+    if not (torch.equal(i_gpu.cpu(), i_cpu) and torch.equal(i_cpu, stable)):
+        raise AssertionError("[ode-lib] top-k ties not lowest index first")
+
+    w0 = torch.from_numpy((rng.standard_normal((256, 256)) * 0.06).astype(
+        np.float32))
+    x0 = torch.from_numpy(rng.standard_normal((32, 256)).astype(np.float32))
+
+    def adjoint_grads(device):
+        w, x = (t.to(device).clone().requires_grad_(True)
+                for t in (w0, x0))
+        out = integrators.odeint_adjoint(
+            lambda p, t, y: torch.tanh(y @ p[0]), (w,), x, step_size=0.05,
+            method="rk4")
+        (out ** 2).sum().backward()
+        w2, x2 = (t.to(device).clone().requires_grad_(True)
+                  for t in (w0, x0))
+        out = integrators.odeint_fixed(lambda t, y: torch.tanh(y @ w2), x2,
+                                       step_size=0.05, method="rk4")
+        (out ** 2).sum().backward()
+        return [v.grad.cpu() for v in (w, x, w2, x2)]
+
+    g_dev, g_cpu = adjoint_grads(dev), adjoint_grads("cpu")
+    for i, what in enumerate(("adjoint gw", "adjoint gx", "direct gw",
+                              "direct gx")):
+        rec[f"{what} card vs cpu"] = float(
+            (g_dev[i] - g_cpu[i]).abs().max() / g_cpu[i].abs().max())
+    rec["adjoint vs direct gw"] = float(
+        (g_dev[0] - g_dev[2]).abs().max() / g_dev[2].abs().max())
+    if (max(v for k, v in rec.items() if "card vs cpu" in k) > ODE_LIB_TOL
+            or not torch.allclose(g_dev[0], g_dev[2], rtol=0.01, atol=1e-4)
+            or not torch.allclose(g_dev[1], g_dev[3], rtol=0.01,
+                                  atol=1e-4)):
+        raise AssertionError(f"[ode-lib] adjoint gradients {rec}")
+
+    mu = lambda y: torch.tanh(y @ w0.to(y.device))  # noqa: E731
+    x_dev = x0.to(dev)
+    det = sde.sdeint_euler(mu, lambda y: 0 * y, x_dev,
+                           torch.Generator(dev).manual_seed(0))
+    eul = integrators.odeint_fixed(lambda t, y: mu(y), x_dev, step_size=0.1)
+    rec["sdeint sigma=0 vs euler"] = float(
+        (det - eul).abs().max() / eul.abs().max())
+    if rec["sdeint sigma=0 vs euler"] > ODE_LIB_TOL:
+        raise AssertionError(f"[ode-lib] sdeint vs Euler {rec}")
+    wc = torch.from_numpy((rng.standard_normal((64, 64 * 4)) * 0.1).astype(
+        np.float32))
+    path = torch.from_numpy(np.cumsum(rng.standard_normal((32, 8, 4)),
+                                      axis=1).astype(np.float32))
+    z0 = torch.from_numpy(rng.standard_normal((32, 64)).astype(np.float32))
+    for method in ("euler", "rk4"):
+        def cde(z, p, m=method):
+            return sde.cdeint(lambda v: torch.tanh(v @ wc.to(v.device))
+                              .reshape(*v.shape[:-1], 64, 4), z, p, m)
+        both(f"cdeint {method}", cde, cde, z0, path)
+    log("[ode-lib] card vs CPU, fractions of scale: " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in rec.items()}))
+
+
+def phase_sync_free(dev):
+    """The device geometry and dopri5 queue their work without a host sync
+    (``set_sync_debug_mode("error")``): ``quantize`` of 32 LiDAR clouds,
+    ``sort_by_key``, ``downsample_coords``, ``build_neighbor_table`` and a
+    dopri5 FCODE forward; then ``quantize`` equals the host voxelizer."""
+    from agplace_tpu_torch.config import ODEConfig
+    from agplace_tpu_torch.data.voxels import batched_from_pointclouds
+    from agplace_tpu_torch.infer import init_weights
+    from agplace_tpu_torch.models.fusion import FCODE
+    from agplace_tpu_torch.sparse import voxels
+
+    rng = np.random.default_rng(25)
+    pts = lidar(rng, 32)
+    fc = FCODE(256, "relu", ODEConfig(method="dopri5"))
+    init_weights(fc, torch.Generator().manual_seed(0))
+    fc.to(dev)
+    pts_dev = torch.from_numpy(pts).to(dev)
+    x = torch.from_numpy(rng.standard_normal((32, 256)).astype(
+        np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sv = voxels.quantize(pts_dev, 2.0, 8192)
+        svs, keys = voxels.sort_by_key(sv)
+        oc, om = voxels.downsample_coords(svs, 2)
+        table = voxels.build_neighbor_table(
+            svs, keys, oc, om, voxels.kernel_offsets(2, 1, dev))
+        with torch.no_grad():
+            y = fc(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = batched_from_pointclouds(pts, 2.0, 8192)
+    same = all(torch.equal(getattr(sv, f).cpu(), getattr(host, f))
+               for f in ("coords", "mask"))
+    log(f"[sync-free] quantize, sort_by_key, downsample_coords, "
+        f"build_neighbor_table {tuple(table.shape)} and a dopri5 FCODE "
+        f"({int(fc.accepted_steps)} accepted steps) ran with no host sync; "
+        f"quantize equals the host voxelizer: {same} "
+        f"({int(sv.mask.sum())} voxels in 32 clouds)")
+    if not same or not bool(torch.isfinite(y).all()):
+        raise AssertionError("[sync-free] quantize differs from the host "
+                             "voxelizer, or the FCODE is not finite")
+
+
+def phase_train_sparse(dev):
+    """[train-sparse]: ``train()`` at the preset's batch (16 x (2 + 10),
+    fp32) for 2 steps on the sparse backend with rk4: finite losses,
+    parameters moved, no kernel launched by the steps (rk4 closes K1's
+    gate, the sparse backend runs no BEV kernel), the step wall time and
+    peak device memory."""
+    import shutil
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.train import loop
+
+    save_dir = runs_dir("chip_smoke_train_sparse")
+    cfg = train_cfg(queries_per_epoch=32, cache_refresh_rate=32,
+                    neg_samples_num=64, epochs_num=1,
+                    checkpoint_after_epoch=-1, save_dir=save_dir)
+    cfg = option_cfg(cfg, voxfe_backend="sparse", ode={"method": "rk4"})
+    train_ds = train_world(cfg, 64, 64, 2)
+    test_ds = train_world(cfg, 32, 16, 3)
+    rec = {"starts": []}
+    real = loop.make_train_step
+    before = {}
+
+    def make(c):
+        step = real(c)
+
+        def timed(state, batch):
+            if not before:
+                before.update({n: p.detach().clone() for n, p in
+                               state.mm.named_parameters()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.reset_launches()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            rec["starts"].append(time.perf_counter() - t0)
+            rec.setdefault("launches", []).append(ops.launches())
+            return out
+        return timed
+
+    loop.make_train_step = make
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = loop.train(cfg, train_ds, test_ds, device=dev)
+        t_train = time.perf_counter() - t0
+    finally:
+        loop.make_train_step = real
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["history"][0]["losses"]
+    moved = sum(not torch.equal(p, before[n])
+                for n, p in out["state"].mm.named_parameters())
+    zero = dict.fromkeys(ops.launches(), 0)
+    log(f"[train-sparse] train() in {t_train:.2f} s, {out['state'].step} "
+        f"steps of 16 x (2 + 10) on the sparse backend with rk4: step wall "
+        f"ms {[round(s * 1e3, 1) for s in rec['starts']]}, losses {losses}, "
+        f"{moved} of {len(before)} MM parameters moved, peak device memory "
+        f"{peak:.2f} GiB")
+    if (out["state"].step != 2 or not np.isfinite(losses).all()
+            or moved < len(before) // 2
+            or any(c != zero for c in rec["launches"])):
+        raise AssertionError(f"[train-sparse] steps {out['state'].step}, "
+                             f"losses {losses}, moved {moved}, launches "
+                             f"{rec['launches']}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+
 def main() -> None:
     import dataclasses
 
@@ -2587,6 +3133,13 @@ def main() -> None:
     counts_k, counts_kf, tree, save_dir = phase_data_kitti360(dev)
     counts_ns = phase_data_nuscenes(dev)
     phase_serve_cli(dev, tree, save_dir)
+    # ---- the MM's option tail: backends, integrators, options, training
+    counts_mb = phase_mm_backends(cfg, dev, name)
+    counts_mo = phase_mm_ode(cfg, dev, name)
+    counts_mx = phase_mm_options(cfg, dev)
+    phase_ode_lib(cfg, dev, mm)
+    phase_sync_free(dev)
+    phase_train_sparse(dev)
 
     sources = {
         "fused_euler_ode": ("agplace_tpu_torch/csrc/ode_step.cu",
@@ -2614,7 +3167,9 @@ def main() -> None:
                                   + counts_p[k] + counts_e[k] + counts_c[k]
                                   + counts_ef[k] + counts_ts[k]
                                   + counts_t[k] + counts_k[k]
-                                  + counts_kf[k] + counts_ns[k]),
+                                  + counts_kf[k] + counts_ns[k]
+                                  + counts_mb[k] + counts_mo[k]
+                                  + counts_mx[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
@@ -2627,7 +3182,10 @@ def main() -> None:
                                           "data_kitti360": counts_k[k],
                                           "data_kitti360_fused":
                                               counts_kf[k],
-                                          "data_nuscenes": counts_ns[k]},
+                                          "data_nuscenes": counts_ns[k],
+                                          "mm_backends": counts_mb[k],
+                                          "mm_ode": counts_mo[k],
+                                          "mm_options": counts_mx[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],

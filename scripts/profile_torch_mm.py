@@ -2,12 +2,15 @@
 """Device time of the PyTorch port's MM forward by kernel, on one NVIDIA GPU.
 
     python scripts/profile_torch_mm.py [--batches 32 128] [--forwards 5]
+        [--configs default fused dense sparse midpoint rk4 dopri5]
 
 Builds the MM query tower of ``kitti360_config()`` in bf16 at full width
 (seeded random weights with non-trivial BN statistics, LiDAR-like clouds as
-``chip_smoke.py`` makes them) in two configurations: the default one and
-the fused-stem / fused-head one (``bev_pallas_head`` and ``stem_pallas``
-set).  For each configuration and batch it profiles ``--forwards`` forwards
+``chip_smoke.py`` makes them) in each configuration of ``--configs``
+(default: the default one and the fused-stem / fused-head one,
+``bev_pallas_head`` and ``stem_pallas`` set; ``dense`` / ``sparse``: that
+voxel backend; ``midpoint`` / ``rk4`` / ``dopri5``: that integrator).
+For each configuration and batch it profiles ``--forwards`` forwards
 after warm-up with ``torch.profiler`` and prints the device ms per forward
 of every hand-written kernel (by template: ``conv3x3_sm90_kernel<EPI>`` is
 K3's conv1 for ``<0>`` and conv2 + pool for ``<1>``;
@@ -46,10 +49,25 @@ _CLASSES = (
     ("max-pools", ("max_pool",)),
     ("cuDNN / cuBLAS convs and GEMMs", ("cudnn", "xmma", "cutlass", "gemm",
                                         "conv", "sm90_", "implicit")),
+    ("sorts / scatters / gathers", ("sort", "scatter", "gather",
+                                    "indexselect", "index_select", "radix",
+                                    "cub::")),
     ("elementwise / copies", ("elementwise", "copy", "memcpy", "memset",
                               "fill", "cat", "index")),
     ("reductions", ("reduce",)),
 )
+
+
+# --configs: overrides of kitti360_config().model.mm
+CONFIGS = {
+    "default": {},
+    "fused": {"bev_pallas_head": True, "stem_pallas": True},
+    "dense": {"voxfe_backend": "dense"},
+    "sparse": {"voxfe_backend": "sparse"},
+    "midpoint": {"ode": {"method": "midpoint"}},
+    "rk4": {"ode": {"method": "rk4"}},
+    "dopri5": {"ode": {"method": "dopri5"}},
+}
 
 
 def classify(name: str) -> str:
@@ -88,6 +106,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[32, 128])
     ap.add_argument("--forwards", type=int, default=5)
+    ap.add_argument("--configs", nargs="+", default=["default", "fused"],
+                    choices=sorted(CONFIGS))
     args = ap.parse_args()
 
     from agplace_tpu_torch import kitti360_config
@@ -103,24 +123,27 @@ def main() -> None:
     cfg = kitti360_config()
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 compute_dtype="bfloat16"))
-    mc = dataclasses.replace(cfg.model.mm, bev_pallas_head=True,
-                             stem_pallas=True)
-    configs = {"default": cfg,
-               "fused": cfg.replace(model=dataclasses.replace(cfg.model,
-                                                              mm=mc))}
-    models = {}
-    for label, c in configs.items():
+    configs, models = {}, {}
+    for label in args.configs:
+        over = dict(CONFIGS[label])
+        if "ode" in over:
+            over["ode"] = dataclasses.replace(cfg.model.mm.ode,
+                                              **over["ode"])
+        c = cfg.replace(model=dataclasses.replace(
+            cfg.model, mm=dataclasses.replace(cfg.model.mm, **over)))
         mm, _ = build_towers(c, "cpu", torch.Generator().manual_seed(0))
         seed_bn(mm, np.random.default_rng(0))
-        models[label] = mm.to(dev)
+        configs[label], models[label] = c, mm.to(dev)
 
     rng = np.random.default_rng(5)
     n = args.forwards
     for bsz in args.batches:
         images = torch.from_numpy(rng.standard_normal(
             (bsz, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
-        vox = prepare_query_vox(cfg, lidar(rng, bsz), dev)
+        points = lidar(rng, bsz)
         for label, mm in models.items():
+            vox = prepare_query_vox(configs[label], points, dev)
+
             def forwards():
                 for _ in range(n):
                     mm(images, vox)

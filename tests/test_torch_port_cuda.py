@@ -9,6 +9,7 @@ widths: K3's conv phases take Zcin in multiples of 64 and Zcout of 128, the
 other kernels multiples of 32).
 """
 
+import copy
 import dataclasses
 
 import pytest
@@ -1010,3 +1011,77 @@ def test_int8_search_on_card_equals_cpu(cuda, nq, n, c):
         d_cpu, i_cpu = cpu.search_descriptors(q, k)
         np.testing.assert_array_equal(i, i_cpu)
         np.testing.assert_array_equal(d, d_cpu)
+
+
+# ---- the MM's option tail: no new kernel, the card against the CPU ------
+@pytest.mark.cuda
+def test_device_geometry_on_card_is_sync_free_and_equals_cpu(cuda):
+    """``quantize`` .. ``build_neighbor_table`` queue no host sync on the
+    card, and their integer outputs equal the CPU's."""
+    from agplace_tpu_torch.sparse import voxels
+
+    g = _gen()
+    pts = (torch.rand(4, 3000, 3, generator=g) - 0.5) * 200.0
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = pts.to(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            sv = voxels.quantize(p, 2.0, 1024)
+            svs, keys = voxels.sort_by_key(sv)
+            oc, om = voxels.downsample_coords(svs, 2)
+            table = voxels.build_neighbor_table(
+                svs, keys, oc, om, voxels.kernel_offsets(2, 1, dev))
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        outs.append([t.cpu() for t in (sv.coords, sv.mask, keys, oc, om,
+                                       table)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(voxfe_backend="dense", voxfe_ntd=1, voxfe_block="basic"),
+    dict(voxfe_backend="sparse", voxfe_block="aspp"),
+    dict(voxfe_ntd=2, voxfe_block="convnext", drop="pc"),
+    dict(ode=dict(method="dopri5"), final_fusetype="cat")])
+def test_option_tail_mm_on_card_matches_cpu(cuda, over):
+    """The MM of a small preset with an option of the tail: the card's
+    embedding within the smoke's SLICE_TOL of the CPU's, no BEV kernel on
+    the dense and sparse backends, dopri5's accepted steps equal."""
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.infer import build_towers
+    from agplace_tpu_torch.models.fusion import FCODE
+
+    cfg = synthetic_config(image_size=64, vox_max_points=512)
+    over = dict(over)
+    if "ode" in over:
+        over["ode"] = dataclasses.replace(cfg.model.mm.ode, **over["ode"])
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16",
+        mm=dataclasses.replace(cfg.model.mm, **over)))
+    mm, _ = build_towers(cfg, "cpu", _gen())
+    cpu_mm = copy.deepcopy(mm)
+    mm.to(cuda)
+    g = _gen()
+    img = torch.randn(2, 64, 64, 3, generator=g)
+    pts = ((torch.rand(2, 2000, 3, generator=g) - 0.5) * 40.0).numpy()
+    with torch.inference_mode():
+        ops.reset_launches()
+        got = mm(img.to(cuda), prepare_query_vox(cfg, pts, cuda))
+        torch.cuda.synchronize()
+        counts = ops.launches()
+        want = cpu_mm(img, prepare_query_vox(cfg, pts, "cpu"))
+    e, w = got["embedding"].float().cpu(), want["embedding"]
+    assert float((e - w).abs().max()) <= 5e-2 * float(w.abs().max())
+    if cfg.model.mm.voxfe_backend != "bev":
+        assert counts["fused_conv0_down0"] == counts[
+            "fused_eca_block_sm"] == 0
+    steps = [[int(f.accepted_steps) for f in m.modules()
+              if isinstance(f, FCODE) and f.accepted_steps is not None]
+             for m in (mm, cpu_mm)]
+    assert steps[0] == steps[1]

@@ -51,6 +51,10 @@ def test_the_scan_sees_the_port():
                  "data/transforms.py", "data/kitti360.py",
                  "data/nuscenes.py", "data/validate.py"):
         assert f"agplace_tpu_torch/{path}" in PORT_FILES
+    for path in ("ode/integrators.py", "ode/sde.py", "sparse/voxels.py",
+                 "sparse/modules.py", "sparse/minkfpn.py",
+                 "sparse/dense_grid.py"):
+        assert f"agplace_tpu_torch/{path}" in PORT_FILES
     assert "scripts/write_torch_trees.py" in PORT_FILES
     assert not any(p.startswith("agplace_tpu/") for p in PORT_FILES)
 
