@@ -1,10 +1,14 @@
-"""Inference entry: build both towers from ``Config`` and return the
-descriptor closures (``agplace_tpu/models/factory.py`` +
+"""Inference entry: build both towers from ``Config`` through the factory
+and return the descriptor closures (``agplace_tpu/models/factory.py`` +
 ``train/step.py:make_infer_fns``).
 
     mm, db = build_towers(cfg, generator=torch.Generator())  # on the card
     embed_queries, embed_db = make_infer_fns(mm, db)
     q = embed_queries(images, prepare_query_vox(cfg, points))
+
+The query tower is named ``mm`` whatever its family (JAX's checkpoint
+key); under ``share_qdb`` there is no aerial tower (``db`` is None) and
+``embed_db`` runs the query tower over the maps.
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ from torch import nn
 
 from agplace_tpu_torch.config import Config
 from agplace_tpu_torch.device import resolve_device
-from agplace_tpu_torch.models.dbvanilla2d import DBVanilla2D
-from agplace_tpu_torch.models.mm import MM
+from agplace_tpu_torch.models.factory import (make_db_model,
+                                              make_query_model, query_apply,
+                                              shared_db_apply, tower_width)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -31,10 +36,17 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     dense weights lecun-normal (std 1/sqrt(fan_in)), voxel conv kernels
     ([k,k,k,cin,cout], sparse [K,cin,cout]) kaiming-normal (std
     sqrt(2/fan_in)), norms ones/zeros, GeM p = 3.
-    Running statistics keep their defaults (mean 0, var 1)."""
+    Running statistics keep their defaults (mean 0, var 1).  A module's
+    ``init_std`` {leaf: std} overrides these (flax's own initialisers of
+    attention kernels, positional embeddings, NetVLAD's clusters)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+            owner, leaf = name.rpartition(".")[::2]
+            std = getattr(module.get_submodule(owner) if owner else module,
+                          "init_std", {}).get(leaf)
+            if std is not None:
+                p.copy_(torch.randn(p.shape, generator=generator) * std)
+                continue
             if leaf == "p":
                 p.fill_(3.0)
                 continue
@@ -58,21 +70,26 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 def build_towers(cfg: Config, device="cuda",
                  generator: Optional[torch.Generator] = None
-                 ) -> Tuple[MM, DBVanilla2D]:
-    """The MM query tower and the DBVanilla2D aerial tower, in eval mode on
-    ``device`` (the card; ``"cpu"`` runs the plain versions, and without a
-    card anything else raises); weights are seeded from ``generator`` when
-    given (load real weights with ``utils.convert.load_jax_variables``)."""
+                 ) -> Tuple[nn.Module, Optional[nn.Module]]:
+    """The query tower (``--modelq``) and the aerial tower (``--modeldb``;
+    None under ``share_qdb``) in eval mode on ``device`` (the card;
+    ``"cpu"`` runs the plain versions, and without a card anything else
+    raises); weights are seeded from ``generator`` when given (load real
+    weights with ``utils.convert.load_jax_variables``)."""
     device = resolve_device(device)
-    if cfg.model.modelq != "mm" or cfg.model.db.modeldb != "vanilla2d":
-        raise NotImplementedError("the port serves modelq='mm' with "
-                                  "modeldb='vanilla2d'")
     dt = compute_dtype(cfg)
-    mm = MM(cfg.model.mm, dtype=dt)
-    db = DBVanilla2D(cfg.model.db, dim=cfg.model.features_dim,
-                     nmap=cfg.data.nmap, output_l2=cfg.model.mm.output_l2,
-                     final_l2=cfg.model.mm.final_l2, dtype=dt)
+    mm = make_query_model(cfg, dt)
+    db = None if cfg.model.share_qdb else make_db_model(cfg, dt)
+    wq, wd = tower_width(mm), tower_width(db)
+    if db is not None and None not in (wq, wd) and wq != wd:
+        raise NotImplementedError(
+            f"modelq={cfg.model.modelq!r} gives {wq}-wide descriptors and "
+            f"modeldb={cfg.model.db.modeldb!r} {wd}-wide ones: JAX's train "
+            f"step concatenates them and fails with a TypeError, and no "
+            f"search can compare them")
     for tower in (mm, db):
+        if tower is None:
+            continue
         if generator is not None:
             init_weights(tower, generator)
         tower.to(device).eval()
@@ -82,18 +99,20 @@ def build_towers(cfg: Config, device="cuda",
     return mm, db
 
 
-def make_infer_fns(mm: MM, db: DBVanilla2D
+def make_infer_fns(mm: nn.Module, db: Optional[nn.Module]
                    ) -> Tuple[Callable, Callable]:
-    """(embed_queries(images [B,H,W,3], vox BEVGrid) -> [B, C],
+    """(embed_queries(images [B,H,W,3], vox) -> [B, C],
     embed_db(db_map [B,NMAP,H,W,3]) -> [B, C]), both under
-    ``torch.inference_mode()``."""
+    ``torch.inference_mode()``; with ``db`` None the query tower embeds
+    the maps (``share_qdb``)."""
 
     def embed_queries(images: torch.Tensor, vox) -> torch.Tensor:
         with torch.inference_mode():
-            return mm(images, vox)["embedding"]
+            return query_apply(mm, images, vox)["embedding"]
 
     def embed_db(db_map: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return db(db_map)
+            return db(db_map) if db is not None else shared_db_apply(
+                mm, db_map)
 
     return embed_queries, embed_db

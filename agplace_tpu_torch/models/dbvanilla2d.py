@@ -33,7 +33,7 @@ class DBVanilla2D(nn.Module):
                  output_l2: bool = True, final_l2: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.nmap = nmap
+        self.nmap, self.out_dim = nmap, dim
         self.share = config.share_dbfe
         self.output_l2, self.final_l2 = output_l2, final_l2
         last = ImageFE.last_dim(config.image_fe, config.image_fe_layers)

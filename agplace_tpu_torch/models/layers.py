@@ -20,8 +20,8 @@ from torch import nn
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, stride: int = 1,
-                padding=0, dtype: Optional[torch.dtype] = None
-                ) -> torch.Tensor:
+                padding=0, dtype: Optional[torch.dtype] = None,
+                groups: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight, computed in ``dtype`` (default: the
     input's).  bf16 on the CPU runs as an fp32 conv of the bf16-rounded
     operands, rounded once to bf16 — the XLA CPU semantics the reference
@@ -30,9 +30,10 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
     xc = x.to(dt).permute(0, 3, 1, 2)
     w = weight.to(dt)
     if dt == torch.bfloat16 and x.device.type == "cpu":
-        y = F.conv2d(xc.float(), w.float(), None, stride, padding).to(dt)
+        y = F.conv2d(xc.float(), w.float(), None, stride, padding, 1,
+                     groups).to(dt)
     else:
-        y = F.conv2d(xc, w, None, stride, padding)
+        y = F.conv2d(xc, w, None, stride, padding, 1, groups)
     y = y.permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.to(dt)
@@ -40,33 +41,39 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv`` (NHWC in and out); ``weight`` is OIHW."""
+    """flax ``nn.Conv`` (NHWC in and out); ``weight`` is OIHW.  ``dtype``
+    None is flax's ``dtype=None``: the input's and the kernel's common
+    type.  ``groups`` is flax's ``feature_group_count``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding: int = 0, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: Optional[torch.dtype] = torch.float32,
+                 groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.groups = groups
 
     def forward(self, x):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return conv2d_nhwc(x, self.weight, self.bias, self.stride,
-                           self.padding, self.dtype)
+                           self.padding, dt, self.groups)
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight`` is [out, in]; input and parameters are
     promoted to their common dtype."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):
@@ -79,6 +86,20 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
                             self.bias.to(x.dtype), self.eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def max_pool_nhwc(x: torch.Tensor, k: int, stride: int, padding: int = 0,
+                  ceil_mode: bool = False) -> torch.Tensor:
+    """flax ``nn.max_pool`` on NHWC (padding with -inf; ``ceil_mode`` as
+    torch's, the squeezenet trunks' partial last windows)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding,
+                     ceil_mode=ceil_mode)
+    return y.permute(0, 2, 3, 1)
 
 
 def l2n(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

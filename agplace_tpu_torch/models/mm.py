@@ -78,6 +78,17 @@ class MM(nn.Module):
         self.use_vox = "vox" in cfg.output_type
         self.use_shallow = "shallow" in cfg.output_type
         self.use_addorg = "addorg" in cfg.output_type
+        img_dims = ImageFE.map_dims(cfg.imgfe, cfg.imgfe_layers)
+        if img_dims[-1] != cfg.stg2fuse_dim and (
+                "shallow" in cfg.output_type
+                or ("imageorg" in cfg.final_type
+                    and cfg.final_fusetype != "cat")):
+            raise NotImplementedError(
+                f"mm.imgfe={cfg.imgfe!r} ends at {img_dims[-1]} channels: "
+                f"JAX's MM adds the last image vector to the "
+                f"{cfg.stg2fuse_dim}-wide fusion sum with no projection "
+                f"(agplace_tpu/models/fusion.py:136-146, and the final "
+                f"sum) and fails with a TypeError")
         self.image_fe = ImageFE(cfg.imgfe, cfg.imgfe_layers, dtype,
                                 use_pallas_stem=cfg.stem_pallas)
         self.image_pool = GeM()
@@ -100,13 +111,20 @@ class MM(nn.Module):
                 self.vox_pool = modules.MinkGeM()
         if self.use_shallow:
             n = len(cfg.imgfe_planes)
+            if len(img_dims) != n or (self.use_vox
+                                      and len(cfg.voxfe_planes) != n):
+                raise NotImplementedError(
+                    f"the stage-1 fusion walks {n} scales (imgfe_planes) "
+                    f"over {len(img_dims)} image maps and "
+                    f"{len(cfg.voxfe_planes)} voxel maps: JAX's "
+                    f"FuseBlockToShallow fails unless all agree")
             # the FPN's maps from n - 1 - ntd on carry its out_channels
             vp, ntd = cfg.voxfe_planes, cfg.voxfe_ntd
             vox_dims = tuple(vp[-1] if i >= len(vp) - 1 - ntd else c
                              for i, c in enumerate(vp))
             self.fuseblocktoshallow = FuseBlockToShallow(
                 dims=tuple(cfg.stg2fuse_dim for _ in range(n)),
-                img_dims=cfg.imgfe_planes,
+                img_dims=img_dims,
                 vox_dims=vox_dims if self.use_vox else None,
                 ode=cfg.ode)
         self.stg2fuseblock = Stage2FuseBlockAdd(

@@ -1,4 +1,5 @@
-"""ResNet trunk (``agplace_tpu/models/resnet.py:28-169``), NHWC.
+"""ResNet trunks (``agplace_tpu/models/resnet.py:28-174``), NHWC: resnet18 /
+34 of basic blocks, resnet50 / 101 of bottlenecks (expansion 4).
 
 Module and parameter names follow the flax tree (``conv1``, ``bn1``,
 ``layer{s}_{b}``, ``downsample_conv``/``downsample_bn``) so the weight
@@ -15,14 +16,11 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from agplace_tpu_torch.models.layers import Conv2d
+from agplace_tpu_torch.models.layers import Conv2d, max_pool_nhwc
 from agplace_tpu_torch.models.norm import BatchNorm2D
 from agplace_tpu_torch.ops import stem_pool
-
-_BASIC_STAGES = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
 
 class BasicBlock(nn.Module):
@@ -47,6 +45,45 @@ class BasicBlock(nn.Module):
         return torch.relu(out + idn)
 
 
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (the stride) -> 1x1 to ``planes * 4``, each with BN."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int, downsample: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        cout = planes * self.expansion
+        self.conv1 = Conv2d(cin, planes, 1, 1, 0, False, dtype)
+        self.bn1 = BatchNorm2D(planes)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, False, dtype)
+        self.bn2 = BatchNorm2D(planes)
+        self.conv3 = Conv2d(planes, cout, 1, 1, 0, False, dtype)
+        self.bn3 = BatchNorm2D(cout)
+        if downsample:
+            self.downsample_conv = Conv2d(cin, cout, 1, stride, 0, False,
+                                          dtype)
+            self.downsample_bn = BatchNorm2D(cout)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        idn = (self.downsample_bn(self.downsample_conv(x))
+               if self.downsample else x)
+        return torch.relu(out + idn)
+
+
+# arch -> (block, blocks per stage, expansion)
+RESNET_SPECS = {
+    "resnet18": (BasicBlock, (2, 2, 2, 2), 1),
+    "resnet34": (BasicBlock, (3, 4, 6, 3), 1),
+    "resnet50": (Bottleneck, (3, 4, 6, 3), 4),
+    "resnet101": (Bottleneck, (3, 4, 23, 3), 4),
+}
+
+
 class ResNetFeatures(nn.Module):
     """Stem + the first ``num_stages`` residual stages; returns (final map,
     per-stage maps), all NHWC."""
@@ -55,9 +92,9 @@ class ResNetFeatures(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  use_pallas_stem: bool = False):
         super().__init__()
-        if arch not in _BASIC_STAGES:
-            raise NotImplementedError(f"arch={arch} (port has basic-block "
-                                      f"resnets only)")
+        if arch not in RESNET_SPECS:
+            raise NotImplementedError(f"arch={arch}")
+        block, sizes, expansion = RESNET_SPECS[arch]
         self.conv1 = Conv2d(3, 64, 7, 2, 3, False, dtype)
         self.bn1 = BatchNorm2D(64)
         self.num_stages = num_stages
@@ -66,14 +103,14 @@ class ResNetFeatures(nn.Module):
         for stage in range(num_stages):
             planes = 64 * 2 ** stage
             stride = 1 if stage == 0 else 2
-            for b in range(_BASIC_STAGES[arch][stage]):
-                ds = b == 0 and (stride != 1 or in_ch != planes)
-                setattr(self, f"layer{stage + 1}_{b}", BasicBlock(
-                    in_ch if b == 0 else planes, planes,
+            for b in range(sizes[stage]):
+                ds = b == 0 and (stride != 1 or in_ch != planes * expansion)
+                setattr(self, f"layer{stage + 1}_{b}", block(
+                    in_ch if b == 0 else planes * expansion, planes,
                     stride if b == 0 else 1, ds, dtype))
-            in_ch = planes
+            in_ch = planes * expansion
         self.blocks = [[getattr(self, f"layer{s + 1}_{b}")
-                        for b in range(_BASIC_STAGES[arch][s])]
+                        for b in range(sizes[s])]
                        for s in range(num_stages)]
 
     def forward(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -83,8 +120,7 @@ class ResNetFeatures(nn.Module):
                 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
             x = stem_pool.fused_affine_relu_maxpool(x, *self.bn1.affine())
         else:
-            x = torch.relu(self.bn1(x)).permute(0, 3, 1, 2)
-            x = F.max_pool2d(x, 3, 2, 1).permute(0, 2, 3, 1)
+            x = max_pool_nhwc(torch.relu(self.bn1(x)), 3, 2, 1)
         maps = []
         for stage in self.blocks:
             for blk in stage:
@@ -93,5 +129,5 @@ class ResNetFeatures(nn.Module):
         return x, maps
 
     @staticmethod
-    def last_dim(num_stages: int) -> int:
-        return 64 * 2 ** (num_stages - 1)
+    def last_dim(arch: str, num_stages: int) -> int:
+        return 64 * 2 ** (num_stages - 1) * RESNET_SPECS[arch][2]

@@ -33,6 +33,7 @@ from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.embed import (batched_embed_db, drain, padded_batches,
                                      to_device)
 from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
+from agplace_tpu_torch.models.factory import tower_width
 from agplace_tpu_torch.retrieval.knn import (l2_candidates_int8,
                                              l2_topk_blocked, quantize_rows)
 
@@ -42,8 +43,9 @@ class PlaceIndex:
 
     def __init__(self, cfg: Config, towers=None, device=None,
                  quant: Optional[str] = None, audit_rate: float = 0.0):
-        """``towers``: (MM, DBVanilla2D) from ``infer.build_towers``, or
-        None for a search-only index.  ``device`` defaults to the towers'
+        """``towers``: (query tower, aerial tower or None under
+        ``share_qdb``) from ``infer.build_towers``, or None for a
+        search-only index.  ``device`` defaults to the towers'
         device, and for a search-only index to the card (``"cpu"`` keeps
         it on the CPU; without a card anything else raises).
 
@@ -64,10 +66,14 @@ class PlaceIndex:
         self.audit_stats = {"searches": 0, "audited": 0,
                             "miss_queries": 0, "missed_rows": 0}
         self.cfg = cfg
+        # the descriptor width of an empty request: the towers' where they
+        # know it (GeoLoc, MinkLoc), else features_dim (the MM's), as JAX
+        self._width = None if cfg is None else cfg.model.features_dim
         if towers is None:
             self._embed_q = self._embed_db = None
             self.device = resolve_device(device)
         else:
+            self._width = tower_width(towers[0]) or self._width
             self._embed_q, self._embed_db = make_infer_fns(*towers)
             self.device = resolve_device(
                 device or next(towers[0].parameters()).device)
@@ -242,7 +248,7 @@ class PlaceIndex:
         images = np.asarray(images, np.float32)
         n = images.shape[0]
         if n == 0:
-            return np.zeros((0, self.cfg.model.features_dim), np.float32)
+            return np.zeros((0, self._width), np.float32)
         points = (np.full((n, 1, 3), np.nan, np.float32) if points is None
                   else np.asarray(points, np.float32))
         if len(points) != n:

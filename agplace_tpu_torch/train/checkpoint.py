@@ -92,12 +92,14 @@ class CheckpointManager:
 
 
 def load_towers(cfg: Config, save_dir: str, name: str, device="cuda"):
-    """((MM, DBVanilla2D) in eval mode on ``device`` with the parameters
-    and BN statistics of checkpoint ``name``, its epoch number): the
-    towers a server or an evaluation restores, without the optimizer."""
+    """((query tower, aerial tower or None) in eval mode on ``device``
+    with the parameters and BN statistics of checkpoint ``name``, its
+    epoch number): the towers a server or an evaluation restores, without
+    the optimizer."""
     towers = build_towers(cfg, device)
     saved = CheckpointManager(save_dir).read(
         name, next(towers[0].parameters()).device)
     for tower, key in zip(towers, ("mm", "db")):
-        tower.load_state_dict(saved["state"][key], strict=True)
+        if tower is not None:
+            tower.load_state_dict(saved["state"][key], strict=True)
     return towers, int(saved["epoch_num"])

@@ -5,6 +5,9 @@
         --camnames fl_f_fr_bl_b_br
     python -m agplace_tpu_torch.train --dataset synthetic --device cpu \\
         --q_resize 32 --train_batch_size 2 --negs_num_per_query 2
+    python -m agplace_tpu_torch.train --dataset kitti360 --dataroot D \\
+        --modelq geoloc --modeldb geoloc --backbone resnet50conv4 \\
+        --aggregation netvlad
 
 It takes the JAX package's flags (``config.FLAG_TABLE``) for the fields
 the training path and the readers read (``HONOURED``); any other flag of
@@ -25,8 +28,9 @@ dataset dataroot camnames traindownsample train_ratio db_cropsize db_resize
 q_jitter db_jitter brightness contrast saturation hue norm_mean norm_std
 nuscenes_cam_resize val_positive_dist_threshold
 train_positives_dist_threshold q_resize maptype quant_size vox_max_points pc_rot_aug_deg num_workers
-modelq modeldb features_dim aggregation compute_dtype pretrained
-pretrained_path freeze_te share_qdb
+modelq modeldb features_dim backbone aggregation netvlad_clusters
+fc_output_dim l2 trunc_te freeze_te share_qdb compute_dtype pretrained
+pretrained_path
 mm_imgfe mm_imgfe_layers mm_imgfe_planes mm_imgfe_dim mm_voxfe_layers
 mm_voxfe_planes mm_voxfe_ntd mm_voxfe_dim mm_voxfe_block voxfe_backend
 bev_pallas bev_pallas_head bev_fused_down stem_pallas dbstem_pallas

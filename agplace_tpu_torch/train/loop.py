@@ -56,7 +56,7 @@ def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,
     miner = TripletMiner(cfg, train_ds, device)
     train_step = make_train_step(cfg)
     if state is None:
-        state = init_state(cfg, device)
+        state = init_state(cfg, device, train_ds=train_ds)
     log.info("params: %d", count_params(state.named_parameters()))
 
     ckpt = CheckpointManager(t.save_dir)
@@ -112,7 +112,8 @@ def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,
 
         with timer("eval"):
             for tower in state.towers:
-                tower.eval()
+                if tower is not None:
+                    tower.eval()
             recalls, recalls_str = evaluate(
                 cfg, test_ds, *make_infer_fns(*state.towers), device=device)
         mean_loss = float(np.mean(epoch_losses)) if epoch_losses else 0.0

@@ -88,7 +88,8 @@ class TripletMiner:
         """(db descriptors, query descriptors) with the towers in eval
         mode: the database first, then the queries, as JAX does."""
         for t in towers:
-            t.eval()
+            if t is not None:
+                t.eval()
         embed_q, embed_db = make_infer_fns(*towers)
         bs = self.cfg.train.infer_batch_size
         db = batched_embed_db(self.ds, db_ids, embed_db, bs, self.device)

@@ -6,14 +6,22 @@ the flax scope names, so a leaf ``a/b/name`` lands on ``a.b.<torch name>``:
 
 * ``kernel`` of a 2-D conv (HWIO)          -> ``weight`` (OIHW)
 * ``kernel`` of a ``Dense`` ([in, out])    -> ``weight`` ([out, in])
+  (a depthwise conv's [k,k,1,C] -> [C,1,k,k]; convs with a bias keep it)
 * ``kernel`` of a voxel conv (BEV / dense [k,k,k,cin,cout], their
   transposed conv [2,2,2,cin,cout], sparse [K,cin,cout] and 1x1
-  [cin,cout], sparse transposed [8,cin,cout]) or of an FCODE ([in, out])
-  -> ``kernel``, unchanged (folded / used as is at run time); Beltrami's
-  ``fc_kernel`` / ``fc_bias`` keep their names
+  [cin,cout], sparse transposed [8,cin,cout]), of an FCODE ([in, out]),
+  of a flax ``MultiHeadDotProductAttention``'s ``query`` / ``key`` /
+  ``value`` ([in, heads, head_dim]) and ``out`` ([heads, head_dim, out])
+  or of a 2-D ``ConvTranspose`` ([2,2,cin,cout]) -> ``kernel``, unchanged
+  (folded / used as is at run time); Beltrami's ``fc_kernel`` /
+  ``fc_bias`` keep their names
 * BN / LayerNorm ``scale``                 -> ``weight``; ``bias`` -> ``bias``
 * BN ``batch_stats`` ``mean`` / ``var``    -> ``running_mean`` / ``running_var``
-* GeM ``p``, ECA ``conv_w`` [k,1,1] and learned scalar weights -> same name
+* GeM ``p``, ECA ``conv_w`` [k,1,1], learned scalar weights, NetVLAD's and
+  CRN's ``centroids`` / ``assign_w``, ViT's ``cls`` / ``pos``, CCT's
+  ``pos`` and ConvNeXt's ``gamma`` -> same name
+
+Scopes carry over as they are, ``GeoDB``'s ``net`` included.
 
 Every flax leaf is consumed exactly once and every entry of the target
 ``state_dict`` is filled; anything else raises.  ``flax_path`` maps a port

@@ -3054,6 +3054,492 @@ def phase_train_sparse(dev):
     shutil.rmtree(save_dir, ignore_errors=True)
 
 
+
+# ---- the factory's other towers: GeoLoc, MinkLoc, the image branches -----
+
+GEO_TILES = 512
+FAMILY_BATCH = 8  # [geoloc-families], [mm-imgfe]'s other branches
+FAMILY_CPU = 2  # images each family's card run is held to on the CPU
+# [geoloc-train]: k-means of the same descriptors from the same initial
+# rows on the card and on the CPU; fp32, TF32 off, so only the distance
+# products' summation order differs (an assignment flips only at a tie)
+KMEANS_TOL = 1e-4
+GEO_FAMILIES = (
+    ("resnet101conv4", "gem"), ("resnet18conv5", "rmac"),
+    ("vgg16", "crn"), ("alexnet", "spoc"), ("vit", "cls"), ("vit", "gem"),
+    ("cct384", "seqpool"), ("resnet50conv4", "mac"),
+    ("resnet50conv4", "convap"), ("resnet50conv4", "cosplace"),
+    ("resnet50conv4", "mixvpr"), ("resnet50conv4", "rrm"),
+    ("resnet50conv4", "crn"),
+)
+
+
+def family_cfg(base, mm=None, db=None, **model):
+    """``base`` with ``model`` fields and ``model.mm`` / ``model.db``
+    overrides."""
+    import dataclasses
+
+    m = base.model
+    return base.replace(model=dataclasses.replace(
+        m, mm=dataclasses.replace(m.mm, **(mm or {})),
+        db=dataclasses.replace(m.db, **(db or {})), **model))
+
+
+def geoloc_cfg(base, **over):
+    """The headline: DVGLB's ResNet-50 conv4 + NetVLAD (64 clusters) as
+    both towers."""
+    kw = dict(modelq="geoloc", backbone="resnet50conv4",
+              aggregation="netvlad", netvlad_clusters=64)
+    kw.update(over)
+    return family_cfg(base, db=dict(modeldb="geoloc"), **kw)
+
+
+def family_towers(cfg, dev, seed=0, query_only=False):
+    """``cfg``'s towers as ``build_towers`` places them, seeded weights
+    and non-trivial BN statistics: ((card query, card aerial), (CPU query,
+    CPU aerial)); an absent aerial tower (or with ``query_only``) is
+    None."""
+    from agplace_tpu_torch.infer import (build_towers, compute_dtype,
+                                         init_weights)
+    from agplace_tpu_torch.models.factory import make_query_model
+
+    g = torch.Generator().manual_seed(seed)
+    if query_only:
+        towers = (make_query_model(cfg, compute_dtype(cfg)), None)
+        init_weights(towers[0], g)
+        towers[0].eval()
+    else:
+        towers = build_towers(cfg, "cpu", g)
+    rng = np.random.default_rng(seed)
+    for t in towers:
+        if t is not None:
+            seed_bn(t, rng)
+    cpu = tuple(None if t is None else copy.deepcopy(t) for t in towers)
+    card_towers = []
+    for t in towers:
+        if t is not None:
+            t.to(dev)
+            for p in t.parameters():
+                if p.ndim == 4:
+                    p.data = p.data.contiguous(
+                        memory_format=torch.channels_last)
+        card_towers.append(t)
+    return tuple(card_towers), cpu
+
+
+def zero_launches(label, counts):
+    if any(counts.values()):
+        raise AssertionError(f"[{label}] kernels launched: {counts}")
+
+
+def held_to_cpu(label, gpu, cpu, tol=SLICE_TOL):
+    """max |card - CPU| over max |CPU| within ``tol``; returns it."""
+    gpu, cpu = gpu.float().cpu(), cpu.float()
+    if gpu.shape != cpu.shape or not bool(torch.isfinite(gpu).all()):
+        raise AssertionError(f"[{label}] {tuple(gpu.shape)} vs "
+                             f"{tuple(cpu.shape)} or non-finite")
+    err = float((gpu - cpu).abs().max() / cpu.abs().max())
+    if err > tol:
+        raise AssertionError(f"[{label}] card vs CPU {err:.3g} of scale > "
+                             f"{tol}")
+    return err
+
+
+def timed_forward(fn, iters=20):
+    """(ms per call, CUDA events, median of ``iters``; peak device memory
+    of the calls in GiB above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = cuda_ms(fn, warmup=2, iters=iters)
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def phase_geoloc(base, dev, name):
+    """[geoloc]: the headline GeoLoc towers (kitti360_config(), resnet50
+    conv4 + NetVLAD, 65,536-d) behind a ``PlaceIndex`` of 512 tiles and
+    requests of 1, 7 and 32 queries, a planted top-1 hit, zero launches;
+    2 queries and 2 tiles against the CPU run; ms per forward (CUDA
+    events, median of 20) and peak memory at b32 and b128."""
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.serving import PlaceIndex
+
+    cfg = geoloc_cfg(base)
+    (q, db), (cpu_q, cpu_db) = family_towers(cfg, dev)
+    idx = PlaceIndex(cfg, (q, db), device=dev)
+    rng = np.random.default_rng(30)
+    requests = [rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(
+        np.float32) for n in (1, 7, 32)]
+    ops.reset_launches()  # ---- the path: gallery + three requests
+    t0 = time.perf_counter()
+    n_rows = idx.add_tiles(Tiles(GEO_TILES))
+    torch.cuda.synchronize()
+    t_gallery = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers = [idx.search(images, k=5) for images in requests]
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    counts = ops.launches()  # ---- read just after the path
+    zero_launches("geoloc", counts)
+    if n_rows != GEO_TILES or idx.dim != 65536:
+        raise AssertionError(f"[geoloc] {n_rows} rows of {idx.dim}")
+    for images, (d, i) in zip(requests, answers):
+        n = images.shape[0]
+        if d.shape != (n, 5) or not (np.isfinite(d).all() and (
+                (i >= 0) & (i < GEO_TILES)).all()):
+            raise AssertionError("[geoloc] bad search answers")
+    planted = idx.add_descriptors(idx.embed(requests[1][:1])) - 1
+    d, i = idx.search(requests[1][:1], k=5)
+    if i[0, 0] != planted:
+        raise AssertionError("[geoloc] planted descriptor is not top-1")
+    images = torch.from_numpy(requests[2][:FAMILY_CPU])
+    tiles = torch.from_numpy(np.stack([Tiles(2).load_db_maps(j)
+                                       for j in range(FAMILY_CPU)]))
+    with torch.inference_mode():
+        err_q = held_to_cpu("geoloc query", q(images.to(dev)), cpu_q(images))
+        err_d = held_to_cpu("geoloc tile", db(tiles.to(dev)), cpu_db(tiles))
+    rec = {}
+    for b in (32, 128):
+        x = torch.from_numpy(np.random.default_rng(b).standard_normal(
+            (b, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+        rec[b] = timed_forward(lambda: q(x))
+        del x
+    log(f"[geoloc] {name}: resnet50conv4 + NetVLAD x 64 (65,536-d), fp32 "
+        f"(JAX's factory gives GeoLoc no dtype); gallery of {n_rows} tiles "
+        f"in {t_gallery:.2f} s, 3 requests in {t_search:.2f} s, planted "
+        f"row top-1, launches 0; card vs CPU: queries {err_q:.3g}, tiles "
+        f"{err_d:.3g} of scale; ms per forward at {IMAGE} px (CUDA events, "
+        f"median of 20) and peak GiB: " + json.dumps(
+            {f"b{b}": {"ms": round(ms, 3), "peak_gib": round(pk, 3)}
+             for b, (ms, pk) in rec.items()}))
+    del idx, q, db
+    return counts
+
+
+def phase_geoloc_train(dev, name):
+    """[geoloc-train]: ``train()`` with the headline towers in fp32 at the
+    preset's 16 x (2 + 10): the dataset NetVLAD init on the card (and its
+    k-means against the CPU's from the same initial rows on the same
+    descriptors), 4 steps, finite losses, parameters moved, zero launches,
+    step wall time and peak memory; then ``PlaceIndex.from_checkpoint``
+    answers one request."""
+    import shutil
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.retrieval.kmeans import kmeans
+    from agplace_tpu_torch.serving import PlaceIndex
+    from agplace_tpu_torch.train import loop
+
+    save_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "_runs", "chip_smoke_geoloc_train")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = geoloc_cfg(train_cfg(queries_per_epoch=64, cache_refresh_rate=64,
+                               neg_samples_num=128, epochs_num=1,
+                               checkpoint_after_epoch=-1,
+                               save_dir=save_dir))
+    n_steps = 64 // cfg.train.train_batch_size
+    train_ds = train_world(cfg, 128, 128, 0)
+    test_ds = train_world(cfg, 64, 32, 1)
+
+    # the init's k-means on the card and on the CPU: the same descriptors
+    # (the card backbone's, 100 of each of 8 training queries, normalised
+    # as the init does), the same initial rows
+    (q, _), _ = family_towers(cfg, dev)
+    images = np.stack([train_ds.load_query_image(i) for i in range(8)])
+    with torch.inference_mode():
+        maps = q.backbone(torch.from_numpy(images).to(dev))[0]
+    flat = maps.float().cpu().flatten(1, 2)[:, :100]
+    descs = (flat / flat.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+             ).reshape(-1, flat.shape[-1])
+    init_idx = torch.randperm(len(descs), generator=torch.Generator()
+                              .manual_seed(0))[:64]
+    c_gpu, a_gpu = kmeans(descs.to(dev), 64, init_idx=init_idx)
+    c_cpu, a_cpu = kmeans(descs, 64, init_idx=init_idx)
+    km_err = held_to_cpu("geoloc-train k-means", c_gpu, c_cpu, KMEANS_TOL)
+    km_flips = int((a_gpu.cpu() != a_cpu).sum())
+    del q, maps
+
+    rec = {"starts": []}
+    real = loop.make_train_step
+    # step starts on the host clock; n_steps + 1: no step under the
+    # profiler (its start-up alone took ~7 s on the card)
+    loop.make_train_step = _step_recorder(loop, n_steps + 1, rec)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ops.reset_launches()  # ---- the path: train()
+        t0 = time.perf_counter()
+        out = loop.train(cfg, train_ds, test_ds, device=dev)
+        t_train = time.perf_counter() - t0
+        counts = ops.launches()  # ---- read just after the path
+    finally:
+        loop.make_train_step = real
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    zero_launches("geoloc-train", counts)
+    state = out["state"]
+    losses = out["history"][0]["losses"]
+    if (state.step != n_steps or len(losses) != n_steps
+            or not np.isfinite(losses).all()):
+        raise AssertionError(f"[geoloc-train] steps {state.step}, losses "
+                             f"{losses}")
+    fresh, _ = family_towers(cfg, dev)  # the same seed: the initial weights
+    moved = sum(not torch.equal(a, b) for (_, a), b in zip(
+        state.mm.named_parameters(), fresh[0].parameters()))
+    centroids_set = not torch.equal(state.mm.aggregation.netvlad.centroids,
+                                    fresh[0].aggregation.netvlad.centroids)
+    del fresh
+    if moved < 100 or not centroids_set:
+        raise AssertionError(f"[geoloc-train] {moved} leaves moved, "
+                             f"centroids set {centroids_set}")
+    starts = rec["starts"]
+    walls = [(b - a) * 1e3 for a, b in zip(starts[1:], starts[2:])]
+    idx = PlaceIndex.from_checkpoint(cfg, save_dir, "best_model", dev)
+    idx.add_tiles(test_ds)
+    d, i = idx.search(test_ds.load_query_image(0)[None], k=5)
+    if not (np.isfinite(d).all() and ((i >= 0) & (i < 64)).all()):
+        raise AssertionError("[geoloc-train] from_checkpoint answered badly")
+    log(f"[geoloc-train] {name}: k-means of 800 card descriptors, card vs "
+        f"CPU from the same 64 rows: centroids {km_err:.3g} of scale, "
+        f"{km_flips} assignments differ; train() in {t_train:.2f} s "
+        f"(NetVLAD init, mining, {n_steps} steps of "
+        f"{cfg.train.train_batch_size} x (2 + "
+        f"{cfg.train.negs_num_per_query}), "
+        f"evaluation; phases {json.dumps(out['phase_times'])}), losses "
+        f"{losses}, {moved} parameter leaves moved, launches 0; step wall "
+        f"ms (host clock between step starts, steps 2-{n_steps - 1}) "
+        f"{[round(w, 1) for w in walls]}; peak device memory "
+        f"{peak:.2f} GiB; from_checkpoint top-5 {i[0].tolist()}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return counts
+
+
+def phase_geoloc_families(base, dev, name):
+    """[geoloc-families]: each other backbone and head at b8 (ViT-B/16 and
+    CCT-14 at full depth), zero launches, 2 images against the CPU, ms per
+    forward (median of 10)."""
+    from agplace_tpu_torch import ops
+
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((FAMILY_BATCH, IMAGE, IMAGE, 3)).astype(
+        np.float32)
+    rec, total = {}, None
+    for backbone, agg in GEO_FAMILIES:
+        cfg = geoloc_cfg(base, backbone=backbone, aggregation=agg)
+        (q, _), (cpu_q, _) = family_towers(cfg, dev)
+        xg = torch.from_numpy(x).to(dev)
+        with torch.inference_mode():
+            ops.reset_launches()  # ---- the path: one forward
+            out = q(xg)
+            torch.cuda.synchronize()
+            counts = ops.launches()  # ---- read just after the path
+            err = held_to_cpu(f"geoloc {backbone} {agg}", out[:FAMILY_CPU],
+                              cpu_q(torch.from_numpy(x[:FAMILY_CPU])))
+        zero_launches(f"geoloc-families {backbone} {agg}", counts)
+        ms, _ = timed_forward(lambda: q(xg), iters=10)
+        rec[f"{backbone}+{agg}"] = {"dim": int(out.shape[1]),
+                                    "cpu_err": round(err, 8),
+                                    "ms_b8": round(ms, 3)}
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+        del q, cpu_q, xg
+    log(f"[geoloc-families] {name}: b{FAMILY_BATCH} at {IMAGE} px, fp32, "
+        f"launches 0: " + json.dumps(rec))
+    return total
+
+
+def db_forward_counted(label, db, maps, cpu_db, want):
+    from agplace_tpu_torch import ops
+
+    with torch.inference_mode():
+        ops.reset_launches()  # ---- the path: one aerial-tower forward
+        out = db(maps)
+        torch.cuda.synchronize()
+        counts = ops.launches()  # ---- read just after the path
+        err = held_to_cpu(label, out[:FAMILY_CPU],
+                          cpu_db(maps[:FAMILY_CPU].cpu()))
+    if counts != want:
+        raise AssertionError(f"[{label}] launch counts {counts} != {want}")
+    return counts, err
+
+
+def phase_mm_imgfe(base, dev, name):
+    """[mm-imgfe]: the MM beside a ResNet-50 DBVanilla2D behind a
+    ``PlaceIndex`` of 512 tiles, default and fused (exact launch counts:
+    K5 once per map type per fused aerial forward, on the ResNet-50 stem),
+    2 queries and 2 tiles against the CPU, ms per aerial-tower forward at
+    b32 beside resnet18's; then at b8 the MM with the squeezenet11 image
+    branch (default and fused: no K5, no ResNet stem) and the
+    convnext_tiny / squeezenet11 aerial towers (no launch)."""
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+
+    out_counts = []
+    r50 = family_cfg(base, db=dict(image_fe="resnet50"))
+    r50_f = family_cfg(base, mm=dict(bev_pallas_head=True, stem_pallas=True),
+                       db=dict(image_fe="resnet50", stem_pallas=True))
+    tiles = torch.from_numpy(np.stack([Tiles(2).load_db_maps(j)
+                                       for j in range(FAMILY_CPU)]))
+    tile_err, aerial = {}, {}
+    for label, cfg in (("mm-imgfe", r50), ("mm-imgfe-fused", r50_f)):
+        (mm, db), (cpu_mm, cpu_db), requests, counts = phase_serving(
+            cfg, dev, N_TILES, label)
+        phase_slice_parity(cfg, mm, cpu_mm, requests, dev, label)
+        with torch.inference_mode():
+            tile_err[label] = held_to_cpu(label, db(tiles.to(dev)),
+                                          cpu_db(tiles))
+        out_counts.append(counts)
+        aerial[label] = db
+        del mm, cpu_mm, cpu_db
+    for label, cfg in (("resnet18", base), ("resnet18 fused", family_cfg(
+            base, db=dict(stem_pallas=True)))):
+        aerial[label] = family_towers(cfg, dev)[0][1]
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (32, 1, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+    db_ms = {k: timed_forward(lambda: db(x)) for k, db in aerial.items()}
+    del aerial, db, x
+
+    # the other image branches at b8
+    images, points, _ = mm_inputs(33, FAMILY_BATCH, base)
+    maps = torch.from_numpy(np.random.default_rng(34).standard_normal(
+        (FAMILY_BATCH, 1, IMAGE, IMAGE, 3)).astype(np.float32)).to(dev)
+    sq = dict(imgfe="squeezenet11", imgfe_planes=(128, 256, 256),
+              imgfe_dim=256)
+    other = {}
+    for label, cfg, want in (
+            ("mm squeezenet11", family_cfg(base, mm=sq), None),
+            ("mm squeezenet11 fused", family_cfg(
+                base, mm=dict(sq, bev_pallas_head=True, stem_pallas=True)),
+             {"fused_euler_ode": 3, "fused_eca_block_sm": 4,
+              "fused_head": 1})):
+        (mm, _), (cpu_mm, _) = family_towers(cfg, dev)
+        vox = prepare_query_vox(cfg, points, dev)
+        if want is None:
+            out, counts = counted_forward(label, cfg, mm, torch.from_numpy(
+                images).to(dev), vox)
+        else:
+            from agplace_tpu_torch import ops
+
+            with torch.inference_mode():
+                ops.reset_launches()  # ---- the path: one MM forward
+                out = mm(torch.from_numpy(images).to(dev), vox)
+                torch.cuda.synchronize()
+                counts = ops.launches()  # ---- read just after the path
+            full = dict.fromkeys(counts, 0)
+            full.update(want)
+            if counts != full:
+                raise AssertionError(f"[{label}] launch counts {counts} "
+                                     f"!= {full}")
+        other[label] = against_cpu(label, cfg, out, cpu_mm, images, points,
+                                   keys=("imagevec_org", "embedding"))
+        out_counts.append(counts)
+        del mm, cpu_mm
+    for fe in ("convnext_tiny", "squeezenet11"):
+        cfg = family_cfg(base, db=dict(image_fe=fe))
+        (_, db), (_, cpu_db) = family_towers(cfg, dev)
+        counts, other[f"db {fe}"] = db_forward_counted(
+            f"mm-imgfe db {fe}", db, maps, cpu_db,
+            dict.fromkeys(out_counts[0], 0))
+        out_counts.append(counts)
+        del db, cpu_db
+    log(f"[mm-imgfe] {name}: ResNet-50 aerial tiles card vs CPU "
+        f"{json.dumps({k: round(v, 8) for k, v in tile_err.items()})}; "
+        f"aerial-tower ms per b32 forward (bf16, CUDA events, median of "
+        f"20) and peak GiB: " + json.dumps(
+            {k: {"ms": round(ms, 3), "peak_gib": round(pk, 3)}
+             for k, (ms, pk) in db_ms.items()})
+        + f"; b{FAMILY_BATCH} card vs CPU: "
+        + json.dumps({k: round(v, 8) for k, v in other.items()}))
+    total = dict.fromkeys(out_counts[0], 0)
+    for c in out_counts:
+        for k, v in c.items():
+            total[k] += v
+    return total
+
+
+def phase_minkloc(base, dev, name):
+    """[minkloc]: MinkLoc and MinkLocMultimodal (features_dim 256, planes
+    (32, 64, 64)) at b32 on [mm-backends]' cropped clouds, zero launches,
+    2 samples against the CPU, ms per forward."""
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.models.factory import query_apply
+
+    images, points, _ = mm_inputs(21, 32, base)
+    rec, total = {}, None
+    for modelq in ("minkloc", "minkloc_multimodal"):
+        cfg = family_cfg(base, modelq=modelq)
+        (q, _), (cpu_q, _) = family_towers(cfg, dev, query_only=True)
+        vox = prepare_query_vox(cfg, points, dev)
+        img = torch.from_numpy(images).to(dev)
+        with torch.inference_mode():
+            ops.reset_launches()  # ---- the path: one forward
+            out = query_apply(q, img, vox)["embedding"]
+            torch.cuda.synchronize()
+            counts = ops.launches()  # ---- read just after the path
+            cpu = query_apply(cpu_q, torch.from_numpy(images[:FAMILY_CPU]),
+                              prepare_query_vox(cfg, points[:FAMILY_CPU],
+                                                "cpu"))["embedding"]
+        zero_launches(f"minkloc {modelq}", counts)
+        err = held_to_cpu(f"minkloc {modelq}", out[:FAMILY_CPU], cpu)
+        ms, pk = timed_forward(lambda: query_apply(q, img, vox), iters=10)
+        rec[modelq] = {"dim": int(out.shape[1]), "cpu_err": round(err, 8),
+                       "ms_b32": round(ms, 3), "peak_gib": round(pk, 3)}
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+        del q, cpu_q
+    log(f"[minkloc] {name}: b32, KITTI-360 clouds cropped to the extent, "
+        f"launches 0: " + json.dumps(rec))
+    return total
+
+
+def phase_family_cli(dev, tree):
+    """[family-cli]: ``train --modelq geoloc --modeldb geoloc --backbone
+    resnet50conv4 --aggregation netvlad`` for 2 steps on the
+    [data-kitti360] tree, then ``serve build`` and ``serve search
+    --resume`` as subprocesses on the card; each exits 0 and the search
+    answers as the in-process index."""
+    from agplace_tpu_torch.config import parse_arguments
+    from agplace_tpu_torch.embed import batched_embed_q
+    from agplace_tpu_torch.serving import PlaceIndex
+    from agplace_tpu_torch.train.cli import HONOURED, build_datasets
+
+    save_dir = runs_dir("chip_smoke_family_cli")
+    family = ["--modelq", "geoloc", "--modeldb", "geoloc", "--backbone",
+              "resnet50conv4", "--aggregation", "netvlad"]
+    data = ["--dataset", "kitti360", "--dataroot", tree, "--save_dir",
+            save_dir, *family]
+    t0 = time.perf_counter()
+    cli("agplace_tpu_torch.train", *data, "--pretrained", "false",
+        "--queries_per_epoch", "32", "--cache_refresh_rate", "32",
+        "--epochs_num", "1")
+    t_train = time.perf_counter() - t0
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        epoch = json.loads(f.readline())
+    if epoch["steps"] != 2 or not np.isfinite(epoch["losses"]).all():
+        raise AssertionError(f"[family-cli] train: {epoch}")
+    data += ["--resume", "best_model"]
+    gal = os.path.join(save_dir, "g.npz")
+    t0 = time.perf_counter()
+    cli("agplace_tpu_torch.serve", "build", "--gallery_out", gal, *data)
+    out, _ = cli("agplace_tpu_torch.serve", "search", "--gallery", gal,
+                 "--k", "5", *data)
+    t_serve = time.perf_counter() - t0
+    cfg, _ = parse_arguments(data, HONOURED)
+    _, test_ds = build_datasets(cfg)
+    idx = PlaceIndex.from_checkpoint(cfg, save_dir, "best_model", dev)
+    idx.load_gallery(gal)
+    q = batched_embed_q(test_ds, list(range(test_ds.queries_num)),
+                        idx._embed_q, cfg.train.infer_batch_size, cfg, dev)
+    log(f"[family-cli] train (2 steps, geoloc resnet50conv4 + NetVLAD, "
+        f"losses {epoch['losses']}, recalls {epoch['recalls']}) in "
+        f"{t_train:.1f} s; serve build + search in {t_serve:.1f} s; "
+        f"descriptors {q.shape}")
+    check_rows("family-cli search --resume", out,
+               *idx.locate_descriptors(q, 5))
+    import shutil
+
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+
 def main() -> None:
     import dataclasses
 
@@ -3132,6 +3618,7 @@ def main() -> None:
     phase_serve_http(dev)
     counts_k, counts_kf, tree, save_dir = phase_data_kitti360(dev)
     counts_ns = phase_data_nuscenes(dev)
+    phase_family_cli(dev, tree)  # needs [data-kitti360]'s tree
     phase_serve_cli(dev, tree, save_dir)
     # ---- the MM's option tail: backends, integrators, options, training
     counts_mb = phase_mm_backends(cfg, dev, name)
@@ -3140,6 +3627,12 @@ def main() -> None:
     phase_ode_lib(cfg, dev, mm)
     phase_sync_free(dev)
     phase_train_sparse(dev)
+    # ---- the factory's other towers: GeoLoc, MinkLoc, the image branches
+    counts_g = phase_geoloc(cfg, dev, name)
+    counts_gt = phase_geoloc_train(dev, name)
+    counts_gf = phase_geoloc_families(cfg, dev, name)
+    counts_mi = phase_mm_imgfe(cfg, dev, name)
+    counts_ml = phase_minkloc(cfg, dev, name)
 
     sources = {
         "fused_euler_ode": ("agplace_tpu_torch/csrc/ode_step.cu",
@@ -3169,7 +3662,9 @@ def main() -> None:
                                   + counts_t[k] + counts_k[k]
                                   + counts_kf[k] + counts_ns[k]
                                   + counts_mb[k] + counts_mo[k]
-                                  + counts_mx[k]),
+                                  + counts_mx[k] + counts_g[k]
+                                  + counts_gt[k] + counts_gf[k]
+                                  + counts_mi[k] + counts_ml[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
@@ -3185,7 +3680,12 @@ def main() -> None:
                                           "data_nuscenes": counts_ns[k],
                                           "mm_backends": counts_mb[k],
                                           "mm_ode": counts_mo[k],
-                                          "mm_options": counts_mx[k]},
+                                          "mm_options": counts_mx[k],
+                                          "geoloc": counts_g[k],
+                                          "geoloc_train": counts_gt[k],
+                                          "geoloc_families": counts_gf[k],
+                                          "mm_imgfe": counts_mi[k],
+                                          "minkloc": counts_ml[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],

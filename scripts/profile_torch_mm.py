@@ -2,14 +2,16 @@
 """Device time of the PyTorch port's MM forward by kernel, on one NVIDIA GPU.
 
     python scripts/profile_torch_mm.py [--batches 32 128] [--forwards 5]
-        [--configs default fused dense sparse midpoint rk4 dopri5]
+        [--configs default fused dense sparse midpoint rk4 dopri5 geoloc]
 
 Builds the MM query tower of ``kitti360_config()`` in bf16 at full width
 (seeded random weights with non-trivial BN statistics, LiDAR-like clouds as
 ``chip_smoke.py`` makes them) in each configuration of ``--configs``
 (default: the default one and the fused-stem / fused-head one,
 ``bev_pallas_head`` and ``stem_pallas`` set; ``dense`` / ``sparse``: that
-voxel backend; ``midpoint`` / ``rk4`` / ``dopri5``: that integrator).
+voxel backend; ``midpoint`` / ``rk4`` / ``dopri5``: that integrator;
+``geoloc``: the GeoLoc query tower instead of the MM, ResNet-50 conv4 +
+NetVLAD x 64, which runs fp32 as JAX builds it).
 For each configuration and batch it profiles ``--forwards`` forwards
 after warm-up with ``torch.profiler`` and prints the device ms per forward
 of every hand-written kernel (by template: ``conv3x3_sm90_kernel<EPI>`` is
@@ -58,7 +60,8 @@ _CLASSES = (
 )
 
 
-# --configs: overrides of kitti360_config().model.mm
+# --configs: overrides of kitti360_config().model.mm ("model": of .model,
+# "db": of .model.db)
 CONFIGS = {
     "default": {},
     "fused": {"bev_pallas_head": True, "stem_pallas": True},
@@ -67,6 +70,9 @@ CONFIGS = {
     "midpoint": {"ode": {"method": "midpoint"}},
     "rk4": {"ode": {"method": "rk4"}},
     "dopri5": {"ode": {"method": "dopri5"}},
+    "geoloc": {"model": {"modelq": "geoloc", "backbone": "resnet50conv4",
+                         "aggregation": "netvlad", "netvlad_clusters": 64},
+               "db": {"modeldb": "geoloc"}},
 }
 
 
@@ -113,6 +119,7 @@ def main() -> None:
     from agplace_tpu_torch import kitti360_config
     from agplace_tpu_torch.data.voxels import prepare_query_vox
     from agplace_tpu_torch.infer import build_towers
+    from agplace_tpu_torch.models.factory import query_apply
     from agplace_tpu_torch.ops import _build
 
     if not torch.cuda.is_available():
@@ -126,11 +133,14 @@ def main() -> None:
     configs, models = {}, {}
     for label in args.configs:
         over = dict(CONFIGS[label])
+        model_over = over.pop("model", {})
+        db_over = over.pop("db", {})
         if "ode" in over:
             over["ode"] = dataclasses.replace(cfg.model.mm.ode,
                                               **over["ode"])
         c = cfg.replace(model=dataclasses.replace(
-            cfg.model, mm=dataclasses.replace(cfg.model.mm, **over)))
+            cfg.model, mm=dataclasses.replace(cfg.model.mm, **over),
+            db=dataclasses.replace(cfg.model.db, **db_over), **model_over))
         mm, _ = build_towers(c, "cpu", torch.Generator().manual_seed(0))
         seed_bn(mm, np.random.default_rng(0))
         configs[label], models[label] = c, mm.to(dev)
@@ -144,16 +154,20 @@ def main() -> None:
         for label, mm in models.items():
             vox = prepare_query_vox(configs[label], points, dev)
 
+            def forward(mm=mm, vox=vox):
+                return query_apply(mm, images, vox)
+
             def forwards():
                 for _ in range(n):
-                    mm(images, vox)
+                    forward()
 
             with torch.inference_mode():
                 wall = cuda_ms(forwards, warmup=1, iters=5) / n
-                times = device_times(lambda: mm(images, vox), n)
+                times = device_times(forward, n)
             total = sum(ms for ms, _ in times.values())
             launches = sum(c for _, c in times.values())
-            print(f"\n== MM forward b{bsz} {label}: device {total:.3f} ms "
+            print(f"\n== query-tower forward b{bsz} {label}: device "
+                  f"{total:.3f} ms "
                   f"({launches:.0f} kernels) per forward; back-to-back "
                   f"{wall:.3f} ms per forward unprofiled; busy "
                   f"{100 * total / wall:.1f} %", flush=True)

@@ -55,6 +55,11 @@ def test_the_scan_sees_the_port():
                  "sparse/modules.py", "sparse/minkfpn.py",
                  "sparse/dense_grid.py"):
         assert f"agplace_tpu_torch/{path}" in PORT_FILES
+    for path in ("models/factory.py", "models/geoloc.py", "models/cct.py",
+                 "models/minkloc.py", "models/pooling.py",
+                 "models/image_fe.py", "retrieval/kmeans.py",
+                 "train/netvlad_init.py"):
+        assert f"agplace_tpu_torch/{path}" in PORT_FILES
     assert "scripts/write_torch_trees.py" in PORT_FILES
     assert not any(p.startswith("agplace_tpu/") for p in PORT_FILES)
 
