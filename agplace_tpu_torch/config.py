@@ -6,8 +6,8 @@ holds the presets equal); comments that speak of the TPU describe the
 reference's kernels, whose flags the port honours with its CUDA kernels.
 The flag table of the JAX package's argparse front end is copied too
 (``FLAG_TABLE``, held equal to JAX's by ``tests/test_torch_port_train_loop.
-py``); ``parse_arguments`` takes an entry point's set of honoured flags and
-raises on any other flag of the table that is given.
+py``); ``parse_arguments`` takes every flag of it, as the JAX package's
+entry points do.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Collection, Optional, Tuple
+from typing import Optional, Tuple
 
 
 def _tuple_int(spec: str) -> Tuple[int, ...]:
@@ -678,12 +678,10 @@ def build_exp_name(cfg: Config) -> str:
             f"_sph{d.sph_size}_pc{d.read_pc}")
 
 
-def parse_arguments(argv=None, honoured: Collection[str] = (),
-                    extra=None):
+def parse_arguments(argv=None, extra=None):
     """(Config, argparse namespace) from ``argv``: the preset of
-    ``--dataset`` (default kitti360) with every given flag applied.  A
-    flag of ``FLAG_TABLE`` outside ``honoured`` raises NotImplementedError
-    when it is given.  ``extra(parser)`` adds an entry point's own
+    ``--dataset`` (default kitti360) with every given flag of
+    ``FLAG_TABLE`` applied.  ``extra(parser)`` adds an entry point's own
     flags."""
     p = argparse.ArgumentParser(
         description="aerial-ground place recognition (the JAX package's "
@@ -696,14 +694,6 @@ def parse_arguments(argv=None, honoured: Collection[str] = (),
     if extra is not None:
         extra(p)
     args = p.parse_args(argv)
-    given = [row[0] for row in FLAG_TABLE
-             if getattr(args, row[0]) is not None]
-    refused = sorted(set(given) - set(honoured))
-    if refused:
-        raise NotImplementedError(
-            f"flags the port does not honour yet: "
-            f"{', '.join('--' + f for f in refused)}")
-
     dataset = args.dataset or "kitti360"
     cfg = {"nuscenes": nuscenes_config,
            "synthetic": synthetic_config}.get(dataset, kitti360_config)()

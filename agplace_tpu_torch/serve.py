@@ -21,9 +21,10 @@ query a place index.
 ``search`` prints one strict-JSON line per query (distances, gallery
 indices, and UTM east/north when the gallery carries positions; ``null``
 for non-finite values).  The flags after the subcommand's own are the
-training entry point's (``train/cli.HONOURED``).  ``--device`` picks the
-index's device: the card by default, which raises "no CUDA device"
-without one; the fan-out client holds no index and needs no device.
+training entry point's (every flag of ``config.FLAG_TABLE``).  ``--device``
+picks the index's device: the card by default, which raises "no CUDA
+device" without one; the fan-out client holds no index and needs no
+device.
 """
 
 from __future__ import annotations
@@ -67,9 +68,11 @@ def _require(ok: bool, msg: str) -> None:
 
 def _config(rest):
     from agplace_tpu_torch.config import parse_arguments
-    from agplace_tpu_torch.train.cli import HONOURED
+    from agplace_tpu_torch.train.step import check_one_device
 
-    return parse_arguments(rest, HONOURED)[0]
+    cfg = parse_arguments(rest)[0]
+    check_one_device(cfg)
+    return cfg
 
 
 def _build(own, rest) -> None:

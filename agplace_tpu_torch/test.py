@@ -8,9 +8,9 @@ It restores both towers of a checkpoint of ``python -m
 agplace_tpu_torch.train`` (``--resume``: a name in ``--save_dir``, or a
 path), runs ``evaluate`` on the test split and prints its Recall@N line.
 Random-init weights are evaluated only on the synthetic world.  It takes
-the training entry point's flags (``train/cli.HONOURED``); ``--device``
-picks the device: the card by default, which raises "no CUDA device"
-without one.
+the training entry point's flags (every flag of ``config.FLAG_TABLE``);
+``--device`` picks the device: the card by default, which raises "no CUDA
+device" without one.
 """
 
 from __future__ import annotations
@@ -26,14 +26,14 @@ from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.evaluate import evaluate
 from agplace_tpu_torch.infer import build_towers, make_infer_fns
 from agplace_tpu_torch.train.checkpoint import load_towers
-from agplace_tpu_torch.train.cli import HONOURED, build_datasets
+from agplace_tpu_torch.train.cli import build_datasets
 from agplace_tpu_torch.train.step import check_supported
 from agplace_tpu_torch.utils.common import setup_logging
 
 
 def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     cfg, args = parse_arguments(
-        argv, HONOURED, extra=lambda p: p.add_argument(
+        argv, extra=lambda p: p.add_argument(
             "--device", default="cuda", help="cuda (default) or cpu"))
     device = resolve_device(args.device)
     check_supported(cfg)  # one device: data / gallery parallel > 1 raise

@@ -9,11 +9,42 @@
         --modelq geoloc --modeldb geoloc --backbone resnet50conv4 \\
         --aggregation netvlad
 
-It takes the JAX package's flags (``config.FLAG_TABLE``) for the fields
-the training path and the readers read (``HONOURED``); any other flag of
-that table raises.  ``--device`` picks the device: the card by default,
-which raises "no CUDA device" without one.  ``build_datasets`` is also the
-dataset front of ``python -m agplace_tpu_torch.test`` and ``.serve``.
+It takes every flag of the JAX package's table (``config.FLAG_TABLE``),
+as JAX's ``train.py``, ``test.py`` and ``serve.py`` do, and so do ``test``
+and ``serve``.  Only ``--data_parallel`` / ``--gallery_parallel`` above 1
+raise: the port runs on one card (``train/step.check_one_device``).
+``--device`` picks the device: the card by default, which raises "no CUDA
+device" without one.
+``build_datasets`` is also the dataset front of ``python -m
+agplace_tpu_torch.test`` and ``.serve``.
+
+Each flag lands in the ``cfg`` field JAX's does.  Where JAX reads the
+fields of the flags its entry points once refused here (JAX file:line),
+and where the port reads them:
+
+* ``odeint_rtol`` / ``odeint_atol`` / ``dopri5_max_steps``
+  (``model.mm.ode.*``): ``agplace_tpu/models/fusion.py:77-78`` (FCODE)
+  and ``:421-422`` (``BeltramiODE``); the port's ``models/fusion.py``
+  FCODE and ``BeltramiODE`` pass them to dopri5 likewise.
+* ``horizontal_flip`` / ``rand_perspective`` / ``random_resized_crop`` /
+  ``random_rotation`` (``data.*``): ``data/folder_dataset.py:76-78`` and
+  ``data/transforms.py:195-204`` (``random_query_augment``), on a folder
+  dataset's training queries; the port's ``data/folder_dataset.py`` and
+  ``data/transforms.py`` likewise.  No dataset of the entry points
+  (kitti360, nuscenes, synthetic) reads them, in either package.
+* ``read_pc`` / ``sph_size``: only the experiment name
+  (``agplace_tpu/config.py:680``, the port's ``config.build_exp_name``).
+* Read by no JAX module, carried in ``cfg`` only, here too:
+  ``color_jitter`` (``data.color_jitter``; the readers jitter by
+  ``q_jitter`` / ``db_jitter``), ``sph_jit``, ``bev_jit``, ``stg2gnn``
+  and ``beltrami_k`` (JAX builds ``QKVAttention`` / ``BeltramiODE`` only
+  when a caller does; no config field selects them), ``stg2_type``,
+  ``sdeint_method`` / ``sdeint_size`` / ``cdeint_method`` /
+  ``cdeint_size`` (``ode/sde.py`` takes its method and step from its
+  caller), ``patience`` and ``checkpoint_every_epochs`` (JAX's loop
+  counts ``not_improved_num`` and saves by ``checkpoint_after_epoch``),
+  ``infonceloss_weight`` and ``mm_lossweight`` (the train step adds
+  neither loss).
 """
 
 from __future__ import annotations
@@ -22,34 +53,6 @@ import logging
 from typing import Optional, Sequence
 
 from agplace_tpu_torch.config import Config, parse_arguments
-
-HONOURED = frozenset("""
-dataset dataroot camnames traindownsample train_ratio db_cropsize db_resize
-q_jitter db_jitter brightness contrast saturation hue norm_mean norm_std
-nuscenes_cam_resize val_positive_dist_threshold
-train_positives_dist_threshold q_resize maptype quant_size vox_max_points pc_rot_aug_deg num_workers
-modelq modeldb features_dim backbone aggregation netvlad_clusters
-fc_output_dim l2 trunc_te freeze_te share_qdb compute_dtype pretrained
-pretrained_path
-mm_imgfe mm_imgfe_layers mm_imgfe_planes mm_imgfe_dim mm_voxfe_layers
-mm_voxfe_planes mm_voxfe_ntd mm_voxfe_dim mm_voxfe_block voxfe_backend
-bev_pallas bev_pallas_head bev_fused_down stem_pallas dbstem_pallas
-vox_grid_extent stg2fuse_dim output_type output_l2 final_type
-final_fusetype final_l2 image_weight image_learnweight vox_weight
-vox_learnweight shallow_weight shallow_learnweight imagevoxorg_weight
-imagevoxorg_learnweight shalloworg_weight shalloworg_learnweight
-stg2imagevox_weight stg2imagevox_learnweight stg2fuse_weight
-stg2fuse_learnweight stg2nlayers stg2fuse_type stg2_useproj drop
-dbimage_fe dbimage_fe_layers share_dbfe
-diff_type diff_direction odeint_method odeint_size use_pallas
-epochs_num train_batch_size infer_batch_size queries_per_epoch
-cache_refresh_rate neg_samples_num negs_num_per_query mining optim lr lrpc
-lrdb lr_crn_layer lr_crn_net seed train_modelq train_modeldb save_dir
-resume checkpoint_after_epoch profile_steps
-criterion margin tripletloss_weight otherloss_type otherloss_weight
-recall_values test_method majority_weight pca_dim
-data_parallel gallery_parallel exp_name
-""".split())
 
 
 def build_datasets(cfg: Config):
@@ -77,7 +80,7 @@ def build_datasets(cfg: Config):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg, args = parse_arguments(
-        argv, HONOURED, extra=lambda p: p.add_argument(
+        argv, extra=lambda p: p.add_argument(
             "--device", default="cuda",
             help="cuda (default) or cpu"))
     from agplace_tpu_torch.device import resolve_device

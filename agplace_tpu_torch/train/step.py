@@ -26,7 +26,6 @@ cover all B*(1+nneg)*NMAP tiles, as in JAX.
 from __future__ import annotations
 
 import logging
-import os
 from typing import Dict, Optional
 
 import torch
@@ -43,6 +42,16 @@ from agplace_tpu_torch.train.state import TrainState
 log = logging.getLogger("train")
 
 
+def check_one_device(cfg: Config) -> None:
+    """Raise on ``data_parallel`` / ``gallery_parallel`` above 1: the port
+    runs on one card (multi-GPU is ROADMAP Queue 1 item 10)."""
+    if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.gallery_parallel \
+            != 1:
+        raise NotImplementedError(
+            "data_parallel / gallery_parallel > 1: the port runs on one "
+            "card (multi-GPU is ROADMAP Queue 1 item 10)")
+
+
 def check_supported(cfg: Config) -> None:
     """Raise on a configuration JAX cannot train or the port does not yet
     (nothing is ignored)."""
@@ -51,42 +60,86 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "share_qdb needs an image-only query tower (modelq='geoloc'); "
             "JAX and the reference MM raise NotImplementedError there")
-    if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.gallery_parallel \
-            != 1:
-        raise NotImplementedError(
-            "data_parallel / gallery_parallel > 1: the port trains on one "
-            "card (multi-GPU is ROADMAP Queue 1 item 10)")
+    check_one_device(cfg)
     if cfg.train.loss.criterion not in ("triplet", "sare_ind",
                                         "sare_joint"):
         raise NotImplementedError(cfg.train.loss.criterion)
 
 
-def check_pretrained(cfg: Config) -> None:
-    """JAX grafts pretrained backbones when a weight source exists and
-    otherwise warns and stays random-init.  The port warns likewise when
-    no source is configured, naming each backbone JAX would graft (the
-    MM's and DBVanilla2D's image branches, GeoLoc's ``model.backbone``),
-    and raises when one is: loading torchvision weights waits for ROADMAP
-    Queue 1 item 13."""
-    if not cfg.model.pretrained:
-        return
+def apply_pretrained_backbones(cfg: Config, mm, db) -> None:
+    """Graft pretrained weights into every image backbone JAX grafts
+    (``agplace_tpu/train/step.py:apply_pretrained_backbones``), in place:
+    the MM's image branch (resnet18 / 34 / 50, convnext_tiny,
+    squeezenet), each DBVanilla2D map-type branch (one under
+    ``share_dbfe``), and GeoLoc's ``backbone`` on either tower (resnet /
+    vgg16 / alexnet / ViT / CCT, the positional embedding resized to the
+    tower's token count).  A backbone with no source found warns and
+    stays as initialised."""
+    from agplace_tpu_torch.models.geoloc import RESNET_BACKBONES
+    from agplace_tpu_torch.utils.torch_convert import (
+        graft, load_pretrained_backbone)
+
     m = cfg.model
-    src = m.pretrained_path or os.environ.get("AGPLACE_WEIGHTS")
-    if src:
-        raise NotImplementedError(
-            f"pretrained backbone weights from {src!r}: the port does not "
-            f"load them yet (ROADMAP Queue 1 item 13); unset "
-            f"model.pretrained_path / AGPLACE_WEIGHTS or pass "
-            f"--pretrained false")
-    archs = {"mm": {m.mm.imgfe}, "geoloc": {m.backbone}}.get(m.modelq,
-                                                            set())
-    if not m.share_qdb:
-        archs |= {"vanilla2d": {m.db.image_fe},
-                  "geoloc": {m.backbone}}.get(m.db.modeldb, set())
-    for arch in sorted(archs):
-        log.warning("no pretrained %s weights configured (set "
-                    "AGPLACE_WEIGHTS or model.pretrained_path); %s backbones "
-                    "stay random-init", arch, arch)
+    loaded: dict = {}
+
+    def get(arch: str, where: str, **kw):
+        key = (arch, tuple(sorted(kw.items())))
+        if key not in loaded:
+            loaded[key] = load_pretrained_backbone(arch, m.pretrained_path,
+                                                   **kw)
+            if loaded[key] is None:
+                log.warning(
+                    "no pretrained %s weights found (set AGPLACE_WEIGHTS or "
+                    "model.pretrained_path); %s stays random-init", arch,
+                    where)
+        return loaded[key]
+
+    def put(tower, name: str, prefix: str, arch: str, where: str, **kw):
+        got = get(arch, where, **kw)
+        if got is None:
+            return
+        dropped = graft(tower, prefix, *got)
+        log.info("loaded pretrained %s into %s/%s%s", arch, name,
+                 prefix.replace(".", "/"),
+                 f" (dropped {len(dropped)} unused subtrees)"
+                 if dropped else "")
+
+    def graft_fe(tower, name: str, prefix: str, fe: str, layers):
+        where = f"{name} image branch {fe}"
+        if fe in ("resnet18", "resnet34", "resnet50"):
+            put(tower, name, prefix + ".fe", fe, where,
+                num_stages=len(layers))
+        elif fe == "convnext_tiny":
+            put(tower, name, prefix + ".fe", fe, where, layers=tuple(layers))
+        elif fe in ("squeezenet10", "squeezenet11"):
+            put(tower, name, prefix + ".fe", fe, where)  # fc stays fresh
+
+    def graft_geoloc(tower, name: str, prefix: str):
+        bb = m.backbone
+        where = f"{name} model.backbone={bb}"
+        if bb in RESNET_BACKBONES:
+            arch, stages, _ = RESNET_BACKBONES[bb]
+            put(tower, name, prefix + "backbone", arch, where,
+                num_stages=stages)
+        elif bb in ("vgg16", "alexnet"):
+            put(tower, name, prefix + "backbone", bb, where)
+        elif bb in ("vit", "cct384"):
+            backbone = tower.get_submodule(prefix + "backbone")
+            put(tower, name, prefix + "backbone", bb, where,
+                n_tokens=backbone.pos.shape[1])
+
+    if m.modelq == "mm":
+        graft_fe(mm, "mm", "image_fe", m.mm.imgfe, m.mm.imgfe_layers)
+    elif m.modelq == "geoloc":
+        graft_geoloc(mm, "mm", "")
+    if db is None:  # share_qdb: no aerial tower
+        return
+    if m.db.modeldb == "vanilla2d":
+        for i in range(1 if m.db.share_dbfe else cfg.data.nmap):
+            graft_fe(db, "db", f"fe_{i}", m.db.image_fe,
+                     m.db.image_fe_layers)
+    elif m.db.modeldb == "geoloc":
+        graft_geoloc(db, "db", "net.")
 
 
 def init_state(cfg: Config, device="cuda", seed: Optional[int] = None,
@@ -95,9 +148,11 @@ def init_state(cfg: Config, device="cuda", seed: Optional[int] = None,
     ``"cpu"``), seeded from ``seed`` (default ``cfg.train.seed``), and the
     optimizer over both.  With ``train_ds``, a geoloc tower's NetVLAD /
     CRN clusters are initialised from its descriptors of the dataset
-    (``train/netvlad_init.py``), as JAX's ``init_state`` does."""
+    (``train/netvlad_init.py``), as JAX's ``init_state`` does; then, with
+    ``model.pretrained``, the image backbones are grafted from the
+    weight files found (``apply_pretrained_backbones``), in JAX's
+    order."""
     check_supported(cfg)
-    check_pretrained(cfg)
     g = torch.Generator().manual_seed(cfg.train.seed if seed is None
                                       else seed)
     mm, db = build_towers(cfg, device, g)
@@ -111,6 +166,8 @@ def init_state(cfg: Config, device="cuda", seed: Optional[int] = None,
         if db is not None and cfg.model.db.modeldb == "geoloc":
             initialize_netvlad_from_dataset(cfg, db, train_ds,
                                             seed=cfg.train.seed, which="db")
+    if cfg.model.pretrained:
+        apply_pretrained_backbones(cfg, mm, db)
     state = TrainState(mm, db, None)
     state.opt = make_optimizer(cfg.train, list(state.named_parameters()),
                                crn=cfg.model.aggregation == "crn",

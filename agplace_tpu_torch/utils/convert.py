@@ -21,7 +21,11 @@ the flax scope names, so a leaf ``a/b/name`` lands on ``a.b.<torch name>``:
   CRN's ``centroids`` / ``assign_w``, ViT's ``cls`` / ``pos``, CCT's
   ``pos`` and ConvNeXt's ``gamma`` -> same name
 
-Scopes carry over as they are, ``GeoDB``'s ``net`` included.
+Scopes carry over as they are, ``GeoDB``'s ``net`` included, and so do
+AnyLoc's extractors (their ``q_i`` / ``k_i`` / ``v_i`` / ``proj_i``
+denses, ``patch_embed`` conv, ``attn_i`` heads, ``cls`` / ``pos``).
+``port_entry`` maps one leaf; ``utils/torch_convert.graft`` lands
+converted pretrained weights through it.
 
 Every flax leaf is consumed exactly once and every entry of the target
 ``state_dict`` is filled; anything else raises.  ``flax_path`` maps a port
@@ -59,6 +63,35 @@ def _leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
         yield prefix, np.asarray(tree)
 
 
+def port_entry(coll: str, path: Tuple[str, ...], arr: np.ndarray,
+               target: Dict[str, torch.Tensor]) -> Tuple[str, torch.Tensor]:
+    """(the port's ``state_dict`` key, the value in the port's layout and
+    dtype) of the flax leaf ``coll/path``; raises where the leaf has no
+    counterpart in ``target`` or another shape."""
+    *scope, name = path
+    base = ".".join(scope) + ("." if scope else "")
+    if name == "kernel" and base + "weight" in target:
+        key = base + "weight"
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:
+            arr = arr.T
+        else:
+            raise ValueError(f"{'/'.join(path)}: kernel of rank "
+                             f"{arr.ndim} for a torch weight")
+    else:
+        key = base + _RENAME.get(name, name)
+    if key not in target:
+        raise KeyError(f"flax leaf {coll}/{'/'.join(path)} has no "
+                       f"counterpart ({key}) in the port")
+    want = tuple(target[key].shape)
+    if tuple(arr.shape) != want:
+        raise ValueError(f"{coll}/{'/'.join(path)}: shape "
+                         f"{arr.shape} != {key} {want}")
+    return key, torch.from_numpy(np.ascontiguousarray(arr)).to(
+        target[key].dtype)
+
+
 def jax_to_state_dict(variables, module: nn.Module) -> Dict[str, torch.Tensor]:
     target = module.state_dict()
     out: Dict[str, torch.Tensor] = {}
@@ -66,30 +99,10 @@ def jax_to_state_dict(variables, module: nn.Module) -> Dict[str, torch.Tensor]:
         if coll not in ("params", "batch_stats"):
             raise KeyError(f"unexpected variable collection {coll!r}")
         for path, arr in _leaves(variables[coll]):
-            *scope, name = path
-            base = ".".join(scope) + ("." if scope else "")
-            if name == "kernel" and base + "weight" in target:
-                key = base + "weight"
-                if arr.ndim == 4:
-                    arr = arr.transpose(3, 2, 0, 1)
-                elif arr.ndim == 2:
-                    arr = arr.T
-                else:
-                    raise ValueError(f"{'/'.join(path)}: kernel of rank "
-                                     f"{arr.ndim} for a torch weight")
-            else:
-                key = base + _RENAME.get(name, name)
-            if key not in target:
-                raise KeyError(f"flax leaf {coll}/{'/'.join(path)} has no "
-                               f"counterpart ({key}) in the port")
+            key, value = port_entry(coll, path, arr, target)
             if key in out:
                 raise KeyError(f"two flax leaves map to {key}")
-            want = tuple(target[key].shape)
-            if tuple(arr.shape) != want:
-                raise ValueError(f"{coll}/{'/'.join(path)}: shape "
-                                 f"{arr.shape} != {key} {want}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
-                target[key].dtype)
+            out[key] = value
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"port entries with no flax leaf: {missing}")

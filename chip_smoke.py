@@ -11,8 +11,10 @@ the int8 and HTTP serving, the KITTI-360-AG and nuScenes-AG readers on
 seeded trees, the ``serve`` / ``test`` entry points, and the MM's option
 tail (the dense and sparse voxel backends, the midpoint / rk4 / dopri5
 integrators, the FPN's top-down pass and blocks, the fusion options, the
-graph-ODE and SDE / CDE library, sparse training) on the card and checks
-every hand-written kernel of the port:
+graph-ODE and SDE / CDE library, sparse training), the model families
+(GeoLoc, MinkLoc, the other image branches), pretrained-backbone grafts,
+AnyLoc, the metric losses, the folder dataset and the whole flag front
+end on the card and checks every hand-written kernel of the port:
 
 * the default configuration: K1 (FCODE), K2 (BEV stage 0), K3 (ECA blocks);
 * the fused-stem / fused-head configuration (``bev_pallas_head``,
@@ -179,10 +181,74 @@ K6 has no path; only its parity is checked.
     host voxelizer;
 21. [train-sparse] ``train()`` at 16 x (2 + 10), fp32, 2 steps on the
     sparse backend with rk4: finite losses, parameters moved, no kernel
-    launched by the steps, step wall time, peak device memory.
+    launched by the steps, step wall time, peak device memory;
+22. [geoloc] the headline GeoLoc (ResNet-50 conv4 + NetVLAD x 64,
+    65,536-d, fp32 as JAX's factory builds it) as both towers behind a
+    ``PlaceIndex`` of 512 tiles, requests of 1, 7 and 32 queries, a
+    planted top-1 hit, zero launches, 2 queries and 2 tiles against the
+    CPU, ms per forward and peak memory at b32 and b128;
+23. [geoloc-train] ``train()`` with those towers at 16 x (2 + 10): the
+    dataset NetVLAD init on the card (its k-means against the CPU's from
+    the same rows), 4 steps, finite losses, parameters moved, zero
+    launches, step wall time, peak memory; ``PlaceIndex.from_checkpoint``
+    answers one request;
+24. [geoloc-families] every other backbone and head at b8 (ViT-B/16 and
+    CCT-14 at full depth): zero launches, 2 images against the CPU, ms
+    per forward;
+25. [mm-imgfe] the MM beside a ResNet-50 DBVanilla2D behind a 512-tile
+    ``PlaceIndex``, default and fused (exact launch counts, K5 on the
+    ResNet-50 stem), against the CPU, ms per aerial forward beside
+    ResNet-18's; the squeezenet11 MM and the convnext_tiny /
+    squeezenet11 aerial towers at b8;
+26. [minkloc] MinkLoc and MinkLocMultimodal at b32 on the cropped clouds:
+    zero launches, 2 samples against the CPU, ms per forward;
+    [family-cli] (run before [serve-cli], on [data-kitti360]'s tree)
+    ``train --modelq geoloc --modeldb geoloc --backbone resnet50conv4
+    --aggregation netvlad`` for 2 steps, then ``serve build`` and ``serve
+    search --resume`` as subprocesses: each exits 0 and the search
+    answers as the in-process index;
+27. [pretrained] seeded torchvision-layout ResNet-18 / ResNet-50 and an
+    HF-layout ViT-B/16 (``scripts/write_torch_weights.py``) in a
+    temporary directory outside the tree, reached through
+    ``--pretrained_path``: ``init_state`` of ``kitti360_config()`` on the
+    card grafts the MM's and the aerial tower's ResNet-18 branches, every
+    grafted leaf bit-equal to the file's tensor; ``train()`` 2 steps at
+    16 x (2 + 10), fp32, from them (finite losses, step wall time, peak
+    memory); one b32 MM + aerial forward of the grafted towers in the
+    default and the fused configurations: exact launch counts, each
+    launch of K1-K5 held to its plain version on the same inputs with
+    [parity]'s tolerances (``held_to_plain``), the embeddings to the CPU;
+    GeoLoc with ``resnet50conv4`` + NetVLAD and ``vit`` at 256 px
+    grafted on both towers (ViT's table resized to 257 tokens, its CLS
+    row kept, every kept layer bit-equal) and one b8 forward each;
+28. [anyloc] ``DinoV2ExtractFeatures`` at JAX's default widths (ViT-B/14,
+    768 / 12 / 12), 224 px, b32, facet value at layer 11: ms per forward,
+    4 images against the CPU (ANYLOC_TOL); ``VLAD(32, hard, cosine)``
+    fitted on the card on 64 images' patch descriptors (16,384 x 768),
+    its k-means against the CPU's from the same rows (the first step's
+    distances within KMEANS_TOL, its assignments parted only at near
+    ties; the card's objective within VLAD_OBJ_TOL of the CPU's float32
+    and float64 fits); the VLADs of 64 database and 32 query images
+    (noisy copies; query 0 an exact one) against the CPU's on the same
+    centres (VLAD_TOL, labels parted only at near ties) and through
+    ``get_top_k_recall``: query 0 top-1; one b8 forward at ViT-g/14's
+    widths (1536, 40 blocks, 24 heads, layer 31, GELU MLP as JAX builds
+    it): ms and peak memory;
+29. [tail] ``batch_hard_triplet_loss`` at N = 1024, 256-d, value and
+    gradient against the CPU (METRIC_TOL, METRIC_GRAD_TOL); ``get_flops``
+    of the b32 MM forward (the convs and matmuls PyTorch dispatches: the
+    hand-written kernels are not counted) beside the CPU's plain path at
+    b4; a seeded folder tree (``write_torch_trees.folder_tree``: 64 JPEG
+    tiles, 32 queries) through ``FolderDataset`` and ``evaluate`` with
+    GeoLoc towers on the card: recalls sane, zero launches, 2 queries
+    against the CPU;
+30. [flags] ``python -m agplace_tpu_torch.train`` as a subprocess on the
+    card for 1 step with ``--odeint_method dopri5 --odeint_rtol 1e-3
+    --odeint_atol 1e-3 --dopri5_max_steps 16 --horizontal_flip true
+    --patience 3``: exit 0, a finite loss, each flag in its field.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
-JSON record (``launches`` summed over the fifteen paths, split in
+JSON record (``launches`` summed over the paths, split in
 ``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
 inputs by ``bound``; ``library_ms`` the yardstick for part of the work
 where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
@@ -357,15 +423,35 @@ def device_ms(fn, n: int = 50) -> float:
     """Mean device time per call of ``fn``'s kernels (``torch.profiler``
     over ``n`` calls after one warm-up): for a kernel shorter than the
     host's enqueue of one call, whose CUDA-event timings are the host's."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return profiled_ms(prof) / n
+    return profiled_ms(profile_calls(fn, n)) / n
+
+
+# a profile that recorded no device activity at all (the tracer failed,
+# not the calls: once in a whole smoke on an H100) is taken again, this
+# many times in all
+PROFILE_TRIES = 3
+
+
+def profile_calls(fn, n: int):
+    """The ``torch.profiler`` run (device activity) of ``n`` calls of
+    ``fn``, taken again while it recorded no device time, up to
+    ``PROFILE_TRIES`` times in all; then it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        try:
+            profiled_ms(prof)
+            return prof
+        except RuntimeError:
+            pass
+    raise RuntimeError(f"the profiler recorded no device time in "
+                       f"{PROFILE_TRIES} tries")
 
 
 def profiled_ms(prof) -> float:
@@ -2465,7 +2551,7 @@ def phase_serve_cli(dev, tree, save_dir):
     from agplace_tpu_torch.infer import make_infer_fns
     from agplace_tpu_torch.serving import PlaceIndex
     from agplace_tpu_torch.train.checkpoint import load_towers
-    from agplace_tpu_torch.train.cli import HONOURED, build_datasets
+    from agplace_tpu_torch.train.cli import build_datasets
 
     data = ["--dataset", "kitti360", "--dataroot", tree, "--save_dir",
             save_dir, "--resume", "best_model"]
@@ -2476,7 +2562,7 @@ def phase_serve_cli(dev, tree, save_dir):
     t_build = time.perf_counter() - t0
     built = json.loads(out.strip().splitlines()[-1])
 
-    cfg, _ = parse_arguments(data, HONOURED)
+    cfg, _ = parse_arguments(data)
     _, test_ds = build_datasets(cfg)
     idx = PlaceIndex.from_checkpoint(cfg, save_dir, "best_model", dev)
     idx.load_gallery(gal)
@@ -3500,7 +3586,7 @@ def phase_family_cli(dev, tree):
     from agplace_tpu_torch.config import parse_arguments
     from agplace_tpu_torch.embed import batched_embed_q
     from agplace_tpu_torch.serving import PlaceIndex
-    from agplace_tpu_torch.train.cli import HONOURED, build_datasets
+    from agplace_tpu_torch.train.cli import build_datasets
 
     save_dir = runs_dir("chip_smoke_family_cli")
     family = ["--modelq", "geoloc", "--modeldb", "geoloc", "--backbone",
@@ -3523,7 +3609,7 @@ def phase_family_cli(dev, tree):
     out, _ = cli("agplace_tpu_torch.serve", "search", "--gallery", gal,
                  "--k", "5", *data)
     t_serve = time.perf_counter() - t0
-    cfg, _ = parse_arguments(data, HONOURED)
+    cfg, _ = parse_arguments(data)
     _, test_ds = build_datasets(cfg)
     idx = PlaceIndex.from_checkpoint(cfg, save_dir, "best_model", dev)
     idx.load_gallery(gal)
@@ -3538,6 +3624,628 @@ def phase_family_cli(dev, tree):
     import shutil
 
     shutil.rmtree(save_dir, ignore_errors=True)
+
+
+# ---- the single-device tail: pretrained grafts, AnyLoc, the rest --------
+
+PRE_ARCHS = ("resnet18", "resnet50", "vit")  # the seeded weight files
+PRE_STEPS = 2  # [pretrained]: train() steps of 16 x (2 + 10)
+ANYLOC_IMAGE = 224
+ANYLOC_BATCH = 32
+ANYLOC_CPU = 4  # images the card's DINOv2 forward is held to on the CPU
+VLAD_DB, VLAD_Q = 64, 32  # 64 x 256 patches = 16,384 descriptors
+# AnyLoc runs fp32 with TF32 off: the card and the CPU differ only in
+# their summation orders
+ANYLOC_TOL = 1e-4
+# [anyloc]: the k-means objective of the card's fit against the CPU's
+# float32 and float64 fits from the same rows, relative (their
+# assignments part at a near tie and then follow other paths; measured
+# 5e-5 on an H100)
+VLAD_OBJ_TOL = 2e-4
+# [anyloc]: the VLADs of the card and the CPU on the same centres, of
+# scale (measured 4.6e-7 on an H100)
+VLAD_TOL = 2e-6
+METRIC_N = 1024
+METRIC_TOL, METRIC_GRAD_TOL = 1e-5, 1e-4
+FOLDER_DB, FOLDER_Q = 64, 32
+# AnyLoc's public setting: ViT-g/14's widths at its layer 31, facet value
+VIT_G = dict(hidden=1536, depth=40, heads=24, layer=31)
+
+
+def plain_checks():
+    """Each of K1-K5's wrappers paired with its plain version, its
+    argument preparation and the tolerance of [parity]."""
+    from agplace_tpu_torch.ops import (bev_block_sm, bev_down, bev_head,
+                                       ode_step, stem_pool)
+
+    bf16 = torch.bfloat16
+
+    def k1(a, k):
+        return ode_step.euler_ode_plain(*a, **k)
+
+    def k2(a, k):
+        return bev_down.conv0_down0_plain(a[0].to(bf16), *a[1:], **k)
+
+    def k3(a, k):
+        return bev_block_sm.eca_block_plain(a[0].to(bf16), *a[1:], **k)
+
+    def k4(a, k):
+        return bev_head.head_plain(*a, **k)
+
+    def k5(a, k):
+        return stem_pool.stem_pool_plain(a[0].to(bf16), *a[1:], **k)
+
+    return ((ode_step, "fused_euler_ode", k1, K1_TOL),
+            (bev_down, "fused_conv0_down0", k2, KSTAGE0_TOL),
+            (bev_block_sm, "fused_eca_block_sm", k3, KBF16_TOL),
+            (bev_head, "fused_head", k4, KSTAGE0_TOL),
+            (stem_pool, "fused_affine_relu_maxpool", k5, EXACT))
+
+
+class held_to_plain:
+    """While active, every launch of K1-K5 is followed by its plain
+    version on the same inputs on the card, and the two are compared with
+    [parity]'s tolerances (the worst error by kernel in ``worst``).  The
+    plain calls launch no kernel: the counts are the path's own."""
+
+    def __init__(self, label):
+        self.label, self.worst, self.saved = label, {}, []
+
+    def __enter__(self):
+        for mod, name, plain, tol in plain_checks():
+            real = getattr(mod, name)
+
+            def wrapper(*a, _real=real, _plain=plain, _tol=tol,
+                        _name=name, **k):
+                out = _real(*a, **k)
+                ref = _plain(a, k)
+                got, want = ((out[0], ref[0]) if isinstance(out, tuple)
+                             else (out, ref))
+                rec = compare(f"[{self.label}] {_name} (a launch)", got,
+                              want, _tol)
+                self.worst[_name] = max(self.worst.get(_name, 0.0),
+                                        rec["max_abs_err"])
+                return out
+
+            wrapper.launches = real.launches
+            wrapper.__name__ = name
+            setattr(mod, name, wrapper)
+            self.saved.append((mod, name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            real.launches = getattr(mod, name).launches
+            setattr(mod, name, real)
+        return False
+
+
+def weights_dir():
+    """Seeded state_dicts of ``PRE_ARCHS`` in their shipping layouts
+    (``scripts/write_torch_weights.py``) in a temporary directory outside
+    the tree; (directory, {arch: state_dict})."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import write_torch_weights
+
+    path = tempfile.mkdtemp(prefix="agp_weights_")
+    write_torch_weights.write(path, PRE_ARCHS)
+    return path, {a: torch.load(os.path.join(path, f"{a}-seeded.pth"),
+                                weights_only=True) for a in PRE_ARCHS}
+
+
+def resnet_port_key(key):
+    """A torchvision ResNet entry's name in the port's ``ResNetFeatures``:
+    ``layer2.1.conv1.weight`` -> ``layer2_1.conv1.weight``, the downsample
+    pair -> ``downsample_conv`` / ``downsample_bn``."""
+    parts = key.split(".")
+    if parts[0].startswith("layer"):
+        parts[:2] = [f"{parts[0]}_{parts[1]}"]
+    name = ".".join(parts)
+    return (name.replace("downsample.0.", "downsample_conv.")
+            .replace("downsample.1.", "downsample_bn."))
+
+
+def check_resnet_graft(label, tower, prefix, sd, stages):
+    """Every entry of the torchvision dict inside the tower's ``stages``
+    is bit-equal to the port's tensor (OIHW convs and BN vectors keep
+    torchvision's layout); returns the count."""
+    ours = tower.state_dict()
+    n = 0
+    for k, v in sd.items():
+        if k.startswith("fc.") or (k.startswith("layer")
+                                   and int(k[5]) > stages):
+            continue
+        got = ours[f"{prefix}.{resnet_port_key(k)}"].detach().cpu()
+        if not torch.equal(got.contiguous(), v):
+            raise AssertionError(f"[{label}] {prefix}.{k} not grafted")
+        n += 1
+    return n
+
+
+def check_vit_graft(label, backbone, sd, n_tokens):
+    """The HF ViT-B/16 dict in the port's ``ViTBackbone``: every kept
+    layer bit-equal (q / k / v kernels [768, 12, 64], out [12, 64, 768]),
+    the positional table resized to ``n_tokens`` with its CLS row kept."""
+    d, h = 768, 12
+    pos = backbone.pos.detach().cpu()
+    if tuple(pos.shape) != (1, n_tokens, d) or not torch.equal(
+            pos[0, 0], sd["embeddings.position_embeddings"][0, 0]):
+        raise AssertionError(f"[{label}] pos {tuple(pos.shape)}")
+    want = {"cls": sd["embeddings.cls_token"],
+            "embed.weight": sd["embeddings.patch_embeddings.projection."
+                               "weight"],
+            "ln_f.weight": sd["layernorm.weight"]}
+    for i in range(backbone.n_layers):
+        src = f"encoder.layer.{i}"
+        for f in ("query", "key", "value"):
+            w = sd[f"{src}.attention.attention.{f}.weight"]
+            want[f"attn_{i}.{f}.kernel"] = w.T.reshape(d, h, d // h)
+        want[f"attn_{i}.out.kernel"] = sd[
+            f"{src}.attention.output.dense.weight"].T.reshape(h, d // h, d)
+        want[f"mlp1_{i}.weight"] = sd[f"{src}.intermediate.dense.weight"]
+        want[f"ln2_{i}.bias"] = sd[f"{src}.layernorm_after.bias"]
+    ours = backbone.state_dict()
+    for k, v in want.items():
+        if not torch.equal(ours[k].detach().cpu().contiguous(),
+                           v.contiguous()):
+            raise AssertionError(f"[{label}] backbone.{k} not grafted")
+    return len(want)
+
+
+def pretrained_cfg(base, wdir, **model):
+    import dataclasses
+
+    return base.replace(model=dataclasses.replace(
+        base.model, pretrained=True, pretrained_path=wdir, **model))
+
+
+def phase_pretrained(base, dev, name, wdir, sds):
+    """[pretrained]: seeded torchvision-layout ResNet-18 / ResNet-50 and an
+    HF-layout ViT-B/16 behind ``--pretrained_path``.  ``init_state`` of
+    ``kitti360_config()`` on the card grafts the MM's and the aerial
+    tower's ResNet-18 branches (every leaf bit-equal to the dict's);
+    ``train()`` takes 2 steps at 16 x (2 + 10) from them (finite losses,
+    step wall time, peak memory); the grafted towers' b32 eval forward in
+    the default and fused configurations launches K1-K5 with [serving]'s
+    counts per forward, each launch held to its plain version on the same
+    inputs, the embeddings to the CPU; GeoLoc with ``resnet50conv4`` and
+    ``vit`` at 256 px grafted (ViT's table resized to 257 tokens) and one
+    forward each."""
+    import dataclasses
+    import shutil
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.train import loop
+    from agplace_tpu_torch.train.step import init_state
+
+    # the graft on the card: kitti360_config(), fp32
+    cfg = pretrained_cfg(train_cfg(), wdir)
+    t0 = time.perf_counter()
+    mm, db = init_state(cfg, dev).towers
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    stages = len(cfg.model.mm.imgfe_layers)
+    n_mm = check_resnet_graft("pretrained", mm, "image_fe.fe",
+                              sds["resnet18"], stages)
+    n_db = sum(check_resnet_graft(
+        "pretrained", db, f"fe_{i}.fe", sds["resnet18"],
+        len(cfg.model.db.image_fe_layers))
+        for i in range(1 if cfg.model.db.share_dbfe else cfg.data.nmap))
+    del mm, db
+
+    # train() from the grafted towers
+    save_dir = runs_dir("chip_smoke_pretrained")
+    cfg_t = pretrained_cfg(train_cfg(
+        queries_per_epoch=16 * PRE_STEPS, cache_refresh_rate=16 * PRE_STEPS,
+        neg_samples_num=64, epochs_num=1, checkpoint_after_epoch=-1,
+        save_dir=save_dir), wdir)
+    walls = []
+    real = loop.make_train_step
+
+    def make(c):
+        step = real(c)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+
+    loop.make_train_step = make
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = loop.train(cfg_t, train_world(cfg_t, 64, 64, 4),
+                         train_world(cfg_t, 32, 16, 5), device=dev)
+    finally:
+        loop.make_train_step = real
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["history"][0]["losses"]
+    if out["state"].step != PRE_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"[pretrained] train: {losses}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    del out
+    log(f"[pretrained] {name}: init_state grafted {n_mm} MM and {n_db} "
+        f"aerial-tower leaves of the ResNet-18 file, each bit-equal, in "
+        f"{t_init:.2f} s; train() {PRE_STEPS} steps of 16 x (2 + 10) fp32 "
+        f"from them: losses {losses}, step wall ms "
+        f"{[round(w, 1) for w in walls]} (synchronised), peak "
+        f"{peak:.2f} GiB")
+
+    # the grafted towers' eval forward, default and fused, bf16
+    bf = base.replace(model=dataclasses.replace(base.model,
+                                                compute_dtype="bfloat16"))
+    fused = bf.replace(model=dataclasses.replace(
+        bf.model, mm=dataclasses.replace(bf.model.mm, bev_pallas_head=True,
+                                         stem_pallas=True),
+        db=dataclasses.replace(bf.model.db, stem_pallas=True)))
+    rng = np.random.default_rng(15)
+    images = rng.standard_normal((32, IMAGE, IMAGE, 3)).astype(np.float32)
+    points = lidar(rng, 32)
+    maps = rng.standard_normal((32, 1, IMAGE, IMAGE, 3)).astype(np.float32)
+    total = None
+    for label, c in (("pretrained-default", bf), ("pretrained-fused",
+                                                   fused)):
+        mm, db = init_state(pretrained_cfg(c, wdir), dev).towers
+        mm.eval()
+        db.eval()
+        cpu_mm, cpu_db = copy.deepcopy(mm).cpu(), copy.deepcopy(db).cpu()
+        vox = prepare_query_vox(c, points, dev)
+        with torch.inference_mode(), held_to_plain(label) as held:
+            ops.reset_launches()  # ---- the path: one MM + one aerial fwd
+            q = mm(torch.from_numpy(images).to(dev), vox)["embedding"]
+            t = db(torch.from_numpy(maps).to(dev))
+            torch.cuda.synchronize()
+            counts = ops.launches()  # ---- read just after the path
+        want = expected_launches(c, 32, 1)
+        if counts != want:
+            raise AssertionError(f"[{label}] launches {counts} != {want}")
+        with torch.inference_mode():
+            err_q = held_to_cpu(label, q[:4], cpu_mm(
+                torch.from_numpy(images[:4]),
+                prepare_query_vox(c, points[:4], "cpu"))["embedding"])
+            err_t = held_to_cpu(label, t[:2],
+                                cpu_db(torch.from_numpy(maps[:2])))
+        log(f"[{label}] b32: launches {counts}; each launch against its "
+            f"plain version, worst max_abs_err {held.worst}; card vs CPU "
+            f"embeddings {err_q:.3g} (queries), {err_t:.3g} (tiles) of "
+            f"scale")
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+        del mm, db, cpu_mm, cpu_db
+
+    # GeoLoc's backbone on both towers
+    x = torch.from_numpy(images[:8]).to(dev)
+    n_tokens = (IMAGE // 16) ** 2 + 1  # 257 at 256 px
+    for bb, agg, arch in (("resnet50conv4", "netvlad", "resnet50"),
+                          ("vit", "cls", "vit")):
+        c = pretrained_cfg(geoloc_cfg(train_cfg(), backbone=bb,
+                                      aggregation=agg), wdir)
+        q, d = init_state(c, dev).towers
+        q.eval()
+        if arch == "vit":
+            n = sum(check_vit_graft("pretrained", t.get_submodule(p),
+                                    sds["vit"], n_tokens)
+                    for t, p in ((q, "backbone"), (d, "net.backbone")))
+        else:
+            n = sum(check_resnet_graft("pretrained", t, p, sds[arch], 3)
+                    for t, p in ((q, "backbone"), (d, "net.backbone")))
+        with torch.inference_mode():
+            ops.reset_launches()
+            y = q(x)
+            torch.cuda.synchronize()
+            zero_launches(f"pretrained geoloc {bb}", ops.launches())
+        if not bool(torch.isfinite(y).all()) or y.shape[0] != 8:
+            raise AssertionError(f"[pretrained] geoloc {bb}: {y.shape}")
+        log(f"[pretrained] geoloc {bb} + {agg}: {n} grafted leaves checked "
+            f"on both towers (positional table "
+            f"{tuple(q.backbone.pos.shape)}); b8 forward {tuple(y.shape)}"
+            if arch == "vit" else
+            f"[pretrained] geoloc {bb} + {agg}: {n} grafted leaves "
+            f"checked on both towers; b8 forward {tuple(y.shape)}")
+        del q, d
+    return total
+
+
+def seeded_module(module, dev, seed):
+    """``module`` on ``dev`` with seeded flax-scale weights, LayerNorms
+    away from the identity; drawn on the card for the large ones."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    module.to(dev)
+    with torch.no_grad():
+        for n, p in module.named_parameters():
+            leaf = n.rsplit(".", 1)[-1]
+            if p.ndim == 1 and leaf == "weight":
+                p.uniform_(0.5, 1.5, generator=g)
+            elif p.ndim == 1:
+                p.normal_(0.0, 0.1, generator=g)
+            elif leaf in ("cls", "pos"):
+                p.normal_(0.0, 0.02, generator=g)
+            else:  # OIHW conv, [out, in] dense, [in, heads, hd] heads
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=g)
+    return module.eval()
+
+
+def parted_at_near_ties(label, card_s, cpu_s, pick=torch.argmin):
+    """The rows of [N, K] scores whose best column (``pick``) differs
+    between the card and the CPU, as a CPU mask.  Raises unless each is a
+    near tie: its two columns' CPU scores within twice the largest
+    card-vs-CPU difference of a score, the most that rounding alone can
+    turn."""
+    card_s = card_s.float().cpu()
+    a_card, a_cpu = pick(card_s, dim=-1), pick(cpu_s, dim=-1)
+    parted = a_card != a_cpu
+    rows = parted.nonzero().flatten()
+    if rows.numel():
+        gap = float((cpu_s[rows, a_card[rows]]
+                     - cpu_s[rows, a_cpu[rows]]).abs().max())
+        if gap > 2 * float((card_s - cpu_s).abs().max()):
+            raise AssertionError(f"[{label}] {rows.numel()} rows part, by "
+                                 f"up to {gap:.3g}: not a near tie")
+    return parted
+
+
+def kmeans_objective(points, centres, assign) -> float:
+    """Mean squared distance of each point to its assigned centre."""
+    return float(((points - centres[assign]) ** 2).sum(-1).mean())
+
+
+def phase_anyloc(dev, name):
+    """[anyloc]: JAX's default ``DinoV2ExtractFeatures`` (ViT-B/14, 768 /
+    12 / 12) at 224 px, b32, facet value at layer 11: ms per forward, 4
+    images against the CPU; ``VLAD(32, hard, cosine)`` fitted on the card
+    on 64 images' patch descriptors (16,384 x 768; its k-means against the
+    CPU's and a float64 CPU fit from the same rows), VLADs of 64 database
+    and 32 query images (noisy copies of database images; query 0 an
+    exact one) against the CPU's on the same centres and through
+    ``get_top_k_recall``: the planted match at top-1; one b8 forward at
+    ViT-g/14's widths (1536, 40 blocks, 24 heads, layer 31, facet value,
+    GELU MLP as JAX builds it): ms and peak memory."""
+    from agplace_tpu_torch.models.anyloc import (DinoV2ExtractFeatures,
+                                                 VLAD, get_top_k_recall)
+    from agplace_tpu_torch.models.anyloc import _norm as anyloc_norm
+    from agplace_tpu_torch.retrieval.kmeans import kmeans
+    from agplace_tpu_torch.retrieval.knn import pairwise_sq_l2
+
+    ex = seeded_module(DinoV2ExtractFeatures(facet="value"), dev, 0)
+    rng = np.random.default_rng(16)
+    db_imgs = rng.standard_normal((VLAD_DB, ANYLOC_IMAGE, ANYLOC_IMAGE,
+                                   3)).astype(np.float32)
+    src = np.arange(VLAD_Q) * 2
+    q_imgs = db_imgs[src] + np.float32(0.05) * rng.standard_normal(
+        (VLAD_Q, ANYLOC_IMAGE, ANYLOC_IMAGE, 3)).astype(np.float32)
+    q_imgs[0] = db_imgs[0]
+    x = torch.from_numpy(db_imgs[:ANYLOC_BATCH]).to(dev)
+    ms, peak = timed_forward(lambda: ex(x), iters=10)
+    with torch.inference_mode():
+        got = ex(x[:ANYLOC_CPU])
+        err = held_to_cpu("anyloc dinov2", got, copy.deepcopy(ex).cpu()(
+            torch.from_numpy(db_imgs[:ANYLOC_CPU])), ANYLOC_TOL)
+
+        def descs(imgs):
+            out = [ex(torch.from_numpy(imgs[i:i + ANYLOC_BATCH]).to(dev))
+                   for i in range(0, len(imgs), ANYLOC_BATCH)]
+            return torch.cat(out)  # [N, patches, 768]
+
+        d_db, d_q = descs(db_imgs), descs(q_imgs)
+    n_patch = (ANYLOC_IMAGE // 14) ** 2
+    if d_db.shape != (VLAD_DB, n_patch, 768):
+        raise AssertionError(f"[anyloc] descriptors {tuple(d_db.shape)}")
+    train = d_db.reshape(-1, 768)
+    init = torch.randperm(train.shape[0],
+                          generator=torch.Generator().manual_seed(0))[:32]
+    vlad = VLAD(32, dist_mode="cosine", vlad_mode="hard", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vlad.fit(train, init_idx=init)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_db, v_q = vlad.generate_multi(d_db), vlad.generate_multi(d_q)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    # k-means against the CPU from the same rows of the same (twice
+    # normalised, as ``fit`` does) descriptors: the first Lloyd step's
+    # distances (summation order only) within KMEANS_TOL, its assignments
+    # parted only at near ties; the two full fits, whose assignments then
+    # follow other paths, by their objective and the share of assignments
+    # that differ.  The CPU's fit in float64 from the same rows is the
+    # second witness: rounding alone parts the paths there too
+    fit = anyloc_norm(anyloc_norm(train))
+    fit_cpu = fit.cpu()
+    d_card = pairwise_sq_l2(fit, fit[init.to(dev)])
+    d_cpu = pairwise_sq_l2(fit_cpu, fit_cpu[init])
+    err_d = held_to_cpu("anyloc k-means distances", d_card, d_cpu,
+                        KMEANS_TOL)
+    step1 = int(parted_at_near_ties("anyloc k-means step 1", d_card,
+                                    d_cpu).sum())
+    cc, a_cpu = kmeans(fit_cpu, 32, init_idx=init)
+    cc64, a_64 = kmeans(fit_cpu.double(), 32, init_idx=init)
+    a_card = torch.argmin(pairwise_sq_l2(fit, vlad.c_centers), dim=-1)
+    obj_card = kmeans_objective(fit, vlad.c_centers, a_card)
+    obj_cpu = kmeans_objective(fit_cpu, cc, a_cpu)
+    obj_64 = kmeans_objective(fit_cpu.double(), cc64, a_64)
+    parted = float((a_card.cpu() != a_cpu).float().mean())
+    parted_64 = float((a_64 != a_cpu).float().mean())
+    if max(abs(obj_card - obj_cpu) / obj_cpu,
+           abs(obj_card - obj_64) / obj_64) > VLAD_OBJ_TOL:
+        raise AssertionError(f"[anyloc] k-means objective {obj_card} on the "
+                             f"card, {obj_cpu} on the CPU, {obj_64} in "
+                             f"float64")
+    # ``generate`` on the card against the CPU on the card's centres: its
+    # hard labels (from the raw descriptors, per image, as ``generate``
+    # takes them) part only at near ties, and the VLADs of the images
+    # where none parts within VLAD_TOL
+    descs_all = torch.cat([d_db, d_q])
+    v_card = torch.cat([v_db, v_q])
+    cpu_vlad = VLAD(32, dist_mode="cosine", vlad_mode="hard", device="cpu")
+    cpu_vlad.c_centers = vlad.c_centers.cpu()
+    v_cpu = cpu_vlad.generate_multi(descs_all.cpu())
+    c_unit = anyloc_norm(vlad.c_centers)
+    same = torch.tensor([not bool(parted_at_near_ties(
+        "anyloc VLAD labels", anyloc_norm(d) @ c_unit.T,
+        anyloc_norm(d.cpu()) @ c_unit.cpu().T, torch.argmax).any())
+        for d in descs_all])
+    if not bool(same.any()):
+        raise AssertionError("[anyloc] every image has a parted label")
+    err_v = held_to_cpu("anyloc VLAD", v_card[same.to(dev)], v_cpu[same],
+                        VLAD_TOL)
+    gt = [np.array([s]) for s in src]
+    _, idx, recalls = get_top_k_recall([1, 5], v_db, v_q, gt)
+    if v_db.shape != (VLAD_DB, 32 * 768) or idx[0, 0] != 0:
+        raise AssertionError(f"[anyloc] VLAD {tuple(v_db.shape)}, query 0 "
+                             f"-> {idx[0].tolist()}")
+    del ex, x, d_db, d_q, descs_all
+    torch.cuda.empty_cache()
+    with torch.device(dev):  # 1.1 B parameters: made on the card
+        big = DinoV2ExtractFeatures(facet="value", **VIT_G)
+    big = seeded_module(big, dev, 1)
+    xb = torch.from_numpy(db_imgs[:8]).to(dev)
+    ms_g, peak_g = timed_forward(lambda: big(xb), iters=5)
+    with torch.inference_mode():
+        yb = big(xb)
+    if yb.shape != (8, n_patch, VIT_G["hidden"]) or not bool(
+            torch.isfinite(yb).all()):
+        raise AssertionError(f"[anyloc] ViT-g/14 {tuple(yb.shape)}")
+    n_params = sum(p.numel() for p in big.parameters())
+    log(f"[anyloc] {name}: DINOv2 ViT-B/14 value@11 at {ANYLOC_IMAGE} px "
+        f"b{ANYLOC_BATCH}: {ms:.3f} ms per forward (CUDA events, median "
+        f"of 10), peak {peak:.2f} GiB, card vs CPU {err:.3g} of scale; "
+        f"VLAD(32, hard, cosine) fit on {train.shape[0]} x 768 in "
+        f"{t_fit:.3f} s (k-means vs CPU: distances {err_d:.3g} of scale, "
+        f"{step1} first-step assignments parted at near ties; objective "
+        f"{obj_card:.6g} card / {obj_cpu:.6g} CPU / {obj_64:.6g} CPU "
+        f"float64, {parted:.4f} of the assignments differ card vs CPU, "
+        f"{parted_64:.4f} CPU float64 vs float32), {VLAD_DB} + {VLAD_Q} "
+        f"VLADs ({v_db.shape[1]}-d) in {t_gen:.3f} s, card vs CPU on the "
+        f"same centres {err_v:.3g} of scale over {int(same.sum())} images "
+        f"({int((~same).sum())} with a label parted at a near tie left "
+        f"out); recalls {recalls}, "
+        f"query 0 top-1 {idx[0, 0]}; ViT-g/14 widths ({n_params / 1e9:.2f} "
+        f"B parameters) value@31 b8: {ms_g:.3f} ms per forward (median of "
+        f"5), peak {peak_g:.2f} GiB")
+    del big, xb, yb
+    torch.cuda.empty_cache()
+
+
+def phase_tail(base, dev, name, mm):
+    """[tail]: the batch-hard metric losses at N = 1024, 256-d, with their
+    gradients, card against CPU; ``get_flops`` of the b32 MM forward
+    (the convs and matmuls PyTorch dispatches: the hand-written kernels'
+    work is not counted, as XLA counts no custom call) beside the CPU's
+    plain path at b4; a seeded folder tree through ``FolderDataset`` and
+    ``evaluate`` with GeoLoc towers (ResNet-18 conv4 + GeM) on the card,
+    2 queries against the CPU."""
+    import shutil
+    import tempfile
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.folder_dataset import FolderDataset
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+    from agplace_tpu_torch.evaluate import evaluate
+    from agplace_tpu_torch.infer import make_infer_fns
+    from agplace_tpu_torch.train.metric_losses import (
+        batch_hard_triplet_loss, masks_from_eastnorth)
+    from agplace_tpu_torch.utils.flops import get_flops
+
+    rng = np.random.default_rng(17)
+    emb = rng.standard_normal((METRIC_N, 256)).astype(np.float32)
+    pos, neg = masks_from_eastnorth(rng.uniform(0, 400, (METRIC_N, 2)))
+    res = {}
+    for where in (dev, "cpu"):
+        x = torch.from_numpy(emb).to(where).requires_grad_()
+        loss, stats = batch_hard_triplet_loss(
+            x, torch.from_numpy(pos).to(where),
+            torch.from_numpy(neg).to(where))
+        loss.backward()
+        res[str(where)] = (loss.detach(), x.grad, stats)
+    (l_card, g_card, stats), (l_cpu, g_cpu, _) = res[str(dev)], res["cpu"]
+    err_l = held_to_cpu("tail metric loss", l_card[None], l_cpu[None],
+                        METRIC_TOL)
+    err_g = held_to_cpu("tail metric grad", g_card, g_cpu, METRIC_GRAD_TOL)
+    n_trip = int(stats["num_triplets"])
+
+    images = rng.standard_normal((32, IMAGE, IMAGE, 3)).astype(np.float32)
+    points = lidar(rng, 32)
+    vox = prepare_query_vox(base, points, dev)
+    xg = torch.from_numpy(images).to(dev)
+    flops = get_flops(mm, xg, vox)
+    cpu_mm = copy.deepcopy(mm).cpu()
+    flops_cpu = get_flops(cpu_mm, torch.from_numpy(images[:4]),
+                          prepare_query_vox(base, points[:4], "cpu"))
+    del cpu_mm
+
+    root = tempfile.mkdtemp(prefix="agp_folder_")
+    write_trees().folder_tree(root, n_db=FOLDER_DB, n_q=FOLDER_Q,
+                              size=320, split="test")
+    cfg = geoloc_cfg(base, backbone="resnet18conv4", aggregation="gem")
+    ds = FolderDataset(cfg, root, "test")
+    (q, d), (cpu_q, _) = family_towers(cfg, dev)
+    ops.reset_launches()  # ---- the path: evaluate on the folder tree
+    t0 = time.perf_counter()
+    recalls, text = evaluate(cfg, ds, *make_infer_fns(q, d), device=dev)
+    t_eval = time.perf_counter() - t0
+    counts = ops.launches()  # ---- read just after the path
+    zero_launches("tail folder evaluate", counts)
+    check_recalls("tail folder", recalls, text)
+    imgs = torch.from_numpy(np.stack([ds.load_query_image(i)
+                                      for i in range(2)]))
+    with torch.inference_mode():
+        err_f = held_to_cpu("tail folder queries", q(imgs.to(dev)),
+                            cpu_q(imgs))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[tail] {name}: batch-hard loss at N = {METRIC_N}, 256-d "
+        f"({n_trip} anchors with a positive and a negative): card vs CPU "
+        f"loss {err_l:.3g}, gradient {err_g:.3g} of scale; get_flops of "
+        f"the b32 MM forward {flops:.4g} on the card (dispatched convs and "
+        f"matmuls; K1-K3 not counted), {flops_cpu:.4g} for b4 on the CPU "
+        f"(plain path, all counted); folder tree {ds.database_num} tiles / "
+        f"{ds.queries_num} queries: evaluate {t_eval:.2f} s, {text}, "
+        f"launches 0, 2 queries vs CPU {err_f:.3g}")
+    del q, d, cpu_q
+    return counts
+
+
+def phase_flags(dev):
+    """[flags]: ``python -m agplace_tpu_torch.train`` runs 1 step on the
+    card with dopri5 and its tolerances, ``--horizontal_flip`` and
+    ``--patience``, flags the port refused before; each lands in its
+    field."""
+    from agplace_tpu_torch import config
+
+    save_dir = runs_dir("chip_smoke_flags")
+    flags = ["--odeint_method", "dopri5", "--odeint_rtol", "1e-3",
+             "--odeint_atol", "1e-3", "--dopri5_max_steps", "16",
+             "--horizontal_flip", "true", "--patience", "3"]
+    args = ["--dataset", "synthetic", "--train_batch_size", "4",
+            "--negs_num_per_query", "2", "--queries_per_epoch", "4",
+            "--cache_refresh_rate", "4", "--neg_samples_num", "16",
+            "--epochs_num", "1", "--pretrained", "false", "--save_dir",
+            save_dir, *flags]
+    cfg, _ = config.parse_arguments(args)
+    o = cfg.model.mm.ode
+    if (o.method, o.rtol, o.atol, o.dopri5_max_steps, cfg.train.patience,
+            cfg.data.horizontal_flip) != ("dopri5", 1e-3, 1e-3, 16, 3,
+                                          True):
+        raise AssertionError(f"[flags] parsed {o}")
+    t0 = time.perf_counter()
+    cli("agplace_tpu_torch.train", *args)
+    t_run = time.perf_counter() - t0
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        epoch = json.loads(f.readline())
+    if epoch["steps"] != 1 or not np.isfinite(epoch["losses"]).all():
+        raise AssertionError(f"[flags] train: {epoch}")
+    import shutil
+
+    shutil.rmtree(save_dir, ignore_errors=True)
+    log(f"[flags] train {' '.join(flags)}: 1 step on the card, loss "
+        f"{epoch['losses']}, {t_run:.1f} s")
 
 
 def main() -> None:
@@ -3633,6 +4341,18 @@ def main() -> None:
     counts_gf = phase_geoloc_families(cfg, dev, name)
     counts_mi = phase_mm_imgfe(cfg, dev, name)
     counts_ml = phase_minkloc(cfg, dev, name)
+    # ---- the single-device tail: pretrained grafts, AnyLoc, the rest
+    import shutil
+
+    wdir, sds = weights_dir()
+    try:
+        counts_pre = phase_pretrained(cfg, dev, name, wdir, sds)
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    del sds
+    phase_anyloc(dev, name)
+    counts_tl = phase_tail(cfg, dev, name, mm)
+    phase_flags(dev)
 
     sources = {
         "fused_euler_ode": ("agplace_tpu_torch/csrc/ode_step.cu",
@@ -3664,7 +4384,8 @@ def main() -> None:
                                   + counts_mb[k] + counts_mo[k]
                                   + counts_mx[k] + counts_g[k]
                                   + counts_gt[k] + counts_gf[k]
-                                  + counts_mi[k] + counts_ml[k]),
+                                  + counts_mi[k] + counts_ml[k]
+                                  + counts_pre[k] + counts_tl[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
@@ -3685,7 +4406,9 @@ def main() -> None:
                                           "geoloc_train": counts_gt[k],
                                           "geoloc_families": counts_gf[k],
                                           "mm_imgfe": counts_mi[k],
-                                          "minkloc": counts_ml[k]},
+                                          "minkloc": counts_ml[k],
+                                          "pretrained": counts_pre[k],
+                                          "tail": counts_tl[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],

@@ -38,7 +38,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import IMAGE, card, cuda_ms, lidar, seed_bn  # noqa: E402
+from chip_smoke import (IMAGE, card, cuda_ms, lidar,  # noqa: E402
+                        profile_calls, seed_bn)
 
 _OWN = re.compile(r"(conv3x3_sm90_kernel<[^>]*>|conv_igemm_kernel<[^>]*>"
                   r"|ode_euler_kernel|head_sm90_kernel"
@@ -89,22 +90,13 @@ def classify(name: str) -> str:
 
 def device_times(fn, n: int):
     """{class: (ms per call of fn, launches per call)} over n calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     ms, count = defaultdict(float), defaultdict(int)
-    for evt in prof.key_averages():
+    for evt in profile_calls(fn, n).key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = classify(evt.key)
         ms[key] += evt.self_device_time_total / 1e3 / n
         count[key] += evt.count
-    if not ms:
-        raise RuntimeError("the profiler recorded no device time")
     return {k: (ms[k], count[k] / n) for k in ms}
 
 

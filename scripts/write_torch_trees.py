@@ -1,9 +1,11 @@
-"""Seeded KITTI-360-AG and nuScenes-AG dataset trees on disk, in the layouts
-the readers walk (``agplace_tpu_torch/data/{kitti360,nuscenes}.py``), for
+"""Seeded KITTI-360-AG, nuScenes-AG and folder (pitts30k-format) dataset
+trees on disk, in the layouts the readers walk
+(``agplace_tpu_torch/data/{kitti360,nuscenes,folder_dataset}.py``), for
 the port's tests and ``chip_smoke.py``:
 
     python3 scripts/write_torch_trees.py kitti360 DIR [--frames 80]
     python3 scripts/write_torch_trees.py nuscenes DIR [--queries 64]
+    python3 scripts/write_torch_trees.py folder DIR [--queries 64]
 
 KITTI-360-AG: drives of ``frames`` frames whose oxts poses step
 ``step_m`` metres north a frame (about a real drive's spacing at its
@@ -138,15 +140,42 @@ def nuscenes_tree(root: str, split: str = "test", queries: int = 64,
     return root
 
 
+def folder_tree(root: str, n_db: int = 64, n_q: int = 32, size: int = 320,
+                split: str = "test", step_m: float = 30.0, seed: int = 0
+                ) -> str:
+    """A pitts30k-format folder tree (``data/folder_dataset.py``):
+    ``images/{split}/database`` holds ``n_db`` JPEG tiles ``step_m``
+    metres apart along a line east, ``images/{split}/queries`` one query
+    per tile for the first ``n_q`` tiles, 3 m from its tile, each a
+    noisier copy of the tile's picture so that it can be found."""
+    rng = np.random.default_rng(seed)
+    e0, n0 = 500000.0, 4000000.0
+    base = os.path.join(root, "images", split)
+    for sub in ("database", "queries"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    for i in range(n_db):
+        tile = np.asarray(smooth_image(rng, size, size), np.float32)
+        east = e0 + i * step_m
+        Image.fromarray(tile.astype(np.uint8)).save(os.path.join(
+            base, "database", f"@{east}@{n0}@.jpg"))
+        if i < n_q:
+            query = np.clip(tile + rng.normal(0, 12, tile.shape), 0, 255)
+            Image.fromarray(query.astype(np.uint8)).save(os.path.join(
+                base, "queries", f"@{east + 3}@{n0}@.jpg"))
+    return root
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("dataset", choices=["kitti360", "nuscenes"])
+    ap.add_argument("dataset", choices=["kitti360", "nuscenes", "folder"])
     ap.add_argument("root")
     ap.add_argument("--frames", type=int, default=80)
     ap.add_argument("--queries", type=int, default=64)
     args = ap.parse_args(argv)
     if args.dataset == "kitti360":
         kitti360_tree(args.root, frames=args.frames)
+    elif args.dataset == "folder":
+        folder_tree(args.root, n_q=args.queries)
     else:
         nuscenes_tree(args.root, queries=args.queries)
     print(args.root)

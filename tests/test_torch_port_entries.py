@@ -67,8 +67,7 @@ def world(tmp_path_factory):
                    "4", "--cache_refresh_rate", "4", "--neg_samples_num",
                    "8", "--pretrained", "false", "--epochs_num", "1",
                    "--num_workers", "2", cwd=str(tmp)))
-    cfg, _ = config.parse_arguments([*data, "--resume", "best_model"],
-                                    cli.HONOURED)
+    cfg, _ = config.parse_arguments([*data, "--resume", "best_model"])
     return tmp, cfg, data + ["--resume", "best_model"], out
 
 

@@ -45,7 +45,8 @@ from agplace_tpu_torch.models.geoloc import GeoLocalizationNet
 from agplace_tpu_torch.train import optim
 from agplace_tpu_torch.train.netvlad_init import (
     initialize_netvlad_from_dataset)
-from agplace_tpu_torch.train.step import (check_pretrained, init_state,
+from agplace_tpu_torch.train.step import (apply_pretrained_backbones,
+                                          init_state,
                                           make_train_step)
 from agplace_tpu_torch.utils.convert import flax_path, load_jax_variables
 from test_torch_port_mm_options import random_variables
@@ -247,19 +248,39 @@ def test_netvlad_init_refused_for_token_backbones_as_jax():
         init_state(cfg, "cpu", train_ds=ds)
 
 
-def test_check_pretrained_names_the_geoloc_backbone(caplog, monkeypatch):
+def test_check_pretrained_names_the_geoloc_backbone(caplog, monkeypatch,
+                                                   tmp_path):
+    """No source: a warning names GeoLoc's backbone and the towers stay
+    random-init.  A configured source: its weights are grafted into the
+    backbone of both geoloc towers (``apply_pretrained_backbones``)."""
+    from scripts.write_torch_weights import seeded_state_dict
+
     monkeypatch.delenv("AGPLACE_WEIGHTS", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
     _, cfg = _cfgs()
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, pretrained=True, backbone="resnet50conv4"))
     with caplog.at_level("WARNING", logger="train"):
-        check_pretrained(cfg)
+        mm, db = init_state(cfg, "cpu").towers
     assert any("resnet50conv4" in r.getMessage() for r in caplog.records)
     assert not any("resnet18" in r.getMessage() for r in caplog.records)
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                pretrained_path="/w"))
-    with pytest.raises(NotImplementedError, match="does not load"):
-        check_pretrained(cfg)
+    plain = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  pretrained=False))
+    ref, _ = init_state(plain, "cpu").towers
+    assert torch.equal(mm.backbone.conv1.weight, ref.backbone.conv1.weight)
+
+    sd = seeded_state_dict("resnet50", 7)
+    torch.save(sd, tmp_path / "resnet50-seeded.pth")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, pretrained_path=str(tmp_path)))
+    grafted = init_state(cfg, "cpu").towers
+    by_hand = init_state(plain, "cpu").towers
+    apply_pretrained_backbones(cfg, *by_hand)
+    for mm, db in (grafted, by_hand):
+        for backbone in (mm.backbone, db.net.backbone):
+            assert torch.equal(backbone.conv1.weight, sd["conv1.weight"])
+            assert torch.equal(backbone.layer3_5.bn3.running_var,
+                               sd["layer3.5.bn3.running_var"])
 
 
 # ------------------------------------------------------- the entry points

@@ -61,6 +61,12 @@ def test_the_scan_sees_the_port():
                  "train/netvlad_init.py"):
         assert f"agplace_tpu_torch/{path}" in PORT_FILES
     assert "scripts/write_torch_trees.py" in PORT_FILES
+    for path in ("models/anyloc.py", "utils/torch_convert.py",
+                 "utils/image_resize.py", "train/metric_losses.py",
+                 "data/folder_dataset.py", "data/pc_augment.py",
+                 "data/projections.py", "utils/flops.py", "utils/viz.py"):
+        assert f"agplace_tpu_torch/{path}" in PORT_FILES
+    assert "scripts/write_torch_weights.py" in PORT_FILES
     assert not any(p.startswith("agplace_tpu/") for p in PORT_FILES)
 
 

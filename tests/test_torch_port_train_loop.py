@@ -136,8 +136,16 @@ def test_entry_point_runs_on_the_cpu(tmp_path):
                                   ["--patience", "3"],
                                   ["--read_pc", "false"]])
 def test_a_flag_not_honoured_raises(flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        cli.main(["--dataset", "synthetic", "--device", "cpu", *flag])
+    """Every flag of the table is honoured now: these four, refused
+    before, parse as JAX's do; what still raises is a multi-device
+    flag above 1."""
+    argv = ["--dataset", "synthetic", *flag]
+    ours, _ = config.parse_arguments(argv)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(
+        jax_config.parse_arguments(argv))
+    with pytest.raises(NotImplementedError, match="one card"):
+        init_state(config.parse_arguments(
+            [*argv, "--data_parallel", "2"])[0], "cpu")
 
 
 def test_real_datasets_and_missing_card_raise(monkeypatch, tmp_path):
@@ -147,7 +155,7 @@ def test_real_datasets_and_missing_card_raise(monkeypatch, tmp_path):
     # the readers are built for the real datasets (a tree without drives
     # gives empty splits, as JAX's reader does)
     cfg, _ = config.parse_arguments(["--dataset", "kitti360", "--dataroot",
-                                     str(tmp_path)], cli.HONOURED)
+                                     str(tmp_path)])
     assert all(isinstance(ds, KITTI360Dataset) and ds.queries_num == 0
                for ds in cli.build_datasets(cfg))
     nusc = tmp_path / "nuscenes"
@@ -157,7 +165,7 @@ def test_real_datasets_and_missing_card_raise(monkeypatch, tmp_path):
         (nusc / f"agplace_index_{version}_{split}.json").write_text(
             '{"queries": []}')
     cfg, _ = config.parse_arguments(["--dataset", "nuscenes", "--dataroot",
-                                     str(nusc)], cli.HONOURED)
+                                     str(nusc)])
     assert all(isinstance(ds, NuScenesDataset)
                for ds in cli.build_datasets(cfg))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -167,11 +175,10 @@ def test_real_datasets_and_missing_card_raise(monkeypatch, tmp_path):
 
 def test_flag_table_and_parsing_equal_the_jax_packages():
     assert config.FLAG_TABLE == jax_config._FLAG_TABLE
-    assert cli.HONOURED <= {row[0] for row in config.FLAG_TABLE}
     argv = [*TINY_FLAGS, "--lr", "3e-4", "--mining", "random",
             "--final_type", "imageorg_stg2image", "--compute_dtype",
             "bfloat16", "--recall_values", "1_5"]
-    ours, _ = config.parse_arguments(argv, cli.HONOURED)
+    ours, _ = config.parse_arguments(argv)
     ref = jax_config.parse_arguments(argv)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
 
@@ -184,12 +191,24 @@ def test_unsupported_training_options_raise(monkeypatch, tmp_path):
         bad = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
         with pytest.raises(NotImplementedError):
             init_state(bad, "cpu")
+    # pretrained: a source in $AGPLACE_WEIGHTS is grafted into the MM's
+    # and the aerial tower's image branches; with none, random-init
+    from scripts.write_torch_weights import seeded_state_dict
+
     pre = cfg.replace(model=dataclasses.replace(cfg.model, pretrained=True))
+    sd = seeded_state_dict("resnet18", 5)
+    torch.save(sd, tmp_path / "resnet18-seeded.pth")
     monkeypatch.setenv("AGPLACE_WEIGHTS", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        init_state(pre, "cpu")
+    mm, db = init_state(pre, "cpu").towers
+    for fe in (mm.image_fe.fe, db.fe_0.fe):
+        assert torch.equal(fe.conv1.weight, sd["conv1.weight"])
+        assert torch.equal(fe.bn1.running_mean, sd["bn1.running_mean"])
     monkeypatch.delenv("AGPLACE_WEIGHTS")
-    init_state(pre, "cpu")  # no source configured: warn, random-init
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    mm, _ = init_state(pre, "cpu").towers  # no source: warn, random-init
+    ref, _ = init_state(cfg, "cpu").towers
+    assert torch.equal(mm.image_fe.fe.conv1.weight,
+                       ref.image_fe.fe.conv1.weight)
 
 
 @pytest.mark.slow
