@@ -4,7 +4,8 @@
 runs the previous steps (the collate work is numpy and the native
 voxelizer, which releases the GIL).  ``prefetch_to_device`` keeps two
 batches in flight to the card: pinned host tensors copied ``non_blocking``
-on a side stream.
+on a side stream; with a ``sharding`` (``parallel.mesh.batch_sharding``)
+only this rank's block of the batch is copied.
 """
 
 from __future__ import annotations
@@ -121,13 +122,12 @@ def prefetch_to_device(iterator: Iterable, device, depth: int = 2,
     copied ``non_blocking`` on a side stream; the consumer's stream waits
     for that copy's event before it gets the batch, and each tensor is
     recorded on the consumer's stream so its memory is not reused while
-    that stream may still read it.  ``sharding`` (a batch split over
-    several cards) waits for the multi-GPU port and raises."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device: sharding a batch over several cards waits "
-            "for the multi-GPU port")
+    that stream may still read it.  ``sharding``
+    (``parallel.mesh.batch_sharding``, any callable on a host batch): each
+    host batch is cut to this rank's part on the host, before the copy."""
     device = resolve_device(device)
+    if sharding is not None:
+        iterator = map(sharding, iterator)
     if device.type != "cuda":
         for batch in iterator:
             yield map_tensors(batch, lambda t: t.to(device))

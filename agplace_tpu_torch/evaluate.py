@@ -10,7 +10,10 @@ dataset's query transform; one descriptor per query), single_query (ragged
 original-resolution queries at batch 1), five_crops (the mean of the five
 crop descriptors), nearest_crop and maj_voting (the five crops searched
 apart and merged, ``retrieval/recall.py``).  Everything runs on ``device``:
-the card unless the caller passes ``"cpu"``.
+the card unless the caller passes ``"cpu"``.  With meshes
+(``parallel/mesh.py``) the embed passes run data-parallel (``embed.py``)
+and the search gallery-sharded (``retrieval/sharded.py``); every rank of
+them calls ``evaluate`` and gets the same recalls.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.embed import (batched_embed_db, batched_embed_q,
                                      batched_embed_q_crops, to_device)
 from agplace_tpu_torch.infer import compute_dtype
+from agplace_tpu_torch.parallel.mesh import mesh_axis
 from agplace_tpu_torch.retrieval.knn import l2_topk_blocked
+from agplace_tpu_torch.retrieval.sharded import shard_gallery, sharded_l2_topk
 from agplace_tpu_torch.retrieval.recall import (compute_recalls,
                                                 dedup_nearest_crop,
                                                 maj_voting_merge)
@@ -80,15 +85,17 @@ def _embed_single_queries(cfg: Config, ds, embed_queries, device):
 
 
 def extract_features(cfg: Config, ds, embed_queries, embed_db,
-                     device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+                     device="cuda", mesh=None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
     """(query descriptors, database descriptors) as fp32 numpy: the
     database first, then the queries, in batches of
     ``cfg.train.infer_batch_size`` (single_query: one by one; the crop
-    methods: 5 rows per query, ``batched_embed_q_crops``)."""
+    methods: 5 rows per query, ``batched_embed_q_crops``); data-parallel
+    over ``mesh`` (single_query excepted, as in JAX)."""
     device = resolve_device(device)
     bs = cfg.train.infer_batch_size
     db_feats = batched_embed_db(ds, list(range(ds.database_num)), embed_db,
-                                bs, device)
+                                bs, device, mesh)
     method = cfg.eval.test_method
     if method in CROP_METHODS:
         if not hasattr(ds, "load_query_crops"):
@@ -98,43 +105,58 @@ def extract_features(cfg: Config, ds, embed_queries, embed_db,
                 f"test_method {method!r} needs a dataset with "
                 f"load_query_crops; {type(ds).__name__} has none")
         q_feats = batched_embed_q_crops(ds, list(range(ds.queries_num)),
-                                        embed_queries, bs, cfg, device)
+                                        embed_queries, bs, cfg, device, mesh)
     elif method == "single_query":
         q_feats = _embed_single_queries(cfg, ds, embed_queries, device)
     else:
         q_feats = batched_embed_q(ds, list(range(ds.queries_num)),
-                                  embed_queries, bs, cfg, device)
+                                  embed_queries, bs, cfg, device, mesh)
     return q_feats, db_feats
 
 
 def evaluate(cfg: Config, ds, embed_queries, embed_db, pca=None,
-             device="cuda") -> Tuple[np.ndarray, str]:
+             device="cuda", mesh=None, gallery_mesh=None
+             ) -> Tuple[np.ndarray, str]:
     """(recalls in percent at ``cfg.eval.recall_values``, "R@1: ...").
     With ``cfg.eval.pca_dim`` and no fitted ``pca``, a PCA is fitted on the
     database descriptors (up to 2^14 sampled rows, seed
-    ``cfg.train.seed``) and both sides are reduced."""
+    ``cfg.train.seed``) and both sides are reduced.  ``mesh`` /
+    ``gallery_mesh``: the embed passes data-parallel, the search
+    gallery-sharded."""
     q_feats, db_feats = extract_features(cfg, ds, embed_queries, embed_db,
-                                         device)
+                                         device, mesh)
     if pca is None and cfg.eval.pca_dim:
         pca = compute_pca(db_feats, cfg.eval.pca_dim, seed=cfg.train.seed)
     if pca is not None:
         q_feats, db_feats = pca.transform(q_feats), pca.transform(db_feats)
-    return evaluate_features(cfg, ds, q_feats, db_feats, device=device)
+    return evaluate_features(cfg, ds, q_feats, db_feats, device=device,
+                             gallery_mesh=gallery_mesh)
 
 
 def search(q_feats: np.ndarray, db_feats: np.ndarray, k: int,
-           device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+           device="cuda", gallery_mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Exact L2 top-k of the queries over the database on ``device``:
-    numpy (sq distances [Q, k], indices [Q, k])."""
+    numpy (sq distances [Q, k], indices [Q, k]); sharded over
+    ``gallery_mesh`` when it splits the gallery over this rank and
+    others."""
+    device = resolve_device(device)
+    if mesh_axis(gallery_mesh, "gallery") is not None:
+        d, i = sharded_l2_topk(
+            gallery_mesh, torch.as_tensor(np.asarray(q_feats, np.float32),
+                                          device=device),
+            shard_gallery(gallery_mesh, db_feats, device=device), k,
+            n_rows=len(db_feats))
+        return d.cpu().numpy(), i.cpu().numpy()
     gallery = torch.as_tensor(np.asarray(db_feats, np.float32),
-                              device=resolve_device(device))
+                              device=device)
     return l2_topk_blocked(q_feats, gallery, k)
 
 
 def evaluate_features(cfg: Config, ds, q_feats: np.ndarray,
                       db_feats: np.ndarray,
                       test_method: Optional[str] = None,
-                      device="cuda") -> Tuple[np.ndarray, str]:
+                      device="cuda", gallery_mesh=None
+                      ) -> Tuple[np.ndarray, str]:
     """Recall@N of given descriptors, with the crop post-processing of
     ``test_method`` (default ``cfg.eval.test_method``).  For the crop
     methods ``q_feats`` holds 5 rows per query (``batched_embed_q_crops``);
@@ -153,7 +175,7 @@ def evaluate_features(cfg: Config, ds, q_feats: np.ndarray,
             raise ValueError(f"{method} merges 20 distinct tiles per query: "
                              f"it needs a gallery of at least 20 rows, got "
                              f"{len(db_feats)}")
-        d, i = search(q_feats, db_feats, 20, device)
+        d, i = search(q_feats, db_feats, 20, device, gallery_mesh)
         if method == "nearest_crop":
             preds = dedup_nearest_crop(d.reshape(nq, 5 * 20),
                                        i.reshape(nq, 5 * 20), keep=20)
@@ -164,6 +186,6 @@ def evaluate_features(cfg: Config, ds, q_feats: np.ndarray,
     else:
         if method == "five_crops":
             q_feats = q_feats.reshape(nq, 5, -1).mean(axis=1)
-        preds = search(q_feats, db_feats, k, device)[1]
+        preds = search(q_feats, db_feats, k, device, gallery_mesh)[1]
     return compute_recalls(preds, ds.soft_positives_per_query,
                            cfg.eval.recall_values)

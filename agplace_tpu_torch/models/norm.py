@@ -17,27 +17,66 @@ mean and E[x^2] in fp32 over every axis but the last, the biased variance
 The BEV voxel branch uses the same module with masked statistics
 (``sparse/bev_grid.bn_apply``); its callers tile the affine over the
 folded z axis.
+
+Under data parallelism (``train/step.py``) each rank holds a block of the
+batch, and the moments are the global batch's, as JAX's under GSPMD: a
+BN's ``group`` (a ``parallel.mesh.MeshAxis``, set by ``moments_over``)
+has the count, the sums and the sums of squares all-reduced in fp32, one
+differentiable all-reduce per layer, before the division.  The masked
+BNs' counts differ by rank, which is why the count is reduced too.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from agplace_tpu_torch.parallel.mesh import MeshAxis, all_reduce_sum
 
-def masked_moments(x: torch.Tensor, m: torch.Tensor, dims: Sequence[int]
+
+def _global(cnt: torch.Tensor, s: torch.Tensor, sq: torch.Tensor,
+            group: MeshAxis):
+    """(count, sums, sums of squares) summed over the ranks of ``group``
+    in one all-reduce."""
+    c = s.shape[0]
+    v = all_reduce_sum(torch.cat([cnt.reshape(1), s, sq]), group)
+    return v[0], v[1:c + 1], v[c + 1:]
+
+
+def masked_moments(x: torch.Tensor, m: torch.Tensor, dims: Sequence[int],
+                   group: Optional[MeshAxis] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 (mean, biased variance) per channel of ``x`` over ``dims``,
     counting only where the broadcast mask ``m`` is set (ME's batch norm):
-    the count clamped to at least 1, the variance to at least 0."""
+    the count clamped to at least 1, the variance to at least 0; over the
+    ranks of ``group`` when given."""
     f, m = x.float(), m.float()
-    cnt = torch.clamp(m.sum(), min=1.0)
-    mean = (f * m).sum(dim=tuple(dims)) / cnt
-    var = torch.clamp((f.square() * m).sum(dim=tuple(dims)) / cnt
-                      - mean.square(), min=0.0)
-    return mean, var
+    dims = tuple(dims)
+    cnt, s, sq = m.sum(), (f * m).sum(dim=dims), (f.square() * m).sum(dim=dims)
+    if group is not None:
+        cnt, s, sq = _global(cnt, s, sq, group)
+    cnt = torch.clamp(cnt, min=1.0)
+    mean = s / cnt
+    return mean, torch.clamp(sq / cnt - mean.square(), min=0.0)
+
+
+@contextlib.contextmanager
+def moments_over(towers, group: Optional[MeshAxis]):
+    """Every ``BatchNorm2D`` of ``towers`` (modules, None skipped) takes
+    its training-mode moments over the ranks of ``group`` inside the
+    block."""
+    bns = [m for t in towers if t is not None for m in t.modules()
+           if isinstance(m, BatchNorm2D)]
+    for bn in bns:
+        bn.group = group
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.group = None
 
 
 class BatchNorm2D(nn.Module):
@@ -49,6 +88,7 @@ class BatchNorm2D(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
         self.eps = eps
         self.momentum = momentum
+        self.group: Optional[MeshAxis] = None  # see moments_over
 
     def affine(self, z: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """fp32 (scale', bias') of the running statistics, tiled ``z``
@@ -78,8 +118,12 @@ class BatchNorm2D(nn.Module):
         if self.training:
             axes = tuple(range(x.ndim - 1))
             x32 = x.float()
-            mean = x32.mean(dim=axes)
-            var = x32.square().mean(dim=axes) - mean.square()
+            cnt, s, sq = (x32.new_tensor(x32.numel() // x32.shape[-1]),
+                          x32.sum(dim=axes), x32.square().sum(dim=axes))
+            if self.group is not None:
+                cnt, s, sq = _global(cnt, s, sq, self.group)
+            mean = s / cnt
+            var = sq / cnt - mean.square()
             self.track(mean, var)
             s, b = self.batch_affine(mean, var)
         else:

@@ -24,7 +24,10 @@ for non-finite values).  The flags after the subcommand's own are the
 training entry point's (every flag of ``config.FLAG_TABLE``).  ``--device``
 picks the index's device: the card by default, which raises "no CUDA
 device" without one; the fan-out client holds no index and needs no
-device.
+device.  ``--data_parallel`` and ``--gallery_parallel`` are taken and
+ignored, as JAX's ``serve.py`` does: it builds no mesh (a sharded index is
+``serving.PlaceIndex(gallery_mesh=)`` in a program of one process per
+card).
 """
 
 from __future__ import annotations
@@ -68,11 +71,8 @@ def _require(ok: bool, msg: str) -> None:
 
 def _config(rest):
     from agplace_tpu_torch.config import parse_arguments
-    from agplace_tpu_torch.train.step import check_one_device
 
-    cfg = parse_arguments(rest)[0]
-    check_one_device(cfg)
-    return cfg
+    return parse_arguments(rest)[0]
 
 
 def _build(own, rest) -> None:

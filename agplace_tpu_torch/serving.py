@@ -1,5 +1,4 @@
-"""Serving: a place-recognition index (``agplace_tpu/serving.py``) on one
-device.
+"""Serving: a place-recognition index (``agplace_tpu/serving.py``).
 
     mm, db = build_towers(cfg, generator=g)      # on the card, or converted
     idx = PlaceIndex(cfg, (mm, db))              # quant="int8", audit_rate
@@ -15,8 +14,14 @@ memory) whose candidates are re-ranked exactly on the host copy, with an
 optional every-Nth-call audit against an exact host search.
 ``from_gallery`` builds a search-only index from a saved gallery, and
 ``from_checkpoint`` an index from a training checkpoint; ``serving_http``
-puts an index behind a JSON API.  The sharded galleries (JAX's
-``gallery_mesh``) are not ported yet.
+puts an index behind a JSON API.
+
+``gallery_mesh`` (``parallel/mesh.py``, a program of one process per
+card): the device gallery is split over the mesh's ``gallery`` ranks,
+fp32 (``retrieval/sharded.sharded_l2_topk``) or int8
+(``sharded_l2_candidates_int8``, then the same exact host re-rank), and
+every rank of the gallery group calls ``add_tiles`` / ``search`` with the
+same requests.
 """
 
 from __future__ import annotations
@@ -34,15 +39,21 @@ from agplace_tpu_torch.embed import (batched_embed_db, drain, padded_batches,
                                      to_device)
 from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
 from agplace_tpu_torch.models.factory import tower_width
+from agplace_tpu_torch.parallel.mesh import mesh_axis
 from agplace_tpu_torch.retrieval.knn import (l2_candidates_int8,
                                              l2_topk_blocked, quantize_rows)
+from agplace_tpu_torch.retrieval.sharded import (shard_gallery,
+                                                 shard_quant_gallery,
+                                                 sharded_l2_candidates_int8,
+                                                 sharded_l2_topk)
 
 
 class PlaceIndex:
     GALLERY_VERSION = 1
 
     def __init__(self, cfg: Config, towers=None, device=None,
-                 quant: Optional[str] = None, audit_rate: float = 0.0):
+                 quant: Optional[str] = None, audit_rate: float = 0.0,
+                 gallery_mesh=None):
         """``towers``: (query tower, aerial tower or None under
         ``share_qdb``) from ``infer.build_towers``, or None for a
         search-only index.  ``device`` defaults to the towers'
@@ -56,12 +67,14 @@ class PlaceIndex:
         survives the candidate scan.  ``audit_rate`` in [0, 1] (int8 only):
         every ``round(1 / audit_rate)``-th search is checked against an
         exact host top-k, and candidate misses are counted in
-        ``audit_stats`` and logged."""
+        ``audit_stats`` and logged.  ``gallery_mesh``: the device gallery
+        split over the mesh's ``gallery`` ranks (module docstring)."""
         if quant not in (None, "int8"):
             raise ValueError(f"unsupported quant mode {quant!r}")
         if not 0.0 <= audit_rate <= 1.0:
             raise ValueError(f"audit_rate must be in [0, 1]: {audit_rate}")
         self.quant = quant
+        self.gallery_mesh = gallery_mesh
         self.audit_rate = audit_rate
         self.audit_stats = {"searches": 0, "audited": 0,
                             "miss_queries": 0, "missed_rows": 0}
@@ -89,14 +102,16 @@ class PlaceIndex:
     @classmethod
     def from_checkpoint(cls, cfg: Config, save_dir: str, name: str,
                         device="cuda", quant: Optional[str] = None,
-                        audit_rate: float = 0.0) -> "PlaceIndex":
+                        audit_rate: float = 0.0,
+                        gallery_mesh=None) -> "PlaceIndex":
         """An index over the towers of a training checkpoint (``ep@N__r1@R``
         / ``best_model`` in ``save_dir``, or a path), on ``device``: the
         card unless the caller passes ``"cpu"``."""
         from agplace_tpu_torch.train.checkpoint import load_towers
 
         towers, _ = load_towers(cfg, save_dir, name, device)
-        return cls(cfg, towers, device, quant=quant, audit_rate=audit_rate)
+        return cls(cfg, towers, device, quant=quant, audit_rate=audit_rate,
+                   gallery_mesh=gallery_mesh)
 
     # -- gallery ------------------------------------------------------------
     def add_tiles(self, ds, indices: Optional[Sequence[int]] = None) -> int:
@@ -168,10 +183,18 @@ class PlaceIndex:
             self._parts = [np.concatenate(self._parts)]
         return self._parts[0]
 
+    def _sharded(self) -> bool:
+        return mesh_axis(self.gallery_mesh, "gallery") is not None
+
     def _device_gallery(self) -> torch.Tensor:
+        """The device gallery (this rank's block when sharded), rebuilt
+        only after a change."""
         if self._dirty or self._gallery is None:
-            self._gallery = torch.from_numpy(self._host_gallery()).to(
-                self.device)
+            host = self._host_gallery()
+            self._gallery = (
+                shard_gallery(self.gallery_mesh, host, device=self.device)
+                if self._sharded() else torch.from_numpy(host).to(
+                    self.device))
             self._quant_gallery = None
             self.upload_count += 1
             self._dirty = False
@@ -183,13 +206,19 @@ class PlaceIndex:
         columns are zero-padded to multiples of 8 for the card's int8 GEMM
         (``knn.int8_cross``); a padded row has scale 0 and norm +inf."""
         if self._dirty or self._quant_gallery is None:
-            q, scale, sq = quantize_rows(self._host_gallery())
-            n, c = q.shape
-            q = np.pad(q, ((0, -n % 8), (0, -c % 8)))
-            scale = np.pad(scale[:, 0], (0, -n % 8))
-            sq = np.pad(sq, (0, -n % 8), constant_values=np.inf)
-            self._quant_gallery = tuple(
-                torch.from_numpy(a).to(self.device) for a in (q, scale, sq))
+            if self._sharded():
+                self._quant_gallery = shard_quant_gallery(
+                    self.gallery_mesh, self._host_gallery(),
+                    device=self.device)
+            else:
+                q, scale, sq = quantize_rows(self._host_gallery())
+                n, c = q.shape
+                q = np.pad(q, ((0, -n % 8), (0, -c % 8)))
+                scale = np.pad(scale[:, 0], (0, -n % 8))
+                sq = np.pad(sq, (0, -n % 8), constant_values=np.inf)
+                self._quant_gallery = tuple(
+                    torch.from_numpy(a).to(self.device)
+                    for a in (q, scale, sq))
             self._gallery = None
             self.upload_count += 1
             self._dirty = False
@@ -229,10 +258,12 @@ class PlaceIndex:
     @classmethod
     def from_gallery(cls, path: str, cfg: Optional[Config] = None,
                      device=None, quant: Optional[str] = None,
-                     audit_rate: float = 0.0) -> "PlaceIndex":
+                     audit_rate: float = 0.0,
+                     gallery_mesh=None) -> "PlaceIndex":
         """Search-only index over a gallery saved by ``save_gallery``:
         ``search_descriptors`` / ``locate_descriptors`` only."""
-        idx = cls(cfg, None, device, quant=quant, audit_rate=audit_rate)
+        idx = cls(cfg, None, device, quant=quant, audit_rate=audit_rate,
+                  gallery_mesh=gallery_mesh)
         idx.load_gallery(path)
         return idx
 
@@ -319,7 +350,17 @@ class PlaceIndex:
                      ) -> Tuple[np.ndarray, np.ndarray]:
         if self.quant == "int8":
             return self._search_int8(q, k)
-        d, i = l2_topk_blocked(q, self._device_gallery(), self._pow2(k))
+        if self._sharded() and k <= self._n_rows:
+            d, i = sharded_l2_topk(
+                self.gallery_mesh, torch.from_numpy(q).to(self.device),
+                self._device_gallery(), min(self._pow2(k), self._n_rows),
+                n_rows=self._n_rows)
+            return d.cpu().numpy()[:, :k], i.cpu().numpy()[:, :k]
+        if self._sharded():  # k > rows: a tiny gallery, the blocked path
+            db = torch.from_numpy(self._host_gallery()).to(self.device)
+        else:
+            db = self._device_gallery()
+        d, i = l2_topk_blocked(q, db, self._pow2(k))
         return d[:, :k], i[:, :k]
 
     def _audit_int8(self, q: np.ndarray, k: int, d_int8: np.ndarray,
@@ -355,19 +396,29 @@ class PlaceIndex:
         kk = min(k, self._n_rows)
         # 4x oversampling (min 16) absorbs the cross term's rounding
         nc = min(self._pow2(4 * kk, lo=16), self._n_rows)
-        db_i8, scale, sq = self._device_gallery_int8()
-        _, cand = l2_candidates_int8(
-            torch.from_numpy(q).to(self.device), db_i8, scale, sq, nc)
+        qt = torch.from_numpy(q).to(self.device)
+        if self._sharded():
+            _, cand = sharded_l2_candidates_int8(
+                self.gallery_mesh, qt, self._device_gallery_int8(), nc)
+        else:
+            _, cand = l2_candidates_int8(qt, *self._device_gallery_int8(),
+                                         nc)
         cand = cand.cpu().numpy()  # [Q, nc]
         host = self._host_gallery()
-        rows = host[cand]  # [Q, nc, C] re-rank set
+        # a sharded gallery's padding rows come after the real ones; one
+        # is a candidate only when a shard holds fewer real rows than its
+        # local top-nc: out of the re-rank
+        valid = cand < self._n_rows
+        rows = host[np.where(valid, cand, 0)]  # [Q, nc, C] re-rank set
         d2 = np.maximum(
             np.einsum("qc,qc->q", q, q)[:, None]
             + np.einsum("qnc,qnc->qn", rows, rows)
             - 2.0 * np.einsum("qc,qnc->qn", q, rows), 0.0)
+        d2 = np.where(valid, d2, np.inf)
         order = np.argsort(d2, axis=1, kind="stable")[:, :kk]
         d = np.take_along_axis(d2, order, axis=1).astype(np.float32)
         i = np.take_along_axis(cand, order, axis=1).astype(np.int64)
+        i = np.where(np.isinf(d), -1, i)
         if kk < k:
             d = np.concatenate(
                 [d, np.full((q.shape[0], k - kk), np.inf, np.float32)], 1)

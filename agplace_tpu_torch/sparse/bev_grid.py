@@ -165,7 +165,7 @@ def bn_apply(g: BEVGrid, bn: BatchNorm2D) -> torch.Tensor:
     if bn.training:
         b, x, y, zc = g.feats.shape
         mean, var = masked_moments(g.feats.reshape(b, x, y, g.z, zc // g.z),
-                                   g.mask[..., None], (0, 1, 2, 3))
+                                   g.mask[..., None], (0, 1, 2, 3), bn.group)
         bn.track(mean, var)
         s, b = bn.batch_affine(mean, var, g.z)
     else:

@@ -162,7 +162,7 @@ class GridBatchNorm(BatchNorm2D):
     def forward(self, g: DenseVoxelGrid) -> DenseVoxelGrid:
         if self.training:
             mean, var = masked_moments(g.feats, g.mask[..., None],
-                                       (0, 1, 2, 3))
+                                       (0, 1, 2, 3), self.group)
             self.track(mean, var)
             s, b = self.batch_affine(mean, var)
         else:

@@ -170,7 +170,8 @@ class MaskedBatchNorm(BatchNorm2D):
     def forward(self, feats: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = masked_moments(feats, mask[..., None], (0, 1))
+            mean, var = masked_moments(feats, mask[..., None], (0, 1),
+                                       self.group)
             self.track(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -10,7 +10,10 @@ path), runs ``evaluate`` on the test split and prints its Recall@N line.
 Random-init weights are evaluated only on the synthetic world.  It takes
 the training entry point's flags (every flag of ``config.FLAG_TABLE``);
 ``--device`` picks the device: the card by default, which raises "no CUDA
-device" without one.
+device" without one.  Under torchrun (one process per card) the embed
+passes run data-parallel and the search gallery-sharded, the meshes
+resolved from ``--data_parallel`` / ``--gallery_parallel`` as in JAX's
+``test.py``; launched alone, both resolve to single-device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ from agplace_tpu_torch.config import parse_arguments
 from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.evaluate import evaluate
 from agplace_tpu_torch.infer import build_towers, make_infer_fns
+from agplace_tpu_torch.parallel.bootstrap import (initialize_distributed,
+                                                  rank_device)
+from agplace_tpu_torch.parallel.mesh import resolve_meshes
 from agplace_tpu_torch.train.checkpoint import load_towers
 from agplace_tpu_torch.train.cli import build_datasets
 from agplace_tpu_torch.train.step import check_supported
@@ -35,8 +41,9 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     cfg, args = parse_arguments(
         argv, extra=lambda p: p.add_argument(
             "--device", default="cuda", help="cuda (default) or cpu"))
-    device = resolve_device(args.device)
-    check_supported(cfg)  # one device: data / gallery parallel > 1 raise
+    initialize_distributed(device=args.device)
+    device = resolve_device(rank_device(args.device))
+    check_supported(cfg)
     setup_logging(cfg.train.save_dir)
     log = logging.getLogger("test")
     _, test_ds = build_datasets(cfg)
@@ -55,8 +62,12 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
         towers = build_towers(cfg, device,
                               torch.Generator().manual_seed(cfg.train.seed))
 
+    mesh, gallery_mesh = resolve_meshes(
+        cfg.mesh, (cfg.train.train_batch_size, cfg.train.infer_batch_size),
+        log)
     recalls, recalls_str = evaluate(cfg, test_ds, *make_infer_fns(*towers),
-                                    device=device)
+                                    device=device, mesh=mesh,
+                                    gallery_mesh=gallery_mesh)
     log.info("Recalls on %s: %s", cfg.data.dataset, recalls_str)
     print(recalls_str)
     return recalls

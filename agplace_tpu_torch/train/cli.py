@@ -9,12 +9,18 @@
         --modelq geoloc --modeldb geoloc --backbone resnet50conv4 \\
         --aggregation netvlad
 
+    torchrun --nproc_per_node 4 -m agplace_tpu_torch.train \\
+        --dataset kitti360 --dataroot D --data_parallel -1
+
 It takes every flag of the JAX package's table (``config.FLAG_TABLE``),
 as JAX's ``train.py``, ``test.py`` and ``serve.py`` do, and so do ``test``
-and ``serve``.  Only ``--data_parallel`` / ``--gallery_parallel`` above 1
-raise: the port runs on one card (``train/step.check_one_device``).
-``--device`` picks the device: the card by default, which raises "no CUDA
-device" without one.
+and ``serve``.  ``--device`` picks the device: the card by default, which
+raises "no CUDA device" without one.  Under torchrun each process is one
+rank on its card (``cuda:LOCAL_RANK``; ``parallel/bootstrap.py``) and
+``--data_parallel`` / ``--gallery_parallel`` resolve over the ranks as
+JAX's over its devices (``parallel/mesh.py``); only rank 0 writes the
+logs, the results, the metrics and the checkpoints.  Launched alone, the
+world is one rank and both flags resolve to single-device.
 ``build_datasets`` is also the dataset front of ``python -m
 agplace_tpu_torch.test`` and ``.serve``.
 
@@ -84,15 +90,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "--device", default="cuda",
             help="cuda (default) or cpu"))
     from agplace_tpu_torch.device import resolve_device
+    from agplace_tpu_torch.parallel.bootstrap import (initialize_distributed,
+                                                      rank_device)
+    from agplace_tpu_torch.parallel.mesh import rank
     from agplace_tpu_torch.train.loop import train
     from agplace_tpu_torch.utils.common import ResultsLogger, setup_logging
 
-    device = resolve_device(args.device)
+    initialize_distributed(device=args.device)
+    device = resolve_device(rank_device(args.device))
     train_ds, test_ds = build_datasets(cfg)
-    setup_logging(cfg.train.save_dir)
+    main_rank = rank() == 0
+    if main_rank:
+        setup_logging(cfg.train.save_dir)
     log = logging.getLogger("main")
     log.info("config: %s", cfg)
-    results = ResultsLogger(cfg.exp_name, f"{cfg.train.save_dir}/results")
+    results = (ResultsLogger(cfg.exp_name, f"{cfg.train.save_dir}/results")
+               if main_rank else None)
     log.info("train: %d queries / %d tiles; test: %d queries / %d tiles",
              train_ds.queries_num, train_ds.database_num,
              test_ds.queries_num, test_ds.database_num)
@@ -101,7 +114,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     best = out["best"]
     log.info("Best: R@1 = %.1f   R@5 = %.1f   R@10 = %.1f   epoch = %d",
              best[0], best[1], best[2], best[3])
-    results.info(f"Best: R@1={best[0]:.1f} R@5={best[1]:.1f} "
-                 f"R@10={best[2]:.1f} epoch={best[3]}")
-    results.end()
+    if main_rank:
+        results.info(f"Best: R@1={best[0]:.1f} R@5={best[1]:.1f} "
+                     f"R@10={best[2]:.1f} epoch={best[3]}")
+        results.end()
     return out

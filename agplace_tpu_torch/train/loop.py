@@ -12,6 +12,16 @@ When it builds the initial state, the port needs no sample batch, so
 unlike JAX's loop it mines and collates no warm-up batch first: such a run
 draws from its numpy generator in another order than a JAX run of the same
 seed (given a state, both draw alike).
+
+Under a process group the loop resolves both meshes as JAX's
+(``parallel/mesh.resolve_meshes``).  Every rank mines the same triplets
+and collates the whole batch from the same seeds, as JAX consumes its
+generator; a rank of the data mesh keeps its block of the tower inputs
+(``prefetch_to_device(sharding=)``), and a rank outside it (a width below
+the rank count) runs the single-device step on the whole batch.  Only rank
+0 writes the metrics and the checkpoints, and every rank waits at a
+barrier until an epoch's files are written; every rank returns the same
+history.
 """
 
 from __future__ import annotations
@@ -30,11 +40,13 @@ from agplace_tpu_torch.data.pipeline import Prefetcher, prefetch_to_device
 from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.evaluate import evaluate
 from agplace_tpu_torch.infer import make_infer_fns
+from agplace_tpu_torch.parallel.mesh import (barrier, batch_sharding, rank,
+                                             replicate_tree, resolve_meshes)
 from agplace_tpu_torch.train.checkpoint import CheckpointManager
 from agplace_tpu_torch.train.mining import TripletMiner
 from agplace_tpu_torch.train.state import TrainState
-from agplace_tpu_torch.train.step import (check_supported, init_state,
-                                          make_train_step)
+from agplace_tpu_torch.train.step import (TOWER_INPUTS, check_supported,
+                                          init_state, make_train_step)
 from agplace_tpu_torch.utils.common import (MetricsWriter, PhaseTimer,
                                             ProfilerTrace, count_params)
 
@@ -51,12 +63,17 @@ def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,
     check_supported(cfg)
     t = cfg.train
     rng = np.random.default_rng(t.seed)
+    main_rank = rank() == 0
     metrics_out = MetricsWriter(f"{t.save_dir}/metrics.jsonl")
     timer = PhaseTimer()
+    mesh, gallery_mesh = resolve_meshes(
+        cfg.mesh, (t.train_batch_size, t.infer_batch_size), log)
     miner = TripletMiner(cfg, train_ds, device)
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, mesh)
     if state is None:
         state = init_state(cfg, device, train_ds=train_ds)
+    if mesh is not None:
+        replicate_tree(mesh, state)
     log.info("params: %d", count_params(state.named_parameters()))
 
     ckpt = CheckpointManager(t.save_dir)
@@ -81,7 +98,8 @@ def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,
         for _ in range(math.ceil(t.queries_per_epoch / t.cache_refresh_rate)):
             with timer("mining"):
                 triplets = miner.mine(rng, t.cache_refresh_rate,
-                                      state.towers)
+                                      state.towers, mesh=mesh,
+                                      gallery_mesh=gallery_mesh)
             n_batches = len(triplets) // bs
             seeds = rng.integers(0, 2 ** 31, size=n_batches)
             loader = Prefetcher(
@@ -92,9 +110,11 @@ def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,
                 num_workers=cfg.data.num_workers)
             round_losses = []
             with timer("train"):
-                for batch in prefetch_to_device(loader, device):
+                for batch in prefetch_to_device(
+                        loader, device, sharding=None if mesh is None else
+                        batch_sharding(mesh, keys=TOWER_INPUTS)):
                     if (t.profile_steps > 0 and steps_done == 0
-                            and epoch == start_epoch):
+                            and epoch == start_epoch and main_rank):
                         trace = ProfilerTrace(f"{t.save_dir}/profile")
                     round_losses.append(train_step(state, batch)["loss"])
                     steps_done += 1
@@ -115,7 +135,8 @@ def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,
                 if tower is not None:
                     tower.eval()
             recalls, recalls_str = evaluate(
-                cfg, test_ds, *make_infer_fns(*state.towers), device=device)
+                cfg, test_ds, *make_infer_fns(*state.towers), device=device,
+                mesh=mesh, gallery_mesh=gallery_mesh)
         mean_loss = float(np.mean(epoch_losses)) if epoch_losses else 0.0
         is_best = sum(recalls[:3]) > sum(best[:3])
         if is_best:
@@ -129,16 +150,19 @@ def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,
         if results_logger is not None:
             results_logger.info(
                 f"epoch {epoch}: loss={mean_loss:.4f} {recalls_str}")
-        metrics_out.write({
-            "epoch": epoch, "loss": mean_loss, "losses": epoch_losses,
-            "recalls": recalls.tolist(), "is_best": is_best,
-            "steps": state.step, "phase_times": dict(timer.totals),
-        })
+        if main_rank:
+            metrics_out.write({
+                "epoch": epoch, "loss": mean_loss, "losses": epoch_losses,
+                "recalls": recalls.tolist(), "is_best": is_best,
+                "steps": state.step, "phase_times": dict(timer.totals),
+            })
+            if epoch > t.checkpoint_after_epoch or is_best:
+                ckpt.save(state, epoch, recalls, best_r5=best_r5,
+                          not_improved_num=not_improved_num,
+                          is_best=is_best)
+        barrier()  # the epoch's files are written before any rank goes on
         history.append({"epoch": epoch, "loss": mean_loss,
                         "losses": epoch_losses, "recalls": recalls})
-        if epoch > t.checkpoint_after_epoch or is_best:
-            ckpt.save(state, epoch, recalls, best_r5=best_r5,
-                      not_improved_num=not_improved_num, is_best=is_best)
         if max_steps is not None and steps_done >= max_steps:
             break
 

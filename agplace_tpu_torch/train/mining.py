@@ -12,8 +12,11 @@ which JAX routes to it): a sampled negative pool, the selection
 (``select_triplets``) on the device; ``full``: the whole database embedded,
 the negatives from a fresh pool unioned with each query's cache of earlier
 hard negatives; ``full_gallery``: the hardest negatives over the whole
-gallery (one device).  Equal distances go lowest index first, as
-``lax.top_k`` and ``argmin`` order them (``retrieval/knn.py``).
+gallery, gallery-sharded over ``gallery_mesh`` when it splits the gallery
+(``retrieval/sharded.py``).  The embed passes run data-parallel over
+``mesh`` (``embed.py``), so every rank of it mines the same triplets.
+Equal distances go lowest index first, as ``lax.top_k`` and ``argmin``
+order them (``retrieval/knn.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from agplace_tpu_torch.data.base import PlaceDataset, pad_positives
 from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.embed import batched_embed_db, batched_embed_q
 from agplace_tpu_torch.infer import make_infer_fns
+from agplace_tpu_torch.parallel.mesh import mesh_axis
 from agplace_tpu_torch.retrieval.knn import (_ascending_topk,
                                              l2_topk_blocked, pairwise_sq_l2)
+from agplace_tpu_torch.retrieval.sharded import shard_gallery, sharded_l2_topk
 
 _BIG = 1e30
 
@@ -83,18 +88,20 @@ class TripletMiner:
         self.neg_cache = [np.empty((0,), np.int64)
                           for _ in range(ds.queries_num)]
 
-    def _embed(self, towers, db_ids, q_ids) -> Tuple[np.ndarray,
-                                                      np.ndarray]:
+    def _embed(self, towers, db_ids, q_ids, mesh=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
         """(db descriptors, query descriptors) with the towers in eval
-        mode: the database first, then the queries, as JAX does."""
+        mode: the database first, then the queries, as JAX does;
+        data-parallel over ``mesh``."""
         for t in towers:
             if t is not None:
                 t.eval()
         embed_q, embed_db = make_infer_fns(*towers)
         bs = self.cfg.train.infer_batch_size
-        db = batched_embed_db(self.ds, db_ids, embed_db, bs, self.device)
+        db = batched_embed_db(self.ds, db_ids, embed_db, bs, self.device,
+                              mesh)
         q = batched_embed_q(self.ds, q_ids, embed_q, bs, self.cfg,
-                            self.device)
+                            self.device, mesh)
         return db, q
 
     def _best_positive(self, q_feats: np.ndarray, db_feats: np.ndarray,
@@ -110,7 +117,7 @@ class TripletMiner:
         return best_positive(pos_d, idx).cpu().numpy()
 
     def mine_random(self, rng: np.random.Generator, n_queries: int,
-                    towers=None) -> np.ndarray:
+                    towers=None, mesh=None) -> np.ndarray:
         """The best positive among each query's hard positives (by the
         towers' descriptors; uniform at random without towers), and
         negatives drawn without replacement minus the soft positives."""
@@ -121,7 +128,7 @@ class TripletMiner:
             all_pos = np.unique(np.concatenate(
                 [ds.hard_positives_per_query[q] for q in qs]))
             slot_of = {int(g): i for i, g in enumerate(all_pos)}
-            db_feats, q_feats = self._embed(towers, all_pos, qs)
+            db_feats, q_feats = self._embed(towers, all_pos, qs, mesh)
             pos_idx, _ = pad_positives([
                 np.array([slot_of[int(g)]
                           for g in ds.hard_positives_per_query[q]])
@@ -152,7 +159,7 @@ class TripletMiner:
         return np.asarray(rows, np.int64)
 
     def mine_partial_sep(self, rng: np.random.Generator, n_queries: int,
-                         towers) -> np.ndarray:
+                         towers, mesh=None) -> np.ndarray:
         ds = self.ds
         qs = rng.choice(self.valid_queries, size=n_queries,
                         replace=n_queries > len(self.valid_queries))
@@ -162,7 +169,7 @@ class TripletMiner:
             [ds.hard_positives_per_query[q] for q in qs]))
         cache_ids = np.unique(np.concatenate([sampled_negs, all_pos]))
         slot_of = {int(g): i for i, g in enumerate(cache_ids)}
-        db_feats, q_feats = self._embed(towers, cache_ids, qs)
+        db_feats, q_feats = self._embed(towers, cache_ids, qs, mesh)
 
         pos_idx, _ = pad_positives([
             np.array([slot_of[int(g)] for g in ds.hard_positives_per_query[q]])
@@ -203,18 +210,20 @@ class TripletMiner:
                               axis=1)
 
     def mine_full(self, rng: np.random.Generator, n_queries: int, towers,
-                  whole_gallery: bool = False) -> np.ndarray:
+                  whole_gallery: bool = False, mesh=None,
+                  gallery_mesh=None) -> np.ndarray:
         """The whole database embedded; the best positive per query; the
         hardest negatives within a fresh ``neg_samples_num`` draw minus
         the soft positives, unioned with the query's cache of earlier
         rounds (refreshed with the picks).  ``whole_gallery``
         (``full_gallery``): the hardest negatives over the whole gallery,
-        searched nneg + max |soft positives| deep."""
+        searched nneg + max |soft positives| deep (sharded over
+        ``gallery_mesh`` when it splits the gallery)."""
         ds = self.ds
         qs = rng.choice(self.valid_queries, size=n_queries,
                         replace=n_queries > len(self.valid_queries))
         db_feats, q_feats = self._embed(
-            towers, list(range(ds.database_num)), qs)
+            towers, list(range(ds.database_num)), qs, mesh)
         pos_idx, _ = pad_positives(
             [np.asarray(ds.hard_positives_per_query[q]) for q in qs])
         best_pos = self._best_positive(q_feats, db_feats, pos_idx)
@@ -240,8 +249,15 @@ class TripletMiner:
             return rows
         max_soft = max(len(ds.soft_positives_per_query[q]) for q in qs)
         k = min(ds.database_num, self.nneg + max_soft)
-        _, cand = l2_topk_blocked(
-            q_feats, torch.as_tensor(db_feats, device=self.device), k)
+        if mesh_axis(gallery_mesh, "gallery") is not None:
+            _, cand = sharded_l2_topk(
+                gallery_mesh, torch.as_tensor(q_feats, device=self.device),
+                shard_gallery(gallery_mesh, db_feats, device=self.device), k,
+                n_rows=len(db_feats))
+            cand = cand.cpu().numpy()
+        else:
+            _, cand = l2_topk_blocked(
+                q_feats, torch.as_tensor(db_feats, device=self.device), k)
         for r, q in enumerate(qs):
             soft = set(ds.soft_positives_per_query[q].tolist())
             negs = [int(c) for c in cand[r] if int(c) not in soft]
@@ -252,15 +268,18 @@ class TripletMiner:
         return rows
 
     def mine(self, rng: np.random.Generator, n_queries: int,
-             towers=None) -> np.ndarray:
-        """Triplets by ``cfg.train.mining``; ``random`` without towers."""
+             towers=None, mesh=None, gallery_mesh=None) -> np.ndarray:
+        """Triplets by ``cfg.train.mining``; ``random`` without towers.
+        ``mesh`` / ``gallery_mesh``: the embed passes data-parallel,
+        ``full_gallery``'s search gallery-sharded."""
         mining = self.cfg.train.mining
         if mining == "random" or towers is None:
-            return self.mine_random(rng, n_queries, towers)
+            return self.mine_random(rng, n_queries, towers, mesh)
         if mining in ("full", "full_gallery"):
             return self.mine_full(rng, n_queries, towers,
-                                  whole_gallery=mining == "full_gallery")
+                                  whole_gallery=mining == "full_gallery",
+                                  mesh=mesh, gallery_mesh=gallery_mesh)
         if mining in ("partial_sep", "partial", "msls_weighted"):
             # with two distinct towers partial's selection is partial_sep's
-            return self.mine_partial_sep(rng, n_queries, towers)
+            return self.mine_partial_sep(rng, n_queries, towers, mesh)
         raise NotImplementedError(mining)

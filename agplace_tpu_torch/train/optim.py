@@ -21,7 +21,7 @@ gradient counts as a zero gradient, as in JAX.
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,10 +94,12 @@ class _FlatGroups:
         for p in self.params:
             p.grad = None
 
-    def flat_grads(self) -> torch.Tensor:
-        return torch.cat([(p.grad if p.grad is not None
-                           else torch.zeros_like(p)).reshape(-1).float()
-                          for p in self.params])
+    def flat_grads(self, reduce: Optional[Callable] = None
+                   ) -> torch.Tensor:
+        g = torch.cat([(p.grad if p.grad is not None
+                        else torch.zeros_like(p)).reshape(-1).float()
+                       for p in self.params])
+        return g if reduce is None else reduce(g)
 
     def apply(self, direction: torch.Tensor) -> None:
         """params += -lr * direction (elementwise rates)."""
@@ -121,8 +123,10 @@ class GroupAdam(_FlatGroups):
         self.nu = torch.zeros_like(self.lr)
         self.count = 0
 
-    def step(self) -> None:
-        g = self.flat_grads()
+    def step(self, reduce: Optional[Callable] = None) -> None:
+        """One update; ``reduce`` (data parallelism) maps the flat
+        gradient to the global one first."""
+        g = self.flat_grads(reduce)
         self.count += 1
         self.mu = (1 - self.b1) * g + self.b1 * self.mu
         self.nu = (1 - self.b2) * g.square() + self.b2 * self.nu
@@ -156,8 +160,8 @@ class GroupSGD(_FlatGroups):
         self.crn = crn
         self.trace = torch.zeros_like(self.lr) if crn else None
 
-    def step(self) -> None:
-        g = self.flat_grads()
+    def step(self, reduce: Optional[Callable] = None) -> None:
+        g = self.flat_grads(reduce)
         if self.crn:
             flat_p = torch.cat([p.detach().reshape(-1) for p in self.params])
             self.trace = (g + 1e-3 * flat_p) + 0.9 * self.trace

@@ -21,6 +21,19 @@ Batch layout (``data/base.collate_train``, on the device):
 
 The aerial tower takes the 6-D entry in one forward, so its BN statistics
 cover all B*(1+nneg)*NMAP tiles, as in JAX.
+
+Data parallelism (``make_train_step(cfg, mesh)``, this rank in a data mesh
+wider than one rank) computes what JAX's jitted step computes over a
+``data``-sharded batch under GSPMD: the global batch's step.  The tower
+inputs (``TOWER_INPUTS``) arrive split, this rank's contiguous block of
+each (``parallel.mesh.shard_batch``); the loss leaves arrive whole.  The
+BN moments are the global batch's (``models/norm.moments_over``); the
+towers' outputs are all-gathered in global row order, so every rank
+computes the whole loss (the geo loss compares every pair of the batch);
+and the flat gradient is all-reduced and divided by the width: each rank's
+gradient of the global loss carries the width as a factor (the gather's
+backward sums the ranks' identical cotangents), so the mean of the sum is
+the global gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +46,9 @@ import torch
 from agplace_tpu_torch.config import Config
 from agplace_tpu_torch.infer import build_towers
 from agplace_tpu_torch.models.factory import query_apply, shared_db_apply
+from agplace_tpu_torch.models.norm import moments_over
+from agplace_tpu_torch.parallel.mesh import (all_gather, all_reduce_sum,
+                                             mesh_axis)
 from agplace_tpu_torch.train.losses import (compute_other_loss,
                                             compute_sare_loss,
                                             compute_triplet_loss)
@@ -41,15 +57,10 @@ from agplace_tpu_torch.train.state import TrainState
 
 log = logging.getLogger("train")
 
-
-def check_one_device(cfg: Config) -> None:
-    """Raise on ``data_parallel`` / ``gallery_parallel`` above 1: the port
-    runs on one card (multi-GPU is ROADMAP Queue 1 item 10)."""
-    if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.gallery_parallel \
-            != 1:
-        raise NotImplementedError(
-            "data_parallel / gallery_parallel > 1: the port runs on one "
-            "card (multi-GPU is ROADMAP Queue 1 item 10)")
+# the batch entries the towers read: split over a data mesh
+TOWER_INPUTS = ("query_image", "vox", "db_map")
+# the query tower's outputs the losses read
+LOSS_OUTPUTS = ("embedding", "imagevec_org", "voxvec_org")
 
 
 def check_supported(cfg: Config) -> None:
@@ -60,7 +71,6 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "share_qdb needs an image-only query tower (modelq='geoloc'); "
             "JAX and the reference MM raise NotImplementedError there")
-    check_one_device(cfg)
     if cfg.train.loss.criterion not in ("triplet", "sare_ind",
                                         "sare_joint"):
         raise NotImplementedError(cfg.train.loss.criterion)
@@ -175,23 +185,34 @@ def init_state(cfg: Config, device="cuda", seed: Optional[int] = None,
     return state
 
 
-def make_train_step(cfg: Config):
+def make_train_step(cfg: Config, mesh=None):
     """``train_step(state, batch) -> metrics``: one optimizer step in
     place; the metrics (loss, triplet_loss, and otherloss for an MM query
-    tower) stay on the device as 0-d tensors."""
+    tower) stay on the device as 0-d tensors.  With a data ``mesh`` that
+    holds this rank, ``batch``'s ``TOWER_INPUTS`` are this rank's block
+    and the step is the global batch's (module docstring); a rank outside
+    the mesh runs the single-device step on the whole batch."""
     check_supported(cfg)
     loss_cfg = cfg.train.loss
     bs = cfg.train.train_batch_size
     nneg = cfg.train.negs_num_per_query
+    ax = mesh_axis(mesh, "data")
+    reduce = None if ax is None else (
+        lambda g: all_reduce_sum(g, ax) / ax.size)
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         mm, db = state.towers
         for tower in state.towers:
             if tower is not None:
                 tower.train()
-        mm_out = query_apply(mm, batch["query_image"], batch["vox"])
-        aerial = (shared_db_apply(mm, batch["db_map"]) if db is None
-                  else db(batch["db_map"]))  # [B, 1+nneg, C]
+        with moments_over(state.towers, ax):
+            mm_out = query_apply(mm, batch["query_image"], batch["vox"])
+            aerial = (shared_db_apply(mm, batch["db_map"]) if db is None
+                      else db(batch["db_map"]))  # [B, 1+nneg, C]
+        if ax is not None:
+            mm_out = {k: all_gather(v, ax) for k, v in mm_out.items()
+                      if k in LOSS_OUTPUTS}
+            aerial = all_gather(aerial, ax)
         metrics = {}
         loss = 0.0
         if cfg.model.modelq == "mm":
@@ -215,7 +236,7 @@ def make_train_step(cfg: Config):
         loss = loss + tloss * loss_cfg.tripletloss_weight
         state.opt.zero_grad()
         loss.backward()
-        state.opt.step()
+        state.opt.step(reduce)
         state.step += 1
         metrics.update(loss=loss.detach(), triplet_loss=tloss.detach())
         return metrics

@@ -245,7 +245,31 @@ K6 has no path; only its parity is checked.
 30. [flags] ``python -m agplace_tpu_torch.train`` as a subprocess on the
     card for 1 step with ``--odeint_method dopri5 --odeint_rtol 1e-3
     --odeint_atol 1e-3 --dopri5_max_steps 16 --horizontal_flip true
-    --patience 3``: exit 0, a finite loss, each flag in its field.
+    --patience 3``: exit 0, a finite loss, each flag in its field;
+31. [multi-gpu] the multi-GPU layer (``agplace_tpu_torch/parallel``,
+    ``retrieval/sharded.py``) in processes of its own, this script run
+    as ``chip_smoke.py --multi-gpu-rank ...``: one rank over NCCL
+    (``RANK=0 WORLD_SIZE=1``: ``bootstrap``, ``make_mesh``'s explicit
+    1 x 1 mesh, ``sharded_l2_topk`` against ``l2_topk``, one all-reduce),
+    and two ranks over gloo sharing ``cuda:0`` (NCCL refuses two ranks on
+    one card) held to the single-device runs of this process: one
+    data-parallel train step at 16 x (1 + 1 + 10), fp32 twin, split 8 + 8
+    (loss rtol 1e-4 / atol 1e-5, parameters atol 5e-4, BN running
+    statistics 1e-4: JAX's ``tests/test_parallel.py`` tolerances; the
+    applied gradient within MG_GRAD_TOL of its largest element); the
+    data-parallel embeds of 512 tiles and 256 queries (MG_EMBED_TOL of
+    scale) and ``evaluate`` with a data and a gallery mesh (recalls
+    equal), each K1-K3 launch of the step, the embeds and ``evaluate``
+    held to its plain version at the rank's shapes (``held_to_plain``,
+    [parity]'s tolerances); ``sharded_l2_topk`` over 1,048,575 x 256 rows (512 MiB per
+    rank, one sentinel row) at k = 5 (indices equal, distances 1e-4) and
+    on 10 rows at k = 12 and 16 (faiss's padding); the sharded int8
+    candidates holding the exact top-5; ``PlaceIndex(gallery_mesh=,
+    quant="int8")`` answering as the fp32 single-device index.  The
+    ranks' launch counts (K1 in the step, K1-K3 in the embeds) are held
+    to the expected counts and summed as the ``multi_gpu`` path.  NCCL at
+    more than one rank and traffic between cards stay unchecked (one
+    card).
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
 JSON record (``launches`` summed over the paths, split in
@@ -1957,8 +1981,8 @@ def _step_recorder(train_mod, n_steps, rec):
 
     real = train_mod.make_train_step
 
-    def make(cfg):
-        step = real(cfg)
+    def make(cfg, mesh=None):
+        step = real(cfg, mesh)
 
         def timed(state, batch):
             rec["starts"].append(time.perf_counter())
@@ -3096,8 +3120,8 @@ def phase_train_sparse(dev):
     real = loop.make_train_step
     before = {}
 
-    def make(c):
-        step = real(c)
+    def make(c, mesh=None):
+        step = real(c, mesh)
 
         def timed(state, batch):
             if not before:
@@ -3685,11 +3709,12 @@ def plain_checks():
 class held_to_plain:
     """While active, every launch of K1-K5 is followed by its plain
     version on the same inputs on the card, and the two are compared with
-    [parity]'s tolerances (the worst error by kernel in ``worst``).  The
-    plain calls launch no kernel: the counts are the path's own."""
+    [parity]'s tolerances (the worst error by kernel in ``worst``, the
+    launches compared in ``checked``).  The plain calls launch no kernel:
+    the counts are the path's own."""
 
     def __init__(self, label):
-        self.label, self.worst, self.saved = label, {}, []
+        self.label, self.worst, self.checked, self.saved = label, {}, {}, []
 
     def __enter__(self):
         for mod, name, plain, tol in plain_checks():
@@ -3705,6 +3730,7 @@ class held_to_plain:
                               want, _tol)
                 self.worst[_name] = max(self.worst.get(_name, 0.0),
                                         rec["max_abs_err"])
+                self.checked[_name] = self.checked.get(_name, 0) + 1
                 return out
 
             wrapper.launches = real.launches
@@ -3846,8 +3872,8 @@ def phase_pretrained(base, dev, name, wdir, sds):
     walls = []
     real = loop.make_train_step
 
-    def make(c):
-        step = real(c)
+    def make(c, mesh=None):
+        step = real(c, mesh)
 
         def timed(state, batch):
             torch.cuda.synchronize()
@@ -4248,6 +4274,469 @@ def phase_flags(dev):
         f"{epoch['losses']}, {t_run:.1f} s")
 
 
+# ---- the multi-GPU layer -----------------------------------------------
+
+MG_WORLD = 2  # gloo ranks sharing cuda:0
+MG_ROWS = SERVE_ROWS - 1  # one sentinel row pads the gallery to 2 blocks
+MG_NCCL_ROWS = 1 << 16
+MG_TRAIN_Q = 16  # one step of 16 x (1 + 1 + 10)
+MG_STATS_TOL = 1e-4  # JAX's tests/test_parallel.py:73-84 tolerances
+MG_LOSS_RTOL, MG_LOSS_ATOL = 1e-4, 1e-5
+MG_PARAM_ATOL = 5e-4
+# the applied gradient of the data-parallel step against one device's,
+# over its largest element (measured 1.32e-3 on an H100: cuDNN's fp32
+# convs, TF32 off, at half the batch; the worst leaf, a conv's before a
+# train-mode BN whose terms cancel, 0.0238 of its own scale)
+MG_GRAD_TOL = 5e-3
+# the data-parallel descriptors against one device's, of scale: the same
+# kernels on the same card, bf16 convs at b16 against b32 (measured
+# 3.81e-4 / 4.98e-4 on an H100)
+MG_EMBED_TOL = 5e-3
+MG_D_TOL = 1e-4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mg_train_inputs(dev):
+    """(cfg, the host batch, the fp32-twin state on ``dev``): the preset
+    in fp32 with its BEV convs in fp32 too, 16 random-mined triplets of a
+    seeded world, the towers from the preset's seed; the same in every
+    process."""
+    from agplace_tpu_torch.data.base import collate_train
+    from agplace_tpu_torch.train.mining import TripletMiner
+    from agplace_tpu_torch.train.step import init_state
+
+    cfg = train_cfg()
+    world = train_world(cfg, 64, 64, 0)
+    rows = TripletMiner(cfg, world, "cpu").mine_random(
+        np.random.default_rng(0), MG_TRAIN_Q)
+    batch = collate_train(world, rows, cfg, np.random.default_rng(1))
+    state = init_state(cfg, dev)
+    for tower in state.towers:
+        for mod in tower.modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = torch.float32
+    return cfg, batch, state
+
+
+def mg_search_inputs(dev):
+    """(gallery [MG_ROWS, 256], 32 near queries, a 10-row gallery and 3
+    queries) as host float32, made on ``dev`` from seeds."""
+    gal = unit_rows(MG_ROWS, 11, dev)
+    small = unit_rows(13, 15, dev)
+    return gal, near_queries(gal, N_SERVE_Q, 12), small[:10], small[10:]
+
+
+def mg_timed(fn, n=10):
+    """(the last result, median ms of ``n`` synchronised calls)."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(ms)
+
+
+def mg_rank_nccl(out, dev):
+    """One rank over NCCL: the sharded search of an explicit 1 x 1 mesh
+    (its all-gathers run on NCCL at world size 1) against ``l2_topk``,
+    and one all-reduce."""
+    import torch.distributed as dist
+
+    from agplace_tpu_torch.config import MeshConfig
+    from agplace_tpu_torch.parallel.mesh import all_reduce_sum, make_mesh
+    from agplace_tpu_torch.retrieval import knn
+    from agplace_tpu_torch.retrieval.sharded import (shard_gallery,
+                                                     sharded_l2_topk)
+
+    g = make_mesh(MeshConfig(data_parallel=1, gallery_parallel=1))
+    gal = unit_rows(MG_NCCL_ROWS, 13, dev)
+    q = torch.from_numpy(near_queries(gal, N_SERVE_Q, 14)).to(dev)
+    d, i = sharded_l2_topk(g, q, shard_gallery(g, gal, device=dev), 5)
+    d0, i0 = knn.l2_topk(q, torch.from_numpy(gal).to(dev), 5)
+    total = all_reduce_sum(torch.full((4,), 2.0, device=dev), g.axis(None))
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "mesh": g.shape, "equal": bool(torch.equal(i, i0)),
+            "d_err": float((d - d0).abs().max()), "total": total.tolist()}
+
+
+def mg_rank_gloo(out, dev):
+    """One of the gloo ranks: the data-parallel step, the data-parallel
+    embeds and ``evaluate``, the sharded searches; launch counts reset
+    just before each path and read just after.  The step is taken three
+    times from the same state: a warm-up, the timed one, and the path's
+    run, in which every kernel launch is held to its plain version at
+    this rank's shapes (``held_to_plain``), as it is in the embeds and
+    ``evaluate``."""
+    import contextlib
+    import dataclasses
+
+    from agplace_tpu_torch import kitti360_config, ops
+    from agplace_tpu_torch.config import MeshConfig
+    from agplace_tpu_torch.data.pipeline import prefetch_to_device
+    from agplace_tpu_torch.embed import batched_embed_db, batched_embed_q
+    from agplace_tpu_torch.evaluate import evaluate
+    from agplace_tpu_torch.infer import build_towers, make_infer_fns
+    from agplace_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
+                                                 resolve_data_mesh,
+                                                 resolve_gallery_mesh)
+    from agplace_tpu_torch.retrieval.sharded import (
+        shard_gallery, sharded_l2_candidates_int8, sharded_l2_topk)
+    from agplace_tpu_torch.serving import PlaceIndex
+    from agplace_tpu_torch.train.step import TOWER_INPUTS, make_train_step
+
+    res = {"held": {}, "checked": {}}
+    # ---- the data-parallel step (a warm-up, the timed step, the path)
+    for run in ("warm", "timed", "step"):
+        cfg_t, batch, state = mg_train_inputs(dev)
+        mesh = resolve_data_mesh(cfg_t.mesh, (
+            cfg_t.train.train_batch_size, cfg_t.train.infer_batch_size))
+        step = make_train_step(cfg_t, mesh)
+        part = next(prefetch_to_device([batch], dev, sharding=(
+            batch_sharding(mesh, keys=TOWER_INPUTS))))
+        torch.cuda.synchronize()
+        with (held_to_plain(f"multi-gpu {run}") if run == "step"
+              else contextlib.nullcontext()) as held:
+            ops.reset_launches()  # ---- the path: one data-parallel step
+            t0 = time.perf_counter()
+            m = step(state, part)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launches()  # ---- read just after
+        if run == "timed":
+            res["step_ms"] = ms
+    res["counts_step"] = counts
+    res["held"]["step"], res["checked"]["step"] = held.worst, held.checked
+    res.update(dp=mesh.shape["data"], rows=int(part["query_image"].shape[0]),
+               loss=float(m["loss"]),
+               state={k: v.cpu() for k, v in state.state_dict()["mm"].items()},
+               state_db={k: v.cpu() for k, v in
+                         state.state_dict()["db"].items()},
+               mu=state.opt.mu.cpu())
+    del state, step, part, batch
+    torch.cuda.empty_cache()
+
+    # ---- the data-parallel embeds and evaluate (the smoke's towers)
+    cfg = kitti360_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype="bfloat16"))
+    mm, db = build_towers(cfg, dev)
+    sd = torch.load(os.path.join(out, "towers.pt"), weights_only=False)
+    mm.load_state_dict(sd["mm"])
+    db.load_state_dict(sd["db"])
+    eq, edb = make_infer_fns(mm, db)
+    ds = eval_dataset(cfg, N_TILES, N_EVAL_Q)
+    bs = cfg.train.infer_batch_size
+    dmesh = resolve_data_mesh(cfg.mesh, (cfg.train.train_batch_size, bs))
+    gmesh = resolve_gallery_mesh(MeshConfig(gallery_parallel=-1))
+    torch.cuda.synchronize()
+    with held_to_plain("multi-gpu embeds") as held:
+        ops.reset_launches()  # ---- the path: embeds and evaluate
+        t0 = time.perf_counter()
+        res["db"] = batched_embed_db(ds, range(N_TILES), edb, bs, dev, dmesh)
+        res["q"] = batched_embed_q(ds, range(N_EVAL_Q), eq, bs, cfg, dev,
+                                   dmesh)
+        res["embed_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["recalls"] = evaluate(cfg, ds, eq, edb, device=dev, mesh=dmesh,
+                                  gallery_mesh=gmesh)[0]
+        res["eval_s"] = time.perf_counter() - t0
+        res["counts_eval"] = ops.launches()  # ---- read just after
+    res["held"]["eval"], res["checked"]["eval"] = held.worst, held.checked
+    res["meshes"] = (dmesh.shape, gmesh.shape)
+    del mm, db, eq, edb
+    torch.cuda.empty_cache()
+
+    # ---- the sharded searches
+    gal, q, small, small_q = mg_search_inputs(dev)
+    g = make_mesh(MeshConfig(data_parallel=1, gallery_parallel=MG_WORLD))
+    qt = torch.from_numpy(q).to(dev)
+    sh = shard_gallery(g, gal, device=dev)
+    res["shard_mib"] = sh.numel() * sh.element_size() / 2 ** 20
+    (d, i), res["search_ms"] = mg_timed(
+        lambda: sharded_l2_topk(g, qt, sh, 5, n_rows=MG_ROWS))
+    res["topk"] = (d.cpu().numpy(), i.cpu().numpy())
+    del sh
+    small_sh = shard_gallery(g, small, device=dev)
+    res["window"] = {k: tuple(t.cpu().numpy() for t in sharded_l2_topk(
+        g, torch.from_numpy(small_q).to(dev), small_sh, k, n_rows=10))
+        for k in (12, 16)}
+    idx = PlaceIndex(None, device=dev, quant="int8", gallery_mesh=g)
+    idx.add_descriptors(gal)
+    res["int8"] = idx.search_descriptors(q, 5)
+    res["int8_ms"] = timed_searches(idx, q, 5)
+    res["cand"] = sharded_l2_candidates_int8(
+        g, qt, idx._device_gallery_int8(), 20)[1].cpu().numpy()
+    res["uploads"] = idx.upload_count
+    return res
+
+
+def multi_gpu_rank(case, out, dev, backend) -> None:
+    """A rank of [multi-gpu] (``chip_smoke.py --multi-gpu-rank CASE OUT
+    DEVICE BACKEND``, its rank in torchrun's variables): joins the group
+    through ``parallel.bootstrap`` and writes its results to
+    ``OUT/CASE_rankN.pt``."""
+    import torch.distributed as dist
+
+    from agplace_tpu_torch.parallel.bootstrap import initialize_distributed
+
+    dev = torch.device(dev)
+    if not initialize_distributed(backend=backend, device=dev):
+        raise SystemExit("multi_gpu_rank: no coordinator in the environment")
+    res = (mg_rank_nccl if case == "nccl" else mg_rank_gloo)(out, dev)
+    torch.save(res, os.path.join(out, f"{case}_rank{dist.get_rank()}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mg_start(case, world, out, dev, backend):
+    """``world`` rank processes of ``case`` (torchrun's variables, every
+    rank on ``dev``)."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+               LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world),
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multi-gpu-rank", case,
+         out, str(dev), backend], env=dict(env, RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def mg_results(case, procs, out, timeout=600):
+    """Each rank's results; a rank that fails or outlasts ``timeout``
+    fails the phase (every rank is stopped)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"[multi-gpu] {case} ranks exited "
+                             f"{[p.returncode for p in procs]}:\n"
+                             + "\n".join(o[-3000:] for o in outs))
+    return [torch.load(os.path.join(out, f"{case}_rank{r}.pt"),
+                       weights_only=False) for r in range(len(procs))]
+
+
+def phase_multi_gpu(cfg, towers, dev, name):
+    """[multi-gpu]: the single-device references in this process, then the
+    NCCL rank and the two gloo ranks (module docstring, item 31).  Returns
+    the ranks' launch counts summed (the ``multi_gpu`` path)."""
+    import shutil
+
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.pipeline import prefetch_to_device
+    from agplace_tpu_torch.embed import batched_embed_db, batched_embed_q
+    from agplace_tpu_torch.evaluate import evaluate
+    from agplace_tpu_torch.infer import make_infer_fns
+    from agplace_tpu_torch.retrieval import knn
+    from agplace_tpu_torch.serving import PlaceIndex
+    from agplace_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    out = runs_dir("chip_smoke_multi_gpu")
+    mm, db = towers
+    torch.save({"mm": mm.state_dict(), "db": db.state_dict()},
+               os.path.join(out, "towers.pt"))
+
+    # ---- single-device references (W = 1)
+    for warm in (True, False):
+        cfg_t, batch, state = mg_train_inputs(dev)
+        whole = next(prefetch_to_device([batch], dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = make_train_step(cfg_t)(state, whole)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    ref_loss = float(m["loss"])
+    ref_sd = {t: {k: v.cpu() for k, v in sd.items()}
+              for t, sd in state.state_dict().items() if t in ("mm", "db")}
+    names, sizes, b1 = state.opt.names, state.opt.sizes, state.opt.b1
+    ref_grads = (state.opt.mu / (1 - b1)).cpu().split(sizes)
+    grad_scale = max(float(g.abs().max()) for g in ref_grads)
+    del state, whole, batch
+    eq, edb = make_infer_fns(mm, db)
+    ds = eval_dataset(cfg, N_TILES, N_EVAL_Q)
+    bs = cfg.train.infer_batch_size
+    ref_db = batched_embed_db(ds, range(N_TILES), edb, bs, dev)
+    ref_q = batched_embed_q(ds, range(N_EVAL_Q), eq, bs, cfg, dev)
+    ref_recalls = evaluate(cfg, ds, eq, edb, device=dev)[0]
+    gal, q, small, small_q = mg_search_inputs(dev)
+    qt = torch.from_numpy(q).to(dev)
+    full = torch.from_numpy(gal).to(dev)
+    (d_ref, i_ref), search_ms = mg_timed(lambda: knn.l2_topk(qt, full, 5))
+    d_ref, i_ref = d_ref.cpu().numpy(), i_ref.cpu().numpy()
+    del full
+    win_ref = {k: tuple(t.cpu().numpy() for t in knn.l2_topk(
+        torch.from_numpy(small_q).to(dev), torch.from_numpy(small).to(dev),
+        k)) for k in (12, 16)}
+    idx32 = PlaceIndex(None, device=dev)
+    idx32.add_descriptors(gal)
+    d32, i32 = idx32.search_descriptors(q, 5)
+    del idx32, gal
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    # ---- the ranks: NCCL at world size 1, then two gloo ranks on cuda:0
+    t0 = time.perf_counter()
+    nccl = mg_results("nccl", mg_start("nccl", 1, out, dev, "nccl"), out)[0]
+    t_nccl = time.perf_counter() - t0
+    log(f"[multi-gpu] NCCL, one rank (RANK=0 WORLD_SIZE=1) in "
+        f"{t_nccl:.1f} s: backend {nccl['backend']}, world "
+        f"{nccl['world']}, explicit mesh {nccl['mesh']}; sharded_l2_topk "
+        f"over {MG_NCCL_ROWS} rows = l2_topk: indices equal "
+        f"{nccl['equal']}, max |d| error {nccl['d_err']:.3g}; all-reduce "
+        f"{nccl['total']}")
+    if not (nccl["backend"] == "nccl" and nccl["world"] == 1
+            and nccl["equal"] and nccl["d_err"] <= MG_D_TOL
+            and nccl["total"] == [2.0] * 4):
+        raise AssertionError(f"[multi-gpu] the NCCL rank: {nccl}")
+    t0 = time.perf_counter()
+    ranks = mg_results("gloo", mg_start("gloo", MG_WORLD, out, dev, "gloo"),
+                       out)
+    t_gloo = time.perf_counter() - t0
+
+    # ---- the step against the single-device step
+    for r, got in enumerate(ranks):
+        loss_ok = abs(got["loss"] - ref_loss) <= MG_LOSS_ATOL \
+            + MG_LOSS_RTOL * abs(ref_loss)
+        p_err, s_err = 0.0, 0.0
+        for tower, sd in (("mm", got["state"]), ("db", got["state_db"])):
+            for k, v in sd.items():
+                want = ref_sd[tower][k]
+                if k.endswith(("running_mean", "running_var")):
+                    s_err = max(s_err, float(((v - want).abs() / (
+                        MG_STATS_TOL + MG_STATS_TOL * want.abs())).max()))
+                elif v.is_floating_point():
+                    p_err = max(p_err, float((v - want).abs().max()))
+        # the applied gradient's error over its largest element; each
+        # leaf's over its own scale too (reported: a leaf whose terms
+        # cancel, such as a conv's before a train-mode BN, shows the
+        # convs' reassociation many times over)
+        leaf = [(float((a - b).abs().max()), float(b.abs().max()), n)
+                for a, b, n in zip((got["mu"] / (1 - b1)).split(sizes),
+                                   ref_grads, names)]
+        top = max(leaf)
+        g_err = top[0] / grad_scale
+        worst = max(leaf, key=lambda t: t[0] / max(
+            t[1], TRAIN_ZERO_REL * grad_scale))
+        log(f"[multi-gpu] rank {r}: data-parallel step ({got['dp']} ranks, "
+            f"{got['rows']} of {MG_TRAIN_Q} queries here) vs one device: "
+            f"loss {got['loss']:.7g} vs {ref_loss:.7g}, parameters max |d| "
+            f"{p_err:.3g} (atol {MG_PARAM_ATOL}), BN statistics "
+            f"{s_err:.3g} of the 1e-4 allowance, applied gradient "
+            f"{g_err:.3g} of its largest element (tol {MG_GRAD_TOL}) in "
+            f"{top[2]} (its own scale {top[1] / grad_scale:.3g} of the "
+            f"largest); the worst leaf over its own scale {worst[2]} "
+            f"{worst[0] / max(worst[1], 1e-30):.3g}")
+        if not (loss_ok and got["dp"] == MG_WORLD and p_err <= MG_PARAM_ATOL
+                and s_err <= 1.0 and g_err <= MG_GRAD_TOL):
+            raise AssertionError(f"[multi-gpu] rank {r}: the step differs")
+    same = all(torch.equal(a, ranks[1]["state"][k])
+               for k, a in ranks[0]["state"].items())
+    log(f"[multi-gpu] the two ranks' query towers after the step bit-equal: "
+        f"{same}")
+    if not same:
+        raise AssertionError("[multi-gpu] the ranks' states differ")
+
+    # ---- the embeds and evaluate against one device
+    for r, got in enumerate(ranks):
+        errs = [float(np.abs(got[key] - ref).max()) / float(np.abs(ref).max())
+                for key, ref in (("db", ref_db), ("q", ref_q))]
+        ok = (got["db"].shape == ref_db.shape and got["q"].shape
+              == ref_q.shape and max(errs) <= MG_EMBED_TOL
+              and np.array_equal(got["recalls"], ref_recalls))
+        log(f"[multi-gpu] rank {r}: meshes {got['meshes']}; data-parallel "
+            f"descriptors of {N_TILES} tiles and {N_EVAL_Q} queries vs one "
+            f"device's: max error {errs[0]:.3g} and {errs[1]:.3g} of scale "
+            f"(tol {MG_EMBED_TOL}); embeds {got['embed_s']:.2f} s, evaluate "
+            f"{got['eval_s']:.2f} s (each launch held to its plain version "
+            f"meanwhile); recalls {got['recalls'].tolist()} vs one device "
+            f"{ref_recalls.tolist()} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[multi-gpu] rank {r}: the data-parallel "
+                                 f"embeds or evaluate differ")
+
+    # ---- the searches against one device
+    for r, got in enumerate(ranks):
+        d, i = got["topk"]
+        ok = (np.array_equal(i, i_ref)
+              and float(np.abs(d - d_ref).max()) <= MG_D_TOL)
+        for k, (dw, iw) in got["window"].items():
+            ok &= (np.array_equal(iw, win_ref[k][1])
+                   and (iw[:, 10:] == -1).all()
+                   and np.isinf(dw[:, 10:]).all())
+        held = all(set(i_ref[j]) <= set(got["cand"][j].tolist())
+                   for j in range(len(i_ref)))
+        d8, i8 = got["int8"]
+        missed = int((d32 < d8 - 1e-4).any(axis=1).sum())
+        bad = ties_aside(i8, i32, d32)
+        err8 = float(np.abs(d8 - d32).max())
+        log(f"[multi-gpu] rank {r}: sharded_l2_topk over {MG_ROWS} x 256 "
+            f"rows ({got['shard_mib']:.0f} MiB here) at k = 5 = l2_topk: "
+            f"{ok}; padding window k = 12, 16 on 10 rows: faiss padding; "
+            f"int8 candidates hold the exact top-5: {held}; "
+            f"PlaceIndex(gallery_mesh, int8) vs the fp32 single-device "
+            f"index: {missed} candidate misses, {bad} queries apart, max "
+            f"|d| {err8:.3g}, {got['uploads']} upload")
+        if not (ok and held and not missed and not bad
+                and err8 <= SERVE_D_TOL and got["uploads"] == 1):
+            raise AssertionError(f"[multi-gpu] rank {r}: the sharded "
+                                 f"search differs")
+    log(f"[multi-gpu] ms at W = 1 (this process) and W = 2 (two gloo ranks "
+        f"sharing one card, so NOT scaling figures): train step "
+        f"{step_ms:.1f} vs {[round(g['step_ms'], 1) for g in ranks]}; "
+        f"exact search of 32 queries over {MG_ROWS} rows {search_ms:.3f} "
+        f"vs {[round(g['search_ms'], 3) for g in ranks]}; int8 index "
+        f"search {[round(g['int8_ms'], 3) for g in ranks]} ({name})")
+
+    # ---- the launches: K1 in the step, K1-K3 in the embeds
+    counts = dict.fromkeys(ops.launches(), 0)
+    want_step = dict.fromkeys(counts, 0)
+    want_step["fused_euler_ode"] = 3
+    n_fwd = 2 * -(-N_EVAL_Q // bs)  # the embeds' and evaluate's queries
+    want_eval = expected_launches(cfg, N_TILES, n_fwd)
+    for r, got in enumerate(ranks):
+        if got["counts_step"] != want_step or got["counts_eval"] != \
+                want_eval:
+            raise AssertionError(
+                f"[multi-gpu] rank {r} launches: step {got['counts_step']} "
+                f"!= {want_step}, embeds {got['counts_eval']} != "
+                f"{want_eval}")
+        # every launch of both paths was held to its plain version in the
+        # rank (a disagreement there fails the rank)
+        for path in ("step", "eval"):
+            launched = {k: n for k, n in got[f"counts_{path}"].items() if n}
+            log(f"[multi-gpu] rank {r} {path}: {got['checked'][path]} of "
+                f"the launches {launched} held to their plain versions, "
+                f"worst max_abs_err {got['held'][path]}")
+            if got["checked"][path] != launched:
+                raise AssertionError(
+                    f"[multi-gpu] rank {r} {path}: launches {launched} but "
+                    f"{got['checked'][path]} held to their plain versions")
+        for k in counts:
+            counts[k] += got["counts_step"][k] + got["counts_eval"][k]
+    log(f"[multi-gpu] launches over both ranks {counts}; references "
+        f"{t_ref:.1f} s, NCCL rank {t_nccl:.1f} s, gloo ranks "
+        f"{t_gloo:.1f} s; unchecked on one card: NCCL at more than one "
+        f"rank, traffic between cards")
+    shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
 def main() -> None:
     import dataclasses
 
@@ -4353,6 +4842,8 @@ def main() -> None:
     phase_anyloc(dev, name)
     counts_tl = phase_tail(cfg, dev, name, mm)
     phase_flags(dev)
+    # ---- the multi-GPU layer: NCCL at one rank, two gloo ranks
+    counts_mg = phase_multi_gpu(cfg, towers, dev, name)
 
     sources = {
         "fused_euler_ode": ("agplace_tpu_torch/csrc/ode_step.cu",
@@ -4385,7 +4876,8 @@ def main() -> None:
                                   + counts_mx[k] + counts_g[k]
                                   + counts_gt[k] + counts_gf[k]
                                   + counts_mi[k] + counts_ml[k]
-                                  + counts_pre[k] + counts_tl[k]),
+                                  + counts_pre[k] + counts_tl[k]
+                                  + counts_mg[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
@@ -4408,7 +4900,8 @@ def main() -> None:
                                           "mm_imgfe": counts_mi[k],
                                           "minkloc": counts_ml[k],
                                           "pretrained": counts_pre[k],
-                                          "tail": counts_tl[k]},
+                                          "tail": counts_tl[k],
+                                          "multi_gpu": counts_mg[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
                      "ms": parity[k]["ms"],
@@ -4428,4 +4921,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multi-gpu-rank"]:
+        multi_gpu_rank(*sys.argv[2:6])
+    else:
+        main()

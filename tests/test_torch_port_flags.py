@@ -10,6 +10,7 @@ are parsed values.
 """
 
 import dataclasses
+import logging
 
 import numpy as np
 import pytest
@@ -114,21 +115,51 @@ def test_the_table_is_honoured_whole(monkeypatch):
     assert _outcome(lambda: port_serve._config(argv)) == want
 
 
-@pytest.mark.parametrize("flag", ["data_parallel", "gallery_parallel"])
-def test_multi_device_flags_above_one_raise(flag, monkeypatch):
-    argv = [*BASE, f"--{flag}", "2"]
-    assert getattr(jax_config.parse_arguments(argv).mesh, flag) == 2
-    monkeypatch.setattr(cli, "build_datasets", _stop)
-    for main in (lambda: cli.main([*argv, "--device", "cpu"]),
-                 lambda: port_test.main([*argv, "--device", "cpu"]),
-                 lambda: port_serve._config(argv)):
-        with pytest.raises(NotImplementedError, match="one card"):
-            try:
-                main()
-            except _Parsed as got:  # train: the loop's check raises
-                from agplace_tpu_torch.train.step import check_supported
+TINY = ["--dataset", "synthetic", "--q_resize", "32",
+        "--train_batch_size", "2", "--infer_batch_size", "4",
+        "--negs_num_per_query", "2", "--queries_per_epoch", "4",
+        "--cache_refresh_rate", "4", "--neg_samples_num", "8",
+        "--vox_max_points", "128", "--epochs_num", "1", "--pretrained",
+        "false", "--num_workers", "1"]
 
-                check_supported(got.cfg)
+
+@pytest.mark.parametrize("flag", ["data_parallel", "gallery_parallel"])
+def test_multi_device_flags_above_one_raise(flag, tmp_path):
+    """Named for the refusal it once tested: nothing raises now.  On one
+    rank the port does what JAX does on a one-device host: with the flag
+    at 2 and the other at -1, ``train`` and ``test`` resolve no mesh and
+    run single-device (and log that they do), and ``serve`` takes both
+    flags and builds no mesh, as JAX's ``serve.py``."""
+    import jax
+
+    from agplace_tpu.parallel import mesh as jax_mesh
+    from agplace_tpu_torch.parallel import mesh
+
+    other = ({"data_parallel", "gallery_parallel"} - {flag}).pop()
+    argv = [*TINY, f"--{flag}", "2", f"--{other}", "-1", "--save_dir",
+            str(tmp_path)]
+    want = jax_config.parse_arguments(argv)
+    assert getattr(want.mesh, flag) == 2
+    one = jax.devices()[:1]
+    assert jax_mesh.resolve_data_mesh(want.mesh, (2, 4), devices=one) is None
+    assert jax_mesh.resolve_gallery_mesh(want.mesh, devices=one) is None
+    cfg = port_serve._config(argv)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert mesh.resolve_data_mesh(cfg.mesh, (2, 4)) is None
+    assert mesh.resolve_gallery_mesh(cfg.mesh) is None
+    root = logging.getLogger()
+    kept = root.handlers[:], root.level
+    try:  # both entry points point the root logger at save_dir
+        out = cli.main([*argv, "--device", "cpu"])
+        recalls = port_test.main([*argv, "--device", "cpu"])
+    finally:
+        for h in root.handlers:
+            h.close()
+        root.handlers, root.level = kept[0], kept[1]
+    assert out["state"].step == 2 and np.isfinite(out["history"][0]["loss"])
+    assert np.isfinite(recalls).all()
+    log = open(tmp_path / "info.log").read()
+    assert "resolve to single-device" in log and "data mesh" not in log
 
 
 def _fcode(argv, x):

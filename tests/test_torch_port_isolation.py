@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``agplace_tpu_torch/``, nor
-``chip_smoke.py`` or the port's scripts, imports JAX or the JAX package;
+``chip_smoke.py``, the port's scripts or the multi-process tests' worker,
+imports JAX or the JAX package;
 its presets equal the JAX package's; its entry points run on the card
 unless the caller asks for the CPU; and its host voxelizer is its own,
 built into ``agplace_tpu_torch/_build/``, and equal to the JAX package's.
@@ -28,7 +29,9 @@ PORT_FILES = sorted(
     + [os.path.join(ROOT, "chip_smoke.py")]
     # the port's entry points; scripts/baseline_torch.py is the JAX
     # package's own torchvision baseline, which compares against JAX
-    + glob.glob(os.path.join(ROOT, "scripts", "*torch_*.py")))
+    + glob.glob(os.path.join(ROOT, "scripts", "*torch_*.py"))
+    # the multi-process tests' worker runs the port alone too
+    + [os.path.join(ROOT, "tests", "_torch_parallel_worker.py")])
 FORBIDDEN = ("jax", "jaxlib", "flax", "agplace_tpu")
 
 
@@ -67,6 +70,10 @@ def test_the_scan_sees_the_port():
                  "data/projections.py", "utils/flops.py", "utils/viz.py"):
         assert f"agplace_tpu_torch/{path}" in PORT_FILES
     assert "scripts/write_torch_weights.py" in PORT_FILES
+    for path in ("parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/bootstrap.py", "retrieval/sharded.py"):
+        assert f"agplace_tpu_torch/{path}" in PORT_FILES
+    assert "tests/_torch_parallel_worker.py" in PORT_FILES
     assert not any(p.startswith("agplace_tpu/") for p in PORT_FILES)
 
 

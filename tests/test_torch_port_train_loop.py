@@ -1,8 +1,9 @@
 """The port's training loop and entry point on the CPU: ``train`` writes
 its metrics and a checkpoint under JAX's name, the checkpoint restores the
 trained parameters and serves (``PlaceIndex.from_checkpoint``); ``python
--m agplace_tpu_torch.train`` runs on the synthetic world, refuses the
-flags it does not honour and needs a card unless asked for the CPU; its
+-m agplace_tpu_torch.train`` runs on the synthetic world, takes every
+flag (one rank: the multi-device flags run single-device) and needs a
+card unless asked for the CPU; its
 flag table is JAX's.  The slow tier shows that training raises recall,
 as ``tests/test_train.py`` does for JAX."""
 
@@ -136,16 +137,25 @@ def test_entry_point_runs_on_the_cpu(tmp_path):
                                   ["--patience", "3"],
                                   ["--read_pc", "false"]])
 def test_a_flag_not_honoured_raises(flag):
-    """Every flag of the table is honoured now: these four, refused
-    before, parse as JAX's do; what still raises is a multi-device
-    flag above 1."""
+    """Named for the refusals it once tested: every flag of the table is
+    honoured now.  These four, refused before, parse as JAX's do, and with
+    ``--data_parallel 2`` (refused until the multi-GPU layer) the state
+    builds and, on one rank, the loop resolves no mesh: single-device, as
+    JAX on one device."""
+    from agplace_tpu_torch.parallel.mesh import (resolve_data_mesh,
+                                                 resolve_gallery_mesh)
+
     argv = ["--dataset", "synthetic", *flag]
     ours, _ = config.parse_arguments(argv)
     assert dataclasses.asdict(ours) == dataclasses.asdict(
         jax_config.parse_arguments(argv))
-    with pytest.raises(NotImplementedError, match="one card"):
-        init_state(config.parse_arguments(
-            [*argv, "--data_parallel", "2"])[0], "cpu")
+    cfg = config.parse_arguments([*argv, "--data_parallel", "2"])[0]
+    state = init_state(cfg, "cpu")
+    assert state.step == 0 and state.db is not None
+    t = cfg.train
+    assert resolve_data_mesh(cfg.mesh, (t.train_batch_size,
+                                        t.infer_batch_size)) is None
+    assert resolve_gallery_mesh(cfg.mesh) is None
 
 
 def test_real_datasets_and_missing_card_raise(monkeypatch, tmp_path):

@@ -522,8 +522,14 @@ def test_prefetch_to_device_on_the_cpu():
     assert [int(b["a"][0, 0]) for b in out] == list(range(5))
     assert isinstance(out[0]["a"], torch.Tensor)
     assert isinstance(out[0]["vox"], BEVGrid) and out[3]["n"] == 3
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        next(prefetch_to_device(iter(batches), "cpu", sharding=object()))
+    # with a sharding, this rank's block of the listed entries (this
+    # process is rank 0 of a two-rank data mesh; no group is needed)
+    from agplace_tpu_torch.parallel.mesh import Mesh, batch_sharding
+
+    two = Mesh(np.array([[0], [1]]), ("data", "gallery"))
+    got = next(prefetch_to_device(iter(batches), "cpu", sharding=(
+        batch_sharding(two, keys=("a",)))))
+    assert got["a"].shape == (1, 3) and got["vox"].feats.shape[0] == 1
 
 
 # ------------------------------------------------------ folded-weight cache
