@@ -3,8 +3,10 @@
 // Replaces the TPU kernel agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode
 // (_ode_kernel, forward only; the custom-VJP backward is a later port).
 // Computes n_steps Euler steps x <- x + dt * act(x W + b) for x [B, D] fp32,
-// W [D, D] fp32 ([in, out] layout), b [D], D = 256 (stg2fuse_dim at every
-// preset).
+// W [D, D] fp32 ([in, out] layout), b [D], D a multiple of 128 up to 1024
+// (the wrapper pads any other stg2fuse_dim with zero columns of x and b
+// and zero rows and columns of W, which leave the real columns' sums
+// exact; 256 at every preset).
 //
 // What bounds it on the H100: latency, not bytes or FLOPs.  At the slice
 // shape (B = 32, 10 steps) the chain is 42 MFLOP and 0.3 MB, under a
@@ -32,6 +34,18 @@
 //     cluster barrier per step measured slower: PERF.md).  With two
 //     buffers no block can overwrite a state another block still reads;
 //   * at the end each block writes its column slice of its rows.
+// Two instances of this one kernel, chosen by D (ode_instance in
+// ops/ode_step.py):
+//   * resident (D <= 512): W's column slices stay in the cluster's shared
+//     memory as above (128 KB a block at D = 512);
+//   * streamed (512 < D <= 1024): W in fp32 is up to 4 MB, more than a
+//     portable cluster of 8 blocks can hold (8 x 227 KB), so each step
+//     reads the block's column slice from L2 (every cluster reads the same
+//     4 MB, which stays resident in the 50 MB L2 across the steps); the
+//     lanes of a warp read 16 consecutive columns of two k rows, and the
+//     row tile's kRows threads of a column share each load through L1.
+//     Still one launch for all n_steps: the state exchange is the
+//     resident instance's.
 // Rows are independent, so kRows is small enough that b32 already spreads
 // over several clusters.  The cluster size, kRows and kSplit were chosen by
 // timing (scripts/ablate_torch_ode.py, the AGP_ODE_* switches below).
@@ -64,25 +78,37 @@ using agp::mbar_init;
 using agp::mbar_wait;
 using agp::smem_u32;
 
-constexpr int kDim = 256;
 constexpr int kCluster = AGP_ODE_CLUSTER;
 constexpr int kRows = AGP_ODE_ROWS;
 constexpr int kSplit = AGP_ODE_SPLIT;
-constexpr int kCols = kDim / kCluster;  // W's columns held by one block
-constexpr int kThreads = kCols * kRows * kSplit;
 constexpr int kLaneCols = 32 / kSplit;  // a warp: kLaneCols x kSplit lanes
-constexpr int kSeg = kDim / kSplit;     // k rows of one lane's slice
-// W's slice in shared memory: kSplit segments of [kSeg][kCols], each
-// kPad floats after the last, so that lane (column c, slice s) reads bank
-// (c + kPad s) mod 32: distinct over a warp
-constexpr int kPad = kSplit > 1 ? kLaneCols : 0;
-constexpr int kSegStride = kSeg * kCols + kPad;
-static_assert(kDim % kCluster == 0 && kCols % kLaneCols == 0 &&
-                  32 % kSplit == 0 && kThreads <= 1024 && kSeg % 4 == 0,
-              "cluster / row tile / split off the block's limits");
-// W's slice, b's slice, the states [2][kRows][kDim]
-constexpr int kSmemBytes =
-    (kSplit * kSegStride + kCols + 2 * kRows * kDim) * (int)sizeof(float);
+// D steps: every instance's D is a multiple of kDimStep, up to kMaxDim;
+// W stays resident up to kMaxResidentDim
+constexpr int kDimStep = 128, kMaxResidentDim = 512, kMaxDim = 1024;
+
+// The geometry of the instance at width DIM (resident: W's slice in
+// shared memory)
+template <int DIM, bool RES>
+struct Ode {
+  static constexpr int kDim = DIM;
+  static constexpr int kCols = kDim / kCluster;  // W's columns of a block
+  static constexpr int kThreads = kCols * kRows * kSplit;
+  static constexpr int kSeg = kDim / kSplit;     // k rows of a lane's slice
+  // W's slice in shared memory: kSplit segments of [kSeg][kCols], each
+  // kPad floats after the last, so that lane (column c, slice s) reads
+  // bank (c + kPad s) mod 32: distinct over a warp
+  static constexpr int kPad = kSplit > 1 ? kLaneCols : 0;
+  static constexpr int kSegStride = kSeg * kCols + kPad;
+  static constexpr int kWFloats = RES ? kSplit * kSegStride : 0;
+  // W's slice (resident), b's slice, the states [2][kRows][kDim]
+  static constexpr int kSmemBytes =
+      (kWFloats + kCols + 2 * kRows * kDim) * (int)sizeof(float);
+  // whether the cluster / row tile / split fit the block's limits at this
+  // width (the ablation switches reach widths that do not)
+  static constexpr bool kValid =
+      kDim % kCluster == 0 && kCols % kLaneCols == 0 && 32 % kSplit == 0 &&
+      kThreads <= 1024 && kSeg % 4 == 0 && kSmemBytes <= 227 * 1024;
+};
 
 template <int ACT>
 __device__ __forceinline__ float act_fn(float v) {
@@ -113,17 +139,22 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v,
       : "memory");
 }
 
-template <int ACT>
-__global__ void __launch_bounds__(kThreads)
+template <int ACT, int DIM, bool RES>
+__global__ void __launch_bounds__(Ode<DIM, RES>::kThreads)
 ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ out,
                  int batch, int n_steps, float dt) {
+  using O = Ode<DIM, RES>;
+  static_assert(O::kValid, "cluster / row tile / split off the block's "
+                           "limits");
+  constexpr int kDim = O::kDim, kCols = O::kCols, kThreads = O::kThreads;
+  constexpr int kSeg = O::kSeg, kSegStride = O::kSegStride;
   extern __shared__ __align__(16) float sh[];
   // per state buffer: one arrival (this block's expect_tx) and the bytes
   // the cluster's blocks store into it
   __shared__ __align__(8) uint64_t full[2];
   float* ws = sh;                          // kSplit x [kSeg][kCols], padded
-  float* bs = ws + kSplit * kSegStride;    // [kCols]
+  float* bs = ws + O::kWFloats;            // [kCols]
   float* state = bs + kCols;               // [2][kRows][kDim]
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -133,9 +164,9 @@ ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x;
   // W's slice and the tile's rows as 16-byte loads, all of a thread's
   // issued before any is stored: one round trip to L2, not one per load
-  constexpr int kW4 = kDim * kCols / 4;  // float4s of the slice
+  constexpr int kW4 = RES ? kDim * kCols / 4 : 0;  // float4s of the slice
   constexpr int kW4PerThread = (kW4 + kThreads - 1) / kThreads;
-  float4 wv[kW4PerThread];
+  float4 wv[kW4PerThread > 0 ? kW4PerThread : 1];
 #pragma unroll
   for (int u = 0; u < kW4PerThread; ++u) {
     const int i = tid + u * kThreads, k = i / (kCols / 4);
@@ -182,7 +213,10 @@ ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int jl = (warp % (kCols / kLaneCols)) * kLaneCols + lane % kLaneCols;
   const int r = warp / (kCols / kLaneCols), j = c0 + jl;
   const float bj = bs[jl];
-  const float* wsl = ws + s * kSegStride + jl;  // W[s kSeg + k][j]
+  // W[s kSeg + k][j]: in the block's slice (resident) or in global memory
+  constexpr int kWStride = RES ? kCols : kDim;
+  const float* wsl =
+      RES ? ws + s * kSegStride + jl : w + (size_t)s * kSeg * kDim + j;
   // this output in the state of the blocks q = s, s + kSplit, ... of the
   // cluster (the slices' lanes share the stores)
   constexpr int kPeers = (kCluster + kSplit - 1) / kSplit;
@@ -200,10 +234,10 @@ ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll 8
     for (int k = 0; k < kSeg; k += 4) {
       const float4 xv = *reinterpret_cast<const float4*>(xr + s * kSeg + k);
-      acc[0] = fmaf(xv.x, wsl[(k + 0) * kCols], acc[0]);
-      acc[1] = fmaf(xv.y, wsl[(k + 1) * kCols], acc[1]);
-      acc[2] = fmaf(xv.z, wsl[(k + 2) * kCols], acc[2]);
-      acc[3] = fmaf(xv.w, wsl[(k + 3) * kCols], acc[3]);
+      acc[0] = fmaf(xv.x, wsl[(k + 0) * kWStride], acc[0]);
+      acc[1] = fmaf(xv.y, wsl[(k + 1) * kWStride], acc[1]);
+      acc[2] = fmaf(xv.z, wsl[(k + 2) * kWStride], acc[2]);
+      acc[3] = fmaf(xv.w, wsl[(k + 3) * kWStride], acc[3]);
     }
     float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
 #pragma unroll
@@ -234,21 +268,22 @@ ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
   cluster.sync();
 }
 
-template <int ACT>
+template <int ACT, int DIM, bool RES>
 cudaError_t launch(const float* x, const float* w, const float* b, float* out,
                    int batch, int n_steps, float dt, int grid,
                    cudaStream_t stream) {
-  auto kernel = ode_euler_kernel<ACT>;
+  using O = Ode<DIM, RES>;
+  auto kernel = ode_euler_kernel<ACT, DIM, RES>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, O::kSmemBytes);
   if (err == cudaSuccess && kCluster > 8)
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.blockDim = dim3(O::kThreads);
+  cfg.dynamicSmemBytes = O::kSmemBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -262,23 +297,52 @@ cudaError_t launch(const float* x, const float* w, const float* b, float* out,
   return cudaGetLastError();
 }
 
+// The instance at width `dim` (a multiple of kDimStep up to kMaxDim; W
+// resident up to kMaxResidentDim)
+template <int ACT, int DIM = kDimStep>
+cudaError_t launch_dim(int dim, const float* x, const float* w,
+                       const float* b, float* out, int batch, int n_steps,
+                       float dt, int grid, cudaStream_t stream) {
+  if constexpr (DIM > kMaxDim) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr bool kRes = DIM <= kMaxResidentDim;
+    if (dim != DIM)
+      return launch_dim<ACT, DIM + kDimStep>(dim, x, w, b, out, batch,
+                                             n_steps, dt, grid, stream);
+    if constexpr (!Ode<DIM, kRes>::kValid)
+      return cudaErrorInvalidValue;
+    else
+      return launch<ACT, DIM, kRes>(x, w, b, out, batch, n_steps, dt, grid,
+                                    stream);
+  }
+}
+
 }  // namespace
 
 // The geometry arguments are the fields of the wrapper's OdeTiling in order:
+// the instance's width (x, W and b padded to it) and whether W is resident,
 // rows per cluster, blocks per cluster, row tiles, blocks.
 extern "C" int agp_ode_euler(const float* x, const float* w, const float* b,
-                             float* out, int batch, int dim, int n_steps,
-                             float dt, int act, int rows, int cluster,
-                             int tiles, int grid, void* stream) {
-  if (dim != kDim || rows != kRows || cluster != kCluster || batch < 1 ||
+                             float* out, int batch, int n_steps, float dt,
+                             int act, int dim, int resident, int rows,
+                             int cluster, int tiles, int grid,
+                             void* stream) {
+  if (dim < kDimStep || dim > kMaxDim || dim % kDimStep != 0 ||
+      resident != (dim <= kMaxResidentDim) || rows != kRows ||
+      cluster != kCluster || batch < 1 ||
       tiles != (batch + kRows - 1) / kRows || grid != tiles * kCluster ||
       n_steps < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (act) {
-    case 0: return launch<0>(x, w, b, out, batch, n_steps, dt, grid, s);
-    case 1: return launch<1>(x, w, b, out, batch, n_steps, dt, grid, s);
-    case 2: return launch<2>(x, w, b, out, batch, n_steps, dt, grid, s);
-    default: return launch<3>(x, w, b, out, batch, n_steps, dt, grid, s);
+    case 0:
+      return launch_dim<0>(dim, x, w, b, out, batch, n_steps, dt, grid, s);
+    case 1:
+      return launch_dim<1>(dim, x, w, b, out, batch, n_steps, dt, grid, s);
+    case 2:
+      return launch_dim<2>(dim, x, w, b, out, batch, n_steps, dt, grid, s);
+    default:
+      return launch_dim<3>(dim, x, w, b, out, batch, n_steps, dt, grid, s);
   }
 }

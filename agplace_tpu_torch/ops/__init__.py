@@ -17,7 +17,10 @@ model path calls K6, P1 or P2; the probe entry points
 against K2.
 
 Each wrapper counts its launches in a plain integer attribute
-(``wrapper.launches``); only a launch of the CUDA kernel counts.
+(``wrapper.launches``); only a launch of the CUDA kernel counts.  K1-K4
+choose one of their instances by shape before the launch (``ode_instance``,
+``down0_instance``, ``conv3x3_instance``, ``head_instance``) and also count
+the launches of each in ``wrapper.instances`` (a dict, reset in place).
 """
 
 from __future__ import annotations
@@ -40,7 +43,15 @@ def kernels():
 def reset_launches() -> None:
     for k in kernels():
         k.launches = 0
+        for key in getattr(k, "instances", {}):
+            k.instances[key] = 0
 
 
 def launches() -> Dict[str, int]:
     return {k.__name__: k.launches for k in kernels()}
+
+
+def instance_launches() -> Dict[str, Dict[str, int]]:
+    """The launches of each instance, by kernel (K1-K4)."""
+    return {k.__name__: dict(k.instances) for k in kernels()
+            if hasattr(k, "instances")}

@@ -6,9 +6,13 @@ CUDA version runs the block as four hand-written phases: the two 3x3 convs
 with the masked ECA pool in its epilogue), the ECA fold/conv/sigmoid
 (``csrc/eca.cuh``), and attention multiply + residual + relu + mask, with
 the 1x1 downsample conv+BN in the last phase's GEMM (``csrc/bev_block_sm.cu``).
-There is no VMEM gate (``sm_block_vmem_ok`` has no counterpart); the conv
-phases' tile rule (``check_block_args``) is the only shape rule.
-``conv3x3_tiling`` is the conv phases' launch geometry, its one source:
+There is no VMEM gate (``sm_block_vmem_ok`` has no counterpart).  Like
+JAX's kernel the block takes any width of the MM's flag space (z up to
+``MAX_Z``, C a multiple of 8, Z*C up to ``MAX_ZC``): ``conv3x3_instance``
+is the rule by shape, the sm90 kernel where its tiles divide the widths,
+the wmma implicit GEMM of ``csrc/conv_igemm.cuh`` with the same bf16
+epilogues elsewhere (``block_instance`` names the pair a block runs).
+``conv3x3_tiling`` is the sm90 conv phases' launch geometry, its one source:
 the kernel takes the tensor-map dims and boxes, the patch grid, the K steps
 and the grid from it.  ``eca_block_plain`` is the plain version, the JAX
 module's unfused path (``bev_grid.py:496-512``), written with the conv
@@ -23,6 +27,8 @@ from typing import Tuple
 import torch
 
 from agplace_tpu_torch.ops import _build
+from agplace_tpu_torch.ops.widths import (C_STEP, IGEMM, MAX_Z, MAX_ZC, SM90,
+                                          igemm_gather, on_grid)
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -97,6 +103,28 @@ def eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2, bias2, w_eca,
     return bg.mask_bev(torch.relu(out + r), mask, z)
 
 
+def conv3x3_instance(zci: int, zco: int, z: int) -> str:
+    """The instance of one conv phase x [.., Zcin] -> [.., Zcout] at z:
+    SM90 (TMA + wgmma, ``csrc/conv3x3_sm90.cu``) where its 64-channel K
+    slabs divide Zcin and its 128-channel N tile Zcout, IGEMM (wmma,
+    ``csrc/conv_igemm.cuh``) at the grid's other widths; off the grid it
+    raises."""
+    if not (on_grid(zci, z) and on_grid(zco, z)):
+        raise ValueError(f"conv3x3: widths {zci}->{zco} at z={z} outside "
+                         f"the kernel's tiles (1 <= z <= {MAX_Z}, C a "
+                         f"multiple of {C_STEP}, Z*C <= {MAX_ZC})")
+    return SM90 if zci % SLAB == 0 and zco % BLOCK_N == 0 else IGEMM
+
+
+def block_instance(zci: int, zco: int, z: int) -> str:
+    """K3's instance for a block Zcin -> Zcout: its two conv phases'
+    (conv1 Zcin -> Zcout, conv2 Zcout -> Zcout), one name when they
+    agree, else 'igemm+sm90' (conv1 narrow, conv2 on the sm90 tiles)."""
+    routes = dict.fromkeys((conv3x3_instance(zci, zco, z),
+                            conv3x3_instance(zco, zco, z)))
+    return "+".join(routes)
+
+
 def check_widths(name, zci: int, zco: int, z: int, cin_tile: int,
                   cout_tile: int):
     _build.check(zci % cin_tile == 0 and zco % cout_tile == 0
@@ -106,19 +134,22 @@ def check_widths(name, zci: int, zco: int, z: int, cin_tile: int,
                  f"{cout_tile}, Zcout/z of 8)")
 
 
-def check_block_args(name, x, w1, w2, z: int, wd=None, cin_tile: int = SLAB,
-                     cout_tile: int = BLOCK_N):
-    """The CUDA phases' shape rules for an ECA block: folded widths that
-    are multiples of the conv phases' tiles (K3: Zcin of 64, Zcout of 128;
-    P1 passes 32 and 32) and 8-channel z slabs; returns (B, X, Y, Z*Cin,
-    Z*Cout)."""
+def check_block_args(name, x, w1, w2, z: int, wd=None, cin_tile=None,
+                     cout_tile=None):
+    """The CUDA phases' shape rules for an ECA block: K3's width grid
+    (``conv3x3_instance``), or with ``cin_tile`` / ``cout_tile`` (P1: 32
+    and 32) folded widths that are multiples of those tiles and 8-channel
+    z slabs; returns (B, X, Y, Z*Cin, Z*Cout)."""
     b, xd, yd, zci = x.shape
     zco = int(w2.shape[3])
     _build.check(x.dtype == _BF16, f"{name}: bf16 x")
     _build.check(tuple(w1.shape) == (3, 3, zci, zco)
                  and tuple(w2.shape) == (3, 3, zco, zco),
                  f"{name}: w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}")
-    check_widths(name, zci, zco, z, cin_tile, cout_tile)
+    if cin_tile is None:
+        block_instance(zci, zco, z)
+    else:
+        check_widths(name, zci, zco, z, cin_tile, cout_tile)
     if wd is None:
         _build.check(zci == zco,
                      f"{name}: identity residual needs Cin == Cout")
@@ -145,10 +176,11 @@ def conv_phase_plain(x, mask, w, scale, bias, z: int, pool: bool):
 
 
 def conv_phase(x, mask, w, scale, bias, z: int, pool: bool):
-    """One of K3's conv phases (``csrc/conv3x3_sm90.cu`` on the card,
+    """One of K3's conv phases (``csrc/conv3x3_sm90.cu`` or, by
+    ``conv3x3_instance``, ``csrc/conv_igemm.cuh`` on the card;
     ``conv_phase_plain`` on the CPU): x [B,X,Y,Zcin] bf16, mask [B,X,Y,Z]
     bool, w [3,3,Zcin,Zcout] folded, scale/bias [Zcout], widths on the
-    kernel's tiles.  Phase 1 returns h = relu(bn(conv(x))) * mask; phase 2
+    grid.  Phase 1 returns h = relu(bn(conv(x))) * mask; phase 2
     (``pool``, Zcin == Zcout) returns (g = bn(conv(x)), its fp32 masked sum
     [B, Zcout])."""
     b, xd, yd, zci = x.shape
@@ -163,11 +195,30 @@ def conv_phase(x, mask, w, scale, bias, z: int, pool: bool):
                  f"conv_phase: x {tuple(x.shape)} mask {tuple(mask.shape)} "
                  f"w {tuple(w.shape)} scale {tuple(scale.shape)} at z={z}, "
                  f"pool={pool}")
-    check_widths("conv_phase", zci, zco, z, SLAB, BLOCK_N)
+    inst = conv3x3_instance(zci, zco, z)
     if not _build.on_cuda(x, mask, w, scale, bias):
         return conv_phase_plain(x, mask, w, scale, bias, z, pool)
-    return conv3x3_launch(x, mask, w, scale, bias,
-                          EPI_BF16_POOL if pool else EPI_BF16_RELU_MASK, z)
+    epi = EPI_BF16_POOL if pool else EPI_BF16_RELU_MASK
+    if inst == SM90:
+        return conv3x3_launch(x, mask, w, scale, bias, epi, z)
+    return conv_igemm_launch(x, mask, w, scale, bias, epi, z)
+
+
+def conv_igemm_launch(x, mask, w, scale, bias, epi: int, z: int):
+    """K3's narrow conv phase (``agp_block_conv_igemm``, EPI 0 or 1) on
+    CUDA tensors the caller checked; returns what ``conv3x3_launch``
+    does."""
+    b, xd, yd, zci = x.shape
+    zco = int(w.shape[3])
+    out = torch.empty((b, xd, yd, zco), dtype=_BF16, device=x.device)
+    pool = epi == EPI_BF16_POOL
+    sums = (torch.zeros((b, zco), dtype=torch.float32, device=x.device)
+            if pool else None)
+    _build.call("agp_block_conv_igemm", _build.aligned(x), mask.contiguous(),
+                _build.aligned(w.to(_BF16)), scale.float().contiguous(),
+                bias.float().contiguous(), out, sums, epi, igemm_gather(zci),
+                b, xd, yd, zci, zco, z)
+    return (out, sums) if pool else out
 
 
 def conv3x3_launch(x, mask, w, scale, bias, epi: int, z: int):
@@ -203,7 +254,7 @@ def eca_combine(x, m, g, pool, w_eca, z: int, wd=None, scale_d=None,
     if wd is not None:
         _build.call("agp_block_combine_ds", x, m, _build.aligned(wd.to(_BF16)),
                     scale_d.float().contiguous(), bias_d.float().contiguous(),
-                    g, att, out, b, xd, yd, zci, zco, z)
+                    g, att, out, b, xd, yd, zci, zco, z, igemm_gather(zci))
     else:
         _build.call("agp_block_combine_id", g, x, att, m, out, b, xd, yd,
                     zco, z)
@@ -225,13 +276,17 @@ def fused_eca_block_sm(x, mask, w1, w2, scale1, bias1, scale2, bias2,
         return eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2,
                                bias2, w_eca, z, wd, scale_d, bias_d)
     x = _build.aligned(x.to(_BF16))
-    check_block_args("fused_eca_block_sm", x, w1, w2, z, wd)
+    _, _, _, zci, zco = check_block_args("fused_eca_block_sm", x, w1, w2, z,
+                                         wd)
     m = mask.contiguous()
     h = conv_phase(x, m, w1, scale1, bias1, z, pool=False)
     g, pool = conv_phase(h, m, w2, scale2, bias2, z, pool=True)
     out = eca_combine(x, m, g, pool, w_eca, z, wd, scale_d, bias_d)
     fused_eca_block_sm.launches += 1
+    fused_eca_block_sm.instances[block_instance(zci, zco, z)] += 1
     return out
 
 
 fused_eca_block_sm.launches = 0
+fused_eca_block_sm.instances = dict.fromkeys((SM90, IGEMM,
+                                              f"{IGEMM}+{SM90}"), 0)

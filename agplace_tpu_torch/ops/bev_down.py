@@ -6,7 +6,11 @@ outside the Pallas call); the CUDA kernel ``csrc/bev_down.cu`` (TMA +
 wgmma, ``down0_gemm``) applies BN0, relu and the z-mask to the A operand in
 registers, runs the down0 product in fp32, and applies the down BN, relu and
 the output mask.  ``down0_tiling`` is the kernel's launch geometry, its one
-source; ``down0_coords`` replays its TMA boxes on the CPU.
+source; ``down0_coords`` replays its TMA boxes on the CPU.  Like JAX's
+kernel it takes every width of the MM's flags (``bev_block_sm.on_grid``):
+``down0_instance`` is the rule by shape, the sm90 GEMM where its tiles take
+the widths, the wmma implicit GEMM of ``csrc/stage0_igemm.cu`` (the same
+prologue, epilogue and rounding points) at the others.
 ``conv0_down0_plain`` is the plain version: the unfused prefix ``BEVConv ->
 BN -> relu -> mask -> BEVConv(k2s2) -> BN -> relu -> mask``
 (``bev_grid.py:720-740``), whose second half is ``down0_plain``.
@@ -21,6 +25,7 @@ import torch
 
 from agplace_tpu_torch.data.voxels import me_down_align
 from agplace_tpu_torch.ops import _build
+from agplace_tpu_torch.ops.widths import IGEMM, SM90, on_grid
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -30,6 +35,8 @@ _BF16 = torch.bfloat16
 # slab.  Z*C1 up to MAX_ZC1 and Zo*C2 up to MAX_ZC2 (the affines are staged
 # in shared memory), z up to MAX_Z (16 mask bits per row and tap): the
 # presets' z = 4, 8 and 16 (Z*C1 256, 512, 1024 -> Zo*C2 128, 256, 512).
+# Those are the sm90 instance's tiles; ``down0_instance`` sends the grid's
+# other widths to the wmma one.
 PATCH_X, PATCH_Y, BLOCK_N, SLAB = 8, 16, 128, 64
 MAX_ZC1, MAX_ZC2, MAX_Z = 1024, 512, 16
 
@@ -128,32 +135,38 @@ def check_stage0_args(name, feats, w0_folded, wd_folded, z: int):
                  f"{name}: wd {tuple(wd_folded.shape)}")
 
 
-def down0_widths_ok(zc1: int, zc2: int, z: int, *, max_zc1: int = MAX_ZC1,
-                    max_zc2: int = MAX_ZC2, max_z: int = MAX_Z) -> bool:
-    """Whether the down0 GEMM's tiles take these widths: Z*C1 a multiple of
-    the 64-channel slab up to ``max_zc1``, Z*C1/z a multiple of 8, z up to
-    ``max_z``, Zo*C2 a multiple of the 128-channel N tile up to
-    ``max_zc2`` and C2 even (the epilogue's channel pairs in one z-slab;
-    Zo is 3 at z = 5)."""
+def down0_widths_ok(zc1: int, zc2: int, z: int) -> bool:
+    """Whether the sm90 down0 GEMM's tiles take these widths: Z*C1 a
+    multiple of the 64-channel slab up to MAX_ZC1, Z*C1/z a multiple of 8,
+    z up to MAX_Z, Zo*C2 a multiple of the 128-channel N tile up to
+    MAX_ZC2 and C2 even (the epilogue's channel pairs in one z-slab; Zo
+    is 3 at z = 5)."""
     zo = me_down_align(z)[2]
-    return (zc1 % SLAB == 0 and zc1 <= max_zc1 and 1 <= z <= max_z
+    return (zc1 % SLAB == 0 and zc1 <= MAX_ZC1 and 1 <= z <= MAX_Z
             and zc1 % (8 * z) == 0 and zc2 % BLOCK_N == 0
-            and 0 < zc2 <= max_zc2 and zc2 % (2 * zo) == 0)
+            and 0 < zc2 <= MAX_ZC2 and zc2 % (2 * zo) == 0)
 
 
-def check_down0_args(name, x: int, y: int, zc1: int, zc2: int, z: int, *,
-                     max_zc1: int = MAX_ZC1, max_zc2: int = MAX_ZC2,
-                     max_z: int = MAX_Z):
-    """The down0 GEMM's shape rule (K2's, and with K4's limits its down0
-    half): even X and Y and ``down0_widths_ok``."""
+def down0_instance(zc1: int, zc2: int, z: int, name: str = "down0") -> str:
+    """The down0 GEMM's instance at Z*C1 -> Zo*C2 and z: SM90 (TMA +
+    wgmma, ``csrc/bev_down.cu``) where ``down0_widths_ok``, IGEMM (wmma,
+    ``csrc/stage0_igemm.cu``) at the grid's other widths; off the grid
+    (``bev_block_sm.on_grid`` of Z*C1 at z and Zo*C2 at Zo) it raises."""
+    zo = me_down_align(z)[2] if z >= 1 else 0
+    if not (on_grid(zc1, z) and on_grid(zc2, zo)):
+        raise ValueError(f"{name}: channel widths {zc1}->{zc2} at z={z} "
+                         f"outside the kernel's tiles (1 <= z <= 32, C1 and "
+                         f"C2 multiples of 8, Z*C1 and Zo*C2 up to 4096)")
+    return SM90 if down0_widths_ok(zc1, zc2, z) else IGEMM
+
+
+def check_down0_args(name, x: int, y: int, zc1: int, zc2: int,
+                     z: int) -> str:
+    """The down0 GEMM's shape rule (K2's, and K4's down0 half): even X and
+    Y and ``down0_instance``; returns the instance."""
     _build.check(x % 2 == 0 and y % 2 == 0,
                  f"{name}: spatial dims {x}x{y} are not even")
-    _build.check(down0_widths_ok(zc1, zc2, z, max_zc1=max_zc1,
-                                 max_zc2=max_zc2, max_z=max_z),
-                 f"{name}: channel widths {zc1}->{zc2} at z={z} outside the "
-                 f"kernel's tiles (Z*C1 a multiple of {SLAB} up to "
-                 f"{max_zc1}, Z*C1/z of 8, z <= {max_z}, Zo*C2 a multiple "
-                 f"of {BLOCK_N} up to {max_zc2}, C2 even)")
+    return down0_instance(zc1, zc2, z, name)
 
 
 def check_down0_tensors(name, mask, scale0, bias0, scale_d, bias_d,
@@ -184,7 +197,7 @@ def down0_gemm(g0, mask, scale0, bias0, wd_folded, scale_d, bias_d,
     [B,X/2,Y/2,Zo] bool.  Returns [B,X/2,Y/2,Zo*C2] bf16."""
     b, x, y, zc1 = g0.shape
     zc2 = int(wd_folded.shape[3])
-    check_down0_args("down0_gemm", x, y, zc1, zc2, z)
+    inst = check_down0_args("down0_gemm", x, y, zc1, zc2, z)
     _build.check(tuple(wd_folded.shape) == (2, 2, zc1, zc2),
                  f"down0_gemm: g {tuple(g0.shape)} wd "
                  f"{tuple(wd_folded.shape)} at z={z}")
@@ -195,16 +208,19 @@ def down0_gemm(g0, mask, scale0, bias0, wd_folded, scale_d, bias_d,
         return down0_plain(g0, mask, scale0, bias0, wd_folded, scale_d,
                            bias_d, z=z)[0]
     _build.check(g0.dtype == _BF16, "down0_gemm: bf16 g")
-    t = down0_tiling(b, x, y, zc1, zc2, torch.cuda.get_device_properties(
-        g0.device).multi_processor_count)
     out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16,
                       device=g0.device)
-    _build.call("agp_bev_down", _build.aligned(g0), mask.contiguous(),
-                scale0.float().contiguous(), bias0.float().contiguous(),
-                _build.aligned(wd_folded.to(_BF16)),
-                scale_d.float().contiguous(), bias_d.float().contiguous(),
-                mask_out.contiguous(), out, z, me_down_align(z)[2],
-                *t.args())
+    ins = (_build.aligned(g0), mask.contiguous(), scale0.float().contiguous(),
+           bias0.float().contiguous(), _build.aligned(wd_folded.to(_BF16)),
+           scale_d.float().contiguous(), bias_d.float().contiguous(),
+           mask_out.contiguous(), out)
+    zo = me_down_align(z)[2]
+    if inst == SM90:
+        t = down0_tiling(b, x, y, zc1, zc2, torch.cuda.get_device_properties(
+            g0.device).multi_processor_count)
+        _build.call("agp_bev_down", *ins, z, zo, *t.args())
+    else:
+        _build.call("agp_bev_down_igemm", *ins, b, x, y, zc1, zc2, z, zo)
     return out
 
 
@@ -227,15 +243,18 @@ def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
     _build.check(me_down_align(x)[:2] == (0, 0)
                  and me_down_align(y)[:2] == (0, 0),
                  f"fused_conv0_down0: spatial dims {x}x{y} need ME padding")
-    check_down0_args("fused_conv0_down0", x, y, int(w0_folded.shape[3]),
-                     int(wd_folded.shape[3]), z)
+    inst = check_down0_args("fused_conv0_down0", x, y,
+                            int(w0_folded.shape[3]), int(wd_folded.shape[3]),
+                            z)
     g0 = bg.bev_conv2d(feats, w0_folded, 1, (k0 // 2,) * 2,
                        (k0 // 2,) * 2).contiguous()
     mask_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
     out = down0_gemm(g0, mask, scale0, bias0, wd_folded, scale_d, bias_d,
                      mask_out, z=z)
     fused_conv0_down0.launches += 1
+    fused_conv0_down0.instances[inst] += 1
     return out, mask_out
 
 
 fused_conv0_down0.launches = 0
+fused_conv0_down0.instances = dict.fromkeys((SM90, IGEMM), 0)

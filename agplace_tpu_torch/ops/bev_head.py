@@ -7,7 +7,12 @@ from one input halo and one output parity at a time, and feeds each chunk
 of the parity's activation from registers straight into the down0 MMA.
 ``head_tiling`` is its launch geometry, its one source; ``head_coords``,
 ``head_step`` and ``head_im2col`` replay its TMA boxes, its ring steps and
-its im2col on the CPU.
+its im2col on the CPU.  Like JAX's kernel it takes every width of the MM's
+flags: ``head_instance`` is the rule by shape, the sm90 kernel's resident
+or streamed instance where its tiles take the widths, and elsewhere the
+narrow instance of ``csrc/stage0_igemm.cu`` (conv0 and down0 as two wmma
+implicit GEMMs with the same fp32 epilogues; conv0's activation goes
+through memory).
 
 ``head_plain`` is the plain version, with the TPU kernel's rounding
 (``bev_head.py:146-163``): conv0 accumulated in fp32, the BN0 affine in
@@ -27,6 +32,7 @@ import torch
 
 from agplace_tpu_torch.data.voxels import me_down_align
 from agplace_tpu_torch.ops import _build, bev_down
+from agplace_tpu_torch.ops.widths import IGEMM, MAX_Z, MAX_ZC, igemm_gather
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -50,7 +56,7 @@ def head_plain(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     return bg.mask_bev(d, mask_out, zo).to(_BF16), mask_out
 
 
-# The kernel's tiles (csrc/bev_head.cu): conv0 k0 in (3, 5) over Z*C0 in
+# The sm90 kernel's tiles (csrc/bev_head.cu): conv0 k0 in (3, 5) over Z*C0 in
 # ZC0S channels, its im2col depth k0*k0*Z*C0 padded to KP, a multiple of
 # the slab (64 to 448); the down0 half takes K2's rule
 # (bev_down.check_down0_args: Z*C1 up to 1024, Zo*C2 a multiple of the
@@ -68,6 +74,7 @@ W0_STREAM_ROWS = 128
 # rows along x; it is HALO_CELLS cells wide
 HALO_LEAD = 2
 HALO_CELLS = 2 * PATCH_Y + 2 * HALO_LEAD
+RESIDENT, STREAMED = "resident", "streamed"
 
 
 @dataclass(frozen=True)
@@ -179,14 +186,30 @@ def head_im2col(k0: int, zc0: int, row: int, par: int, t: int):
     return (2 * xi + dx + a, 2 * yi + dy + bb + HALO_LEAD - k0 // 2, words)
 
 
+def head_instance(zc0: int, k0: int, zc1: int, zc2: int, z: int) -> str:
+    """K4's instance: conv0 k0 in (3, 5) over Z*C0 input channels (any
+    count up to MAX_ZC) to Z*C1, down0 to Zo*C2 on K2's grid.  RESIDENT or
+    STREAMED (the sm90 kernel, ``head_tiling`` picks which) at Z*C0 in
+    ZC0S and K2's sm90 widths; IGEMM (``csrc/stage0_igemm.cu``) at the
+    grid's other widths; off the grid it raises."""
+    if not (k0 in (3, 5) and 1 <= z <= MAX_Z and 0 < zc0 <= MAX_ZC):
+        raise ValueError(f"fused_head: conv0 k0={k0} over Z*C0={zc0} at "
+                         f"z={z} outside the kernel's tiles (k0 in (3, 5), "
+                         f"1 <= z <= {MAX_Z}, Z*C0 from 1 to {MAX_ZC})")
+    down = bev_down.down0_instance(zc1, zc2, z, "fused_head")
+    if zc0 not in ZC0S or down == IGEMM:
+        return IGEMM
+    return (RESIDENT if zc0 == 4 and zc1 <= RESIDENT_ZC1 and zc2 == BLOCK_N
+            else STREAMED)
+
+
 def check_head_args(x: int, y: int, zc0: int, k0: int, zc1: int, zc2: int,
-                    z: int):
-    """K4's shape rule: conv0 over Z*C0 in ZC0S channels with k0 in (3, 5),
-    then K2's down0 rule (every preset's stage 0)."""
-    _build.check(zc0 in ZC0S and k0 in (3, 5),
-                 f"fused_head: conv0 k0={k0} over Z*C0={zc0} outside the "
-                 f"kernel's tiles (Z*C0 in {ZC0S}, k0 in (3, 5))")
-    bev_down.check_down0_args("fused_head", x, y, zc1, zc2, z)
+                    z: int) -> str:
+    """K4's shape rule: even X and Y and ``head_instance``; returns the
+    instance."""
+    _build.check(x % 2 == 0 and y % 2 == 0,
+                 f"fused_head: spatial dims {x}x{y} are not even")
+    return head_instance(zc0, k0, zc1, zc2, z)
 
 
 def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
@@ -197,7 +220,7 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     b, x, y, zc0 = feats.shape
     k0 = int(w0_folded.shape[0])
     zc1, zc2 = int(w0_folded.shape[3]), int(wd_folded.shape[3])
-    check_head_args(x, y, zc0, k0, zc1, zc2, z)
+    inst = check_head_args(x, y, zc0, k0, zc1, zc2, z)
     _build.check(tuple(w0_folded.shape) == (k0, k0, zc0, zc1)
                  and tuple(wd_folded.shape) == (2, 2, zc1, zc2),
                  f"fused_head: w0 {tuple(w0_folded.shape)} wd "
@@ -209,12 +232,23 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     if not _build.on_cuda(*ins):
         return head_plain(*ins[:-1], z=z)[0]
     dev = feats.device
+    out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16, device=dev)
+    if inst == IGEMM:
+        h = torch.empty((b, x, y, zc1), dtype=_BF16, device=dev)
+        _build.call("agp_bev_head_igemm", _build.aligned(feats.to(_BF16)),
+                    mask.contiguous(), _build.aligned(w0_folded.to(_BF16)),
+                    scale0.float().contiguous(), bias0.float().contiguous(),
+                    h, _build.aligned(wd_folded.to(_BF16)),
+                    scale_d.float().contiguous(), bias_d.float().contiguous(),
+                    mask_out.contiguous(), out, b, x, y, k0, zc0, zc1, zc2, z,
+                    me_down_align(z)[2], igemm_gather(zc0),
+                    igemm_gather(zc1))
+        return out
     kk = k0 * k0 * zc0
     t = head_tiling(b, x, y, k0, zc0, zc1, zc2,
                     torch.cuda.get_device_properties(dev).multi_processor_count)
     w0p = torch.zeros((t.w0_dims[1], zc1), dtype=_BF16, device=dev)
     w0p[:kk] = w0_folded.reshape(kk, zc1)
-    out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16, device=dev)
     _build.call("agp_bev_head", _build.aligned(feats.to(_BF16)),
                 mask.contiguous(), w0p, scale0.float().contiguous(),
                 bias0.float().contiguous(),
@@ -248,7 +282,11 @@ def fused_head(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     mask_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
     out = head_gemm(*ins, mask_out, z=z)
     fused_head.launches += 1
+    fused_head.instances[head_instance(int(feats.shape[3]), k0,
+                                       int(w0_folded.shape[3]),
+                                       int(wd_folded.shape[3]), z)] += 1
     return out, mask_out
 
 
 fused_head.launches = 0
+fused_head.instances = dict.fromkeys((RESIDENT, STREAMED, IGEMM), 0)

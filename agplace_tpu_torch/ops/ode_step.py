@@ -1,10 +1,14 @@
 """K1 — fused fixed-step Euler chain of the FCODE block.
 
 Port of ``agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode``.  The CUDA
-kernel is ``csrc/ode_step.cu``: one launch of thread-block clusters, W
-resident across the shared memory of each cluster's blocks; ``ode_tiling``
-is its launch geometry, its one source.  ``euler_ode_plain`` is the plain
-PyTorch version (the Python Euler loop of ``fusion.py:71-78``).
+kernel is ``csrc/ode_step.cu``: one launch of thread-block clusters; W
+resident across the shared memory of each cluster's blocks up to D = 512,
+streamed from L2 on every step above (``ode_instance``, the rule by shape);
+``ode_tiling`` is its launch geometry, its one source.  Like JAX's kernel
+it takes any D (1 to ``MAX_DIM``): the wrapper pads x, W and b with zeros
+to the instance's width, a multiple of ``DIM_STEP``.  ``euler_ode_plain``
+is the plain PyTorch version (the Python Euler loop of
+``fusion.py:71-78``).
 
 Gradients go through ``euler_ode`` (``EulerODE``, the custom VJP of JAX's
 ``ode_step.py:80-117``), and only through it: its forward is the kernel
@@ -20,46 +24,72 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from agplace_tpu_torch.ops import _build
 
 ACTS = {"relu": 0, "tanh": 1, "sigmoid": 2, "id": 3}
 _ACT_FNS = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid,
             "id": lambda v: v}
-# The kernel's tiles (csrc/ode_step.cu): D = 256 (the FCODE width of every
-# preset); a cluster of CLUSTER blocks owns ROWS rows of x, block r of it
-# W's columns [DIM / CLUSTER * r, DIM / CLUSTER * (r + 1)).
+# The kernel's tiles (csrc/ode_step.cu): a cluster of CLUSTER blocks owns
+# ROWS rows of x, block r of it W's columns [D / CLUSTER * r, D / CLUSTER
+# * (r + 1)) of the instance's width D, a multiple of DIM_STEP (D = 256,
+# the FCODE width of every preset, is its own); W stays in the cluster's
+# shared memory up to MAX_RESIDENT_DIM, and is read from L2 every step up
+# to MAX_DIM.
 DIM, CLUSTER, ROWS = 256, 8, 4
+DIM_STEP, MAX_RESIDENT_DIM, MAX_DIM = 128, 512, 1024
+RESIDENT, STREAMED = "resident", "streamed"
 
 
 @dataclass(frozen=True)
 class OdeTiling:
-    """Launch geometry of K1 over x [B, DIM], as the kernel takes it
-    (``args``): row tile ``i`` (rows [ROWS i, ROWS i + ROWS), the last one
-    ragged) is the cluster of blocks [CLUSTER i, CLUSTER i + CLUSTER)."""
+    """Launch geometry of K1 over x [B, D] padded to [B, ``dim``], as the
+    kernel takes it (``args``): the instance's width and whether W is
+    resident, then row tile ``i`` (rows [ROWS i, ROWS i + ROWS), the last
+    one ragged) as the cluster of blocks [CLUSTER i, CLUSTER i +
+    CLUSTER)."""
 
+    dim: int
+    resident: bool
     rows: int
     cluster: int
     tiles: int
     grid: int
 
     def args(self):
-        return (self.rows, self.cluster, self.tiles, self.grid)
+        return (self.dim, int(self.resident), self.rows, self.cluster,
+                self.tiles, self.grid)
+
+
+def ode_instance(batch: int, dim: int) -> str:
+    """K1's instance for x [batch, dim]: RESIDENT (W in the cluster's
+    shared memory) up to MAX_RESIDENT_DIM, STREAMED (W's column slices
+    read from L2 every step) up to MAX_DIM; other shapes raise."""
+    if not (batch >= 1 and 1 <= dim <= MAX_DIM):
+        raise ValueError(f"fused_euler_ode: x [{batch}, {dim}] outside the "
+                         f"kernel's tiles (1 <= D <= {MAX_DIM}, B >= 1)")
+    return RESIDENT if dim <= MAX_RESIDENT_DIM else STREAMED
+
+
+def ode_width(dim: int) -> int:
+    """The instance's width: D padded to a multiple of DIM_STEP."""
+    return -(-dim // DIM_STEP) * DIM_STEP
 
 
 def ode_tiling(batch: int, dim: int) -> OdeTiling:
-    _build.check(dim == DIM and batch >= 1,
-                 f"fused_euler_ode: x [{batch}, {dim}] outside the kernel's "
-                 f"tiles (D = {DIM}, B >= 1)")
+    resident = ode_instance(batch, dim) == RESIDENT
     tiles = -(-batch // ROWS)
-    return OdeTiling(ROWS, CLUSTER, tiles, tiles * CLUSTER)
+    return OdeTiling(ode_width(dim), resident, ROWS, CLUSTER, tiles,
+                     tiles * CLUSTER)
 
 
 def ode_block(t: OdeTiling, block: int, batch: int):
     """The rows and W columns block ``block`` computes and writes, as the
-    kernel derives them from ``t``: (rows range, columns range)."""
+    kernel derives them from ``t`` (both instances): (rows range, columns
+    range) of the padded [B, t.dim] state."""
     r0 = (block // t.cluster) * t.rows
-    cols = DIM // t.cluster
+    cols = t.dim // t.cluster
     c0 = (block % t.cluster) * cols
     return range(r0, min(r0 + t.rows, batch)), range(c0, c0 + cols)
 
@@ -140,12 +170,18 @@ def fused_euler_ode(x, w, b, n_steps: int = 10, dt: float = 0.1,
                  "fused_euler_ode: fp32 x, w, b required")
     _build.check(w.shape == (dim, dim) and b.shape == (dim,),
                  f"fused_euler_ode: bad shapes {x.shape} {w.shape} {b.shape}")
+    pad = t.dim - dim
+    if pad:  # zero columns of x and b, zero rows and columns of W
+        x, b = F.pad(x, (0, pad)), F.pad(b, (0, pad))
+        w = F.pad(w, (0, pad, 0, pad))
     x, w, b = map(_build.aligned, (x, w, b))
     out = torch.empty_like(x)
-    _build.call("agp_ode_euler", x, w, b, out, batch, dim, int(n_steps),
+    _build.call("agp_ode_euler", x, w, b, out, batch, int(n_steps),
                 float(dt), ACTS[act], *t.args())
     fused_euler_ode.launches += 1
-    return out
+    fused_euler_ode.instances[RESIDENT if t.resident else STREAMED] += 1
+    return out[:, :dim] if pad else out
 
 
 fused_euler_ode.launches = 0
+fused_euler_ode.instances = dict.fromkeys((RESIDENT, STREAMED), 0)

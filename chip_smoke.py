@@ -246,7 +246,20 @@ K6 has no path; only its parity is checked.
     card for 1 step with ``--odeint_method dopri5 --odeint_rtol 1e-3
     --odeint_atol 1e-3 --dopri5_max_steps 16 --horizontal_flip true
     --patience 3``: exit 0, a finite loss, each flag in its field;
-31. [multi-gpu] the multi-GPU layer (``agplace_tpu_torch/parallel``,
+31. [widths] K1-K4 off the preset widths: one MM forward of each of three
+    configurations of ``kitti360_config()`` at full width (256 px, 128 x
+    128 x z, bf16): W1 (b32) ``--vox_grid_extent 128 128 5`` with a
+    1024-wide fusion (ResNet-50 image branch, voxel planes 64 128 1024),
+    W2 (b32) the fused route at z = 6 with voxel planes 24 128 and a
+    128-wide fusion, W3 (b8) z = 32 (``WIDTHS_CONFIGS``); each inside
+    ``held_to_plain`` (every K1-K5 launch compared with its plain version
+    at its own shapes, none missed), exact launch counts, the launches
+    of each instance (``ops.instance_launches``), one query against the
+    CPU run (SLICE_TOL), and each instance no preset runs timed alone on
+    its first launch's arguments (CUDA events, median of 20; K1 also by
+    the profiler) beside its plain version, its bound and cuDNN's convs
+    where they compute a product of it;
+32. [multi-gpu] the multi-GPU layer (``agplace_tpu_torch/parallel``,
     ``retrieval/sharded.py``) in processes of its own, this script run
     as ``chip_smoke.py --multi-gpu-rank ...``: one rank over NCCL
     (``RANK=0 WORLD_SIZE=1``: ``bootstrap``, ``make_mesh``'s explicit
@@ -273,8 +286,9 @@ K6 has no path; only its parity is checked.
 
 Every phase raises on failure.  The second-to-last line is the per-kernel
 JSON record (``launches`` summed over the paths, split in
-``launches_by_path``; ``bound_ms`` / ``bound_by`` computed from this run's
-inputs by ``bound``; ``library_ms`` the yardstick for part of the work
+``launches_by_path``; K1-K4's [widths] launches by instance in
+``launches_by_instance_in_widths``, their timings under ``widths``;
+``bound_ms`` / ``bound_by`` computed from this run's inputs by ``bound``; ``library_ms`` the yardstick for part of the work
 where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
 and K2's and P2's down0 GEMM, ``F.max_pool2d`` for K5; null for the
 kernels no single PyTorch call computes), the last
@@ -401,7 +415,8 @@ RECORD_KEYS = ("ms_by_chunk", "plain_ms_by_chunk", "device_ms_by_chunk",
                "queued", "z8", "z16", "ms_b128", "plain_ms_b128",
                "queued_ms", "queued_ms_b128", "device_ms", "device_ms_b128",
                "library_device_ms", "library_device_ms_b128",
-               "bound_ms_b128", "conv_phases_device_ms", "train_k1")
+               "bound_ms_b128", "conv_phases_device_ms", "train_k1",
+               "widths")
 
 
 def log(*a):
@@ -756,7 +771,7 @@ def down0_alone(args, mask, z):
     wc = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     cudnn = queued_ms(lambda: F.conv2d(hc, wc, stride=2))
     bnd = bound(conv_flops(got.shape[0] * got.shape[1] * got.shape[2], wd,
-                           z, 2),
+                           z, me_down_align(z)[2]),
                 nbytes(g0, mask, s0, b0, wb, sd, bd, m_out, got))
     log(f"  K2 down0 GEMM alone b{bsz}: {ms:.4f} ms; bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
@@ -824,7 +839,7 @@ def head_alone(args, mask, z):
     pms = cuda_ms(lambda: bev_head.head_plain(*ins, z=z))
     cells = bsz * x * y
     flops = (conv_flops(cells, ins[2], z, z)
-             + conv_flops(cells // 4, ins[5], z, 2))
+             + conv_flops(cells // 4, ins[5], z, me_down_align(z)[2]))
     bnd = bound(flops, nbytes(*ins, m_out, got))
     tflops = flops / ms / 1e9
     log(f"  K4 kernel alone {shape}: {ms:.4f} ms; {tflops:.1f} TFLOP/s = "
@@ -2746,10 +2761,12 @@ def sparse_state(grid_state):
 
 
 def expected_mm(cfg, n):
-    """K1..K6 launches of ``n`` eval forwards of ``cfg``'s MM (default
-    stem and head): K1 per FCODE where JAX's gate is open (uniform Euler,
-    ``use_pallas``); on the bev backend K2 once at stage 0 and K3 per ECA
-    block of the FPN plus stage 2's voxel refine; nothing else."""
+    """K1..K6 launches of ``n`` eval forwards of ``cfg``'s MM on a grid
+    whose stage 0 the kernels take: K1 per FCODE where JAX's gate is open
+    (uniform Euler, ``use_pallas``); on the bev backend K2 (K4 with
+    ``bev_pallas_head``) once at stage 0 and K3 per ECA block of the FPN
+    plus stage 2's voxel refine; K5 in a ResNet stem with ``stem_pallas``
+    in bf16; nothing else."""
     from agplace_tpu_torch import ops
     from agplace_tpu_torch.ode.integrators import fixed_steps
 
@@ -2761,9 +2778,14 @@ def expected_mm(cfg, n):
     bev = m.voxfe_backend == "bev"
     k3 = ((sum(m.voxfe_layers) if m.voxfe_block == "eca" else 0)
           + m.stg2nlayers) if bev else 0
+    head = bev and m.bev_pallas_head
+    stem = (m.stem_pallas and m.imgfe.startswith("resnet")
+            and cfg.model.compute_dtype == "bfloat16")
     want = dict.fromkeys(ops.launches(), 0)
-    want.update(fused_euler_ode=n * k1, fused_conv0_down0=n * int(bev),
-                fused_eca_block_sm=n * k3)
+    want.update(fused_euler_ode=n * k1,
+                fused_conv0_down0=n * int(bev and not head),
+                fused_head=n * int(head), fused_eca_block_sm=n * k3,
+                fused_affine_relu_maxpool=n * int(stem))
     return want
 
 
@@ -2786,12 +2808,11 @@ def counted_forward(label, cfg, mm, images, vox):
 
 
 def against_cpu(label, cfg, gpu_out, cpu_mm, images, points,
-                keys=("embedding",)):
-    """The card's outputs for the first OPT_CPU_Q queries against the CPU
-    run of the same module on those queries."""
+                keys=("embedding",), q=OPT_CPU_Q):
+    """The card's outputs for the first ``q`` queries against the CPU run
+    of the same module on those queries."""
     from agplace_tpu_torch.data.voxels import prepare_query_vox
 
-    q = OPT_CPU_Q
     with torch.inference_mode():
         cpu = cpu_mm(torch.from_numpy(images[:q]),
                      prepare_query_vox(cfg, points[:q], "cpu"))
@@ -3711,10 +3732,13 @@ class held_to_plain:
     version on the same inputs on the card, and the two are compared with
     [parity]'s tolerances (the worst error by kernel in ``worst``, the
     launches compared in ``checked``).  The plain calls launch no kernel:
-    the counts are the path's own."""
+    the counts are the path's own.  With ``keep`` (a dict), the arguments
+    of each instance's first launch are kept there under (kernel,
+    instance), the instance read from the wrapper's ``instances``."""
 
-    def __init__(self, label):
+    def __init__(self, label, keep=None):
         self.label, self.worst, self.checked, self.saved = label, {}, {}, []
+        self.keep = keep
 
     def __enter__(self):
         for mod, name, plain, tol in plain_checks():
@@ -3722,7 +3746,12 @@ class held_to_plain:
 
             def wrapper(*a, _real=real, _plain=plain, _tol=tol,
                         _name=name, **k):
+                before = dict(getattr(_real, "instances", {}))
                 out = _real(*a, **k)
+                if self.keep is not None:
+                    for inst, n in getattr(_real, "instances", {}).items():
+                        if n > before[inst]:
+                            self.keep.setdefault((_name, inst), (a, k))
                 ref = _plain(a, k)
                 got, want = ((out[0], ref[0]) if isinstance(out, tuple)
                              else (out, ref))
@@ -3734,6 +3763,8 @@ class held_to_plain:
                 return out
 
             wrapper.launches = real.launches
+            if hasattr(real, "instances"):  # one dict, counted by the real
+                wrapper.instances = real.instances
             wrapper.__name__ = name
             setattr(mod, name, wrapper)
             self.saved.append((mod, name, real))
@@ -4275,6 +4306,153 @@ def phase_flags(dev):
 
 
 # ---- the multi-GPU layer -----------------------------------------------
+
+# ---- [widths]: K1-K4 at widths off the presets --------------------------
+
+# Three configurations of kitti360_config() (bf16, 256 px, 128 x 128 x z)
+# that together reach every instance the presets do not: W1, the default
+# route at z = 5 with a 1024-wide fusion (K2 at 320 -> 192 on the wmma
+# instance, K3 at z = 3, K1 at D = 1024, W streamed); W2, the fused route
+# at z = 6 with planes (24, 128) and a 128-wide fusion (K4 at Z*C0 = 6 on
+# its wmma instance, K3 at C = 24 and 24 -> 128, K1 at D = 128); W3, z =
+# 32 (K2 at Z*C1 = 2048 -> 1024).  JAX's MM adds the last image and voxel
+# vectors to the fusion width with no projection (fusion.py:136-146), so
+# the image branch (resnet50 at W1, two ResNet-18 stages at W2) and the
+# last voxel plane end at stg2fuse_dim.
+WIDTHS_CONFIGS = (
+    ("W1", 32, dict(vox_grid_extent=(128, 128, 5), imgfe="resnet50",
+                    imgfe_planes=(256, 512, 1024), imgfe_dim=1024,
+                    voxfe_planes=(64, 128, 1024), voxfe_dim=1024,
+                    stg2fuse_dim=1024)),
+    ("W2", 32, dict(bev_pallas_head=True, stem_pallas=True,
+                    vox_grid_extent=(128, 128, 6), voxfe_planes=(24, 128),
+                    voxfe_layers=(1, 1), voxfe_dim=128, imgfe_layers=(2, 2),
+                    imgfe_planes=(64, 128), imgfe_dim=128,
+                    stg2fuse_dim=128)),
+    ("W3", 8, dict(vox_grid_extent=(128, 128, 32))),
+)
+WIDTHS_CPU_Q = 1  # queries each configuration's card run is held to on CPU
+
+
+def widths_new(name, inst, a) -> bool:
+    """Whether an instance at these arguments is one no preset runs: K1
+    at a D other than 256 (each D its own compiled width), the wmma
+    instances of K2-K4 (K3's pair with one wmma phase too)."""
+    if name == "fused_euler_ode":
+        return int(a[0].shape[1]) != 256
+    return "igemm" in inst
+
+
+def widths_alone(name, inst, a, k):
+    """One instance alone on the arguments of its first launch in the
+    forward: the wrapper and its plain version timed with CUDA events
+    (median of 20; K1 also by the profiler's device time, its launch being
+    shorter than the host's enqueue), the bound of its work, and where one
+    cuDNN call computes a product of it, that call's time."""
+    from agplace_tpu_torch.data.voxels import me_down_align
+    from agplace_tpu_torch.ops import bev_block_sm, bev_down, bev_head, \
+        ode_step
+
+    label = f"{name} {inst}"
+    if name == "fused_euler_ode":
+        x, w, b = a[:3]
+        ms = cuda_ms(lambda: ode_step.fused_euler_ode(*a, **k))
+        dms = device_ms(lambda: ode_step.fused_euler_ode(*a, **k))
+        pms = cuda_ms(lambda: ode_step.euler_ode_plain(*a, **k))
+        bnd = bound(a[3] * 2.0 * x.shape[0] * w.numel(),
+                    nbytes(x, w, b, x), PEAK_FP32)
+        rec = dict(shape=list(x.shape), ms=ms, device_ms=dms, plain_ms=pms,
+                   library_ms=None, **bnd)
+        log(f"  {label} [{x.shape[0]},{x.shape[1]}]: {ms:.4f} ms "
+            f"({dms:.4f} ms of device time), plain {pms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        return rec
+    z = k["z"]
+    if name == "fused_eca_block_sm":
+        ms = cuda_ms(lambda: bev_block_sm.fused_eca_block_sm(*a, **k))
+        pms = cuda_ms(lambda: bev_block_sm.eca_block_plain(*a, **k))
+        phases = conv_phases(f"{label} z={z}", a, z)
+        bnd = block_bound(*a, **k)
+        rec = dict(shape=[*a[0].shape, int(a[2].shape[3])], ms=ms,
+                   plain_ms=pms, library_ms=sum(ph["cudnn_ms"]
+                                                for ph in phases.values()),
+                   library_ms_is="cuDNN's two 3x3 convs alone",
+                   conv_phases=phases, **bnd)
+        log(f"  {label} {rec['shape']} z={z}: {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}")
+        return rec
+    mask = a[1]
+    if name == "fused_conv0_down0":
+        ms = cuda_ms(lambda: bev_down.fused_conv0_down0(*a, **k))
+        pms = cuda_ms(lambda: bev_down.conv0_down0_plain(*a, **k))
+        gemm = down0_alone(a, mask, z)
+        rec = dict(shape=[*a[0].shape, int(a[5].shape[3])], ms=ms,
+                   plain_ms=pms, gemm=gemm, library_ms=gemm["cudnn_ms"],
+                   library_ms_is="cuDNN's down0 conv alone (the GEMM's "
+                                 "product)",
+                   bound_ms=gemm["bound_ms"], bound_by=gemm["bound_by"])
+        log(f"  {label} {rec['shape']} z={z}: {ms:.4f} ms with conv0, "
+            f"plain {pms:.4f} ms")
+        return rec
+    head = head_alone(a, mask, z)
+    head.update(shape=[*a[0].shape, int(a[5].shape[3])], library_ms=None,
+                zo=me_down_align(z)[2])
+    return head
+
+
+def phase_widths(base, dev):
+    """[widths]: one MM forward of each of WIDTHS_CONFIGS on the card at
+    full width inside ``held_to_plain`` (every K1-K4 launch compared with
+    its plain version at its own shapes), exact launch counts, the launches
+    of each instance, the output against the CPU run of the same module,
+    and each instance the presets do not reach timed alone on its first
+    launch's arguments."""
+    from agplace_tpu_torch import ops
+    from agplace_tpu_torch.data.voxels import prepare_query_vox
+
+    log("[widths] K1-K4 off the preset widths: three MM forwards")
+    out_counts, records = [], {}
+    for label, bsz, flags in WIDTHS_CONFIGS:
+        t0 = time.perf_counter()
+        cfg = option_cfg(base, **flags)
+        mm, cpu_mm = build_mm(cfg, dev)
+        images, points, _ = mm_inputs(40, bsz, cfg)
+        vox = prepare_query_vox(cfg, points, dev)
+        keep = {}
+        with held_to_plain(f"widths {label}", keep) as held:
+            out, counts = counted_forward(f"widths {label}", cfg, mm,
+                                          torch.from_numpy(images).to(dev),
+                                          vox)
+            instances = ops.instance_launches()
+        # every launch of K1-K5 compared, none missed
+        held_names = [n for _, n, _, _ in plain_checks()]
+        checked = {n: held.checked.get(n, 0) for n in held_names}
+        if checked != {n: counts[n] for n in held_names}:
+            raise AssertionError(f"[widths {label}] launches held to their "
+                                 f"plain versions {checked} != {counts}")
+        err = against_cpu(f"widths {label}", cfg, out, cpu_mm, images,
+                          points, q=WIDTHS_CPU_Q)
+        fwd_s = time.perf_counter() - t0
+        log(f"  [widths {label}] b{bsz} {flags}: launches {counts}; by "
+            f"instance {instances}; all held to plain (worst "
+            f"{held.worst}); card vs CPU {err:.3g} of scale; "
+            f"{fwd_s:.1f} s")
+        alone = {}
+        with torch.inference_mode():
+            for (kname, inst), (a, k) in sorted(keep.items()):
+                if widths_new(kname, inst, a):
+                    alone[f"{kname}/{inst}"] = widths_alone(kname, inst, a,
+                                                            k)
+        records[label] = dict(batch=bsz, flags={f: list(v) if isinstance(
+            v, tuple) else v for f, v in flags.items()},
+            launches=counts, instances=instances, held=checked,
+            worst=held.worst, cpu_err=err, alone=alone)
+        out_counts.append((counts, instances))
+        del mm, cpu_mm, out, keep, vox
+        torch.cuda.empty_cache()
+    return out_counts, records
+
 
 MG_WORLD = 2  # gloo ranks sharing cuda:0
 MG_ROWS = SERVE_ROWS - 1  # one sentinel row pads the gallery to 2 blocks
@@ -4842,6 +5020,26 @@ def main() -> None:
     phase_anyloc(dev, name)
     counts_tl = phase_tail(cfg, dev, name, mm)
     phase_flags(dev)
+    # ---- K1-K4 off the preset widths: W1-W3
+    widths_counts, widths = phase_widths(cfg, dev)
+    counts_w = {k: sum(c[k] for c, _ in widths_counts) for k in counts}
+    instances_w = {}
+    for _, inst in widths_counts:
+        for k, by in inst.items():
+            for i, n in by.items():
+                instances_w.setdefault(k, {}).setdefault(i, 0)
+                instances_w[k][i] += n
+    for k in instances_w:
+        parity[k]["widths"] = {
+            label: {a: r for a, r in rec["alone"].items()
+                    if a.startswith(k + "/")}
+            | {"launches": rec["launches"][k],
+                                   "instances": rec["instances"][k],
+                                   "worst_vs_plain": rec["worst"].get(k),
+                                   "cpu_err": rec["cpu_err"],
+                                   "batch": rec["batch"],
+                                   "flags": rec["flags"]}
+            for label, rec in widths.items()}
     # ---- the multi-GPU layer: NCCL at one rank, two gloo ranks
     counts_mg = phase_multi_gpu(cfg, towers, dev, name)
 
@@ -4877,7 +5075,7 @@ def main() -> None:
                                   + counts_gt[k] + counts_gf[k]
                                   + counts_mi[k] + counts_ml[k]
                                   + counts_pre[k] + counts_tl[k]
-                                  + counts_mg[k]),
+                                  + counts_w[k] + counts_mg[k]),
                      "launches_by_path": {"default": counts[k],
                                           "fused": counts_f[k],
                                           "nuscenes_fused": counts_n[k],
@@ -4901,6 +5099,7 @@ def main() -> None:
                                           "minkloc": counts_ml[k],
                                           "pretrained": counts_pre[k],
                                           "tail": counts_tl[k],
+                                          "widths": counts_w[k],
                                           "multi_gpu": counts_mg[k]},
                      "max_abs_err": parity[k]["max_abs_err"],
                      "frac_differ": parity[k]["frac_differ"],
@@ -4908,7 +5107,9 @@ def main() -> None:
                      "plain_ms": parity[k]["plain_ms"],
                      "bound_ms": parity[k]["bound_ms"],
                      "bound_by": parity[k]["bound_by"],
-                     "library_ms": parity[k]["library_ms"]},
+                     "library_ms": parity[k]["library_ms"],
+                     "launches_by_instance_in_widths":
+                         instances_w.get(k)},
                     **{x: parity[k][x] for x in RECORD_KEYS
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]

@@ -87,12 +87,12 @@ def main() -> None:
         want = ode_step.euler_ode_plain(x, w, b, 10, 0.1, "relu")
         for (c, r, sp), lib in libs.items():
             tiles = -(-bsz // r)
-            t = ode_step.OdeTiling(r, c, tiles, tiles * c)
+            t = ode_step.OdeTiling(256, True, r, c, tiles, tiles * c)
 
             def run():
                 err = lib.agp_ode_euler(x.data_ptr(), w.data_ptr(),
                                         b.data_ptr(), out.data_ptr(), bsz,
-                                        256, 10, 0.1, 0, *t.args(), stream)
+                                        10, 0.1, 0, *t.args(), stream)
                 if err != 0:
                     raise RuntimeError(f"CUDA error {err}")
             label = f"b{bsz} cluster {c} rows {r} split {sp}"

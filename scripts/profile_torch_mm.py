@@ -16,8 +16,10 @@ For each configuration and batch it profiles ``--forwards`` forwards
 after warm-up with ``torch.profiler`` and prints the device ms per forward
 of every hand-written kernel (by template: ``conv3x3_sm90_kernel<EPI>`` is
 K3's conv1 for ``<0>`` and conv2 + pool for ``<1>``;
-``conv_igemm_kernel<2>`` is K3's 1x1 + combine; ``down0_sm90_kernel`` is
-K2, ``head_sm90_kernel`` K4), of each class of library kernels,
+``conv_igemm_kernel<2, 0>`` is K3's 1x1 + combine (``<EPI, GATHER>``;
+its other instances are K2-K4's at widths off the sm90 tiles);
+``down0_sm90_kernel`` is K2, ``head_sm90_kernel`` K4), of each class of
+library kernels,
 the device total and the launch count; beside it the unprofiled
 back-to-back ms per forward (CUDA events, median of 5 runs of
 ``--forwards`` forwards), so total / back-to-back is the device's busy

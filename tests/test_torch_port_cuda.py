@@ -4,9 +4,10 @@ These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one; on the card run ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -m cuda``.  The file
 imports no JAX, so it runs on a machine that has only the port's stack.
-Shapes are small but keep the kernels' tile constraints (folded channel
-widths: K3's conv phases take Zcin in multiples of 64 and Zcout of 128, the
-other kernels multiples of 32).
+Shapes are small.  K1-K4 take every width of the MM's flag space (z up to
+32, C a multiple of 8, Z*C up to 4096; K1 any D up to 1024), each width on
+the instance its wrapper's rule picks; the other kernels keep their tile
+constraints (folded channel widths in multiples of 32).
 """
 
 import copy
@@ -113,11 +114,26 @@ def test_k1_kernel_matches_plain_at_batches(cuda, batch, act):
 
 
 @pytest.mark.cuda
-def test_k1_kernel_raises_off_its_width(cuda):
-    x = torch.randn(4, 128, device=cuda)
-    with pytest.raises(ValueError, match="outside the kernel's tiles"):
-        ode_step.fused_euler_ode(x, torch.zeros(128, 128, device=cuda),
-                                 torch.zeros(128, device=cuda))
+@pytest.mark.parametrize("act", ["relu", "sigmoid"])
+@pytest.mark.parametrize("dim", [1, 100, 128, 384, 512, 600, 1024])
+def test_k1_kernel_matches_plain_off_the_preset_width(cuda, dim, act):
+    """D other than the presets' 256: the resident instance up to 512 and
+    the streamed one above, D padded to a multiple of 128 with zeros (the
+    sigmoid moves the padded columns off 0; W's zero rows keep them out of
+    the real sums)."""
+    g = _gen()
+    x = torch.randn(33, dim, generator=g).to(cuda)
+    w = (torch.randn(dim, dim, generator=g) / dim ** .5).to(cuda)
+    b = (torch.randn(dim, generator=g) * 0.1).to(cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = ode_step.fused_euler_ode(x, w, b, 10, 0.1, act)
+        want = ode_step.euler_ode_plain(x, w, b, 10, 0.1, act)
+    assert got.shape == (33, dim)
+    torch.testing.assert_close(got, want, **K1_TOL)
+    inst = ode_step.ode_instance(33, dim)
+    assert ode_step.fused_euler_ode.instances[inst] == 1
+    assert ode_step.fused_euler_ode.launches == 1
 
 
 def _stage0_args(g, b, xy, c1, dev, k0=5, z=4):
@@ -196,12 +212,32 @@ def test_stage0_item_with_empty_mask_gives_exact_zeros(cuda, kernel):
 
 
 @pytest.mark.cuda
-def test_stage0_kernels_raise_on_widths_off_their_tiles(cuda):
-    # c1 = 32 at z = 4: Z*C1 = 128 -> Zo*C2 = 64, not the 128-channel tile
-    args = _stage0_args(_gen(), 2, 16, 32, cuda, 3)
-    for fn in (bev_down.fused_conv0_down0, bev_head.fused_head):
-        with pytest.raises(ValueError, match="outside the kernel's tiles"):
-            fn(*args, z=4)
+@pytest.mark.parametrize("kernel", ["k2", "k4"])
+@pytest.mark.parametrize("z,c1,k0", [(4, 32, 3), (5, 64, 5), (6, 32, 5),
+                                     (3, 8, 3), (1, 8, 5), (32, 16, 3)])
+def test_stage0_kernels_match_plain_off_their_tiles(cuda, kernel, z, c1,
+                                                    k0):
+    """Widths off the presets, each on its rule's instance (the narrow one
+    wherever the sm90 tiles do not take them): Z*C1 = 128 -> Zo*C2 = 64 at
+    z = 4, 320 -> 192 at z = 5 (Zo = 3), K4's Z*C0 = 6, 3, 1 and 32, C1 =
+    8, z = 32 (K2 at z = 6: 192 -> 128, on the sm90 tiles)."""
+    args = _stage0_args(_gen(), 2, 20, c1, cuda, k0, z)
+    fn, plain = {"k2": (bev_down.fused_conv0_down0,
+                        bev_down.conv0_down0_plain),
+                 "k4": (bev_head.fused_head, bev_head.head_plain)}[kernel]
+    zc1, zc2 = z * c1, me_down_align(z)[2] * c1
+    inst = (bev_down.down0_instance(zc1, zc2, z) if kernel == "k2" else
+            bev_head.head_instance(z, k0, zc1, zc2, z))
+    assert inst == ("sm90" if (kernel, z) == ("k2", 6) else "igemm")
+    ops.reset_launches()
+    with torch.inference_mode():
+        got, m1 = fn(*args, z=z)
+        want, m2 = plain(*args, z=z)
+    assert torch.equal(m1, m2) and got.shape == want.shape
+    _close_bf16(got, want, STAGE0_FRAC_DIFFER)
+    mf = m1.repeat_interleave(c1, dim=-1)
+    assert bool((got[~mf] == 0).all()) and bool((got != 0).any())
+    assert fn.launches == 1 and fn.instances[inst] == 1
 
 
 def _block_args(g, cin, c, xy, z, dev, b=3):
@@ -298,13 +334,24 @@ def test_k3_item_with_empty_mask_pools_exactly_zero(cuda):
 
 
 @pytest.mark.cuda
-def test_k3_kernel_raises_on_widths_off_its_tiles(cuda):
-    # Zcin = 96: a multiple of 32 (the old rule) but not of the 64-channel
-    # TMA slab; Zcout = 192: not a multiple of the 128-channel tile
-    for cin, c in ((48, 64), (64, 96)):
-        _, args, kw = _block_args(_gen(), cin, c, 8, 2, cuda)
-        with pytest.raises(ValueError, match="multiples of the kernel's"):
-            bev_block_sm.fused_eca_block_sm(*args, z=2, **kw)
+@pytest.mark.parametrize("cin,c,z", [(48, 64, 2), (64, 96, 2), (32, 32, 2),
+                                     (64, 64, 3), (8, 16, 5), (256, 256, 1),
+                                     (24, 24, 1)])
+def test_k3_kernel_matches_plain_off_its_tiles(cuda, cin, c, z):
+    """Zcin = 96 (not a multiple of the 64-channel TMA slab: conv1 narrow,
+    conv2 sm90), Zcout = 192, 64, 80 (not of the 128-channel tile: both
+    narrow), z = 1 (stage 2's voxel block at voxfe_dim), C = 24."""
+    mask, args, kw = _block_args(_gen(), cin, c, 8, z, cuda)
+    inst = bev_block_sm.block_instance(z * cin, z * c, z)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = bev_block_sm.fused_eca_block_sm(*args, z=z, **kw)
+        want = bev_block_sm.eca_block_plain(*args, z=z, **kw)
+    _close_bf16(got, want, BLOCK_FRAC_DIFFER)
+    mf = mask.repeat_interleave(c, dim=-1)
+    assert bool((got[~mf] == 0).all()) and bool((got != 0).any())
+    assert bev_block_sm.fused_eca_block_sm.launches == 1
+    assert bev_block_sm.fused_eca_block_sm.instances[inst] == 1
 
 
 @pytest.mark.cuda

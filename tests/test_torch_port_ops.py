@@ -80,18 +80,44 @@ def test_k1_tiling_covers_every_row_and_column_once(batch):
     W's columns; the kernel takes the geometry as is."""
     t = ode_step.ode_tiling(batch, ode_step.DIM)
     assert t.grid == t.tiles * t.cluster and t.tiles == -(-batch // t.rows)
-    assert len(_build._SIGNATURES["agp_ode_euler"]) == 4 + 5 + len(t.args()) + 1
-    seen = np.zeros((batch, ode_step.DIM), np.int64)
+    # 4 pointers, batch, n_steps, dt, act, the fields, the stream
+    sig = _build._SIGNATURES["agp_ode_euler"]
+    assert len(sig) == 4 + 4 + len(t.args()) + 1
+    _replay_k1_blocks(t, batch, ode_step.DIM)
+
+
+def _replay_k1_blocks(t, batch, dim):
+    """Every (row, column < dim) of the padded state [B, t.dim] is computed
+    and written by exactly one block; the padded columns only by blocks
+    that also hold real ones or none."""
+    assert t.dim % ode_step.DIM_STEP == 0 and dim <= t.dim < dim + 128
+    seen = np.zeros((batch, t.dim), np.int64)
     for blk in range(t.grid):
         rows, cols = ode_step.ode_block(t, blk, batch)
-        assert len(cols) == ode_step.DIM // t.cluster
+        assert len(cols) == t.dim // t.cluster
         same = ode_step.ode_block(t, blk - blk % t.cluster, batch)[0]
         assert rows == same  # the cluster's rows
         seen[rows.start:rows.stop, cols.start:cols.stop] += 1
     assert (seen == 1).all()
 
 
-@pytest.mark.parametrize("batch,dim", [(32, 128), (32, 512), (0, 256)])
+@pytest.mark.parametrize("batch,dim", [(32, 128), (32, 512), (33, 1),
+                                       (33, 100), (5, 600), (33, 1024)])
+def test_k1_tiling_takes_every_width(batch, dim):
+    """D up to 1024, each on its instance (W resident up to 512, streamed
+    above), padded to a multiple of 128: ``ode_block``'s replay covers
+    every row and column once at the padded width."""
+    t = ode_step.ode_tiling(batch, dim)
+    assert t.resident == (dim <= 512)
+    assert ode_step.ode_instance(batch, dim) == ("resident" if dim <= 512
+                                                 else "streamed")
+    assert t.args() == (t.dim, int(t.resident), 4, 8, -(-batch // 4),
+                        -(-batch // 4) * 8)
+    _replay_k1_blocks(t, batch, dim)
+
+
+@pytest.mark.parametrize("batch,dim", [(0, 256), (32, 0), (32, 1025),
+                                       (32, 2048)])
 def test_k1_tiling_refuses_other_widths(batch, dim):
     with pytest.raises(ValueError, match="outside the kernel's tiles"):
         ode_step.ode_tiling(batch, dim)
@@ -259,19 +285,29 @@ def test_k3_conv_tiling_covers_the_conv(b, xd, yd, zci, zco):
 
 
 def test_k3_width_rule():
-    """K3's conv phases take Zcin in multiples of the 64-channel TMA slab
-    and Zcout in multiples of the 128-channel tile; P1 keeps 32 and 32."""
+    """K3's conv phases run on the sm90 kernel where Zcin is a multiple of
+    the 64-channel TMA slab and Zcout of the 128-channel tile, on the wmma
+    implicit GEMM at the grid's other widths (C a multiple of 8, z <= 32,
+    Z*C <= 4096), and raise off the grid; P1 keeps 32 and 32."""
     def args(zci, zco):
         return (torch.zeros(1, 4, 4, zci, dtype=torch.bfloat16),
                 torch.zeros(3, 3, zci, zco), torch.zeros(3, 3, zco, zco))
 
     assert bev_block_sm.check_block_args("k3", *args(128, 128), 2) == \
         (1, 4, 4, 128, 128)
-    for zci, zco in ((96, 128), (128, 192), (64, 64)):
-        with pytest.raises(ValueError, match="multiples of the kernel's"):
-            bev_block_sm.check_block_args("k3", *args(zci, zco), 2)
+    for zci, zco, inst in ((128, 128, "sm90"), (96, 128, "igemm+sm90"),
+                           (128, 192, "igemm"), (64, 64, "igemm")):
+        wd = None if zci == zco else torch.zeros(1, 1, zci, zco)
+        assert bev_block_sm.check_block_args("k3", *args(zci, zco), 2,
+                                             wd)[3:] == (zci, zco)
+        assert bev_block_sm.block_instance(zci, zco, 2) == inst
+    for zci, zco, z in ((100, 100, 2), (96, 96, 33), (8192, 8192, 2)):
+        with pytest.raises(ValueError, match="outside the kernel's tiles"):
+            bev_block_sm.check_block_args("k3", *args(zci, zco), z)
     assert bev_block_sm.check_block_args("p1", *args(96, 96), 2, None, 32,
                                          32)[3:] == (96, 96)
+    with pytest.raises(ValueError, match="multiples of the kernel's"):
+        bev_block_sm.check_block_args("p1", *args(80, 80), 2, None, 32, 32)
 
 
 def _phase_args(zci=128, zco=128, z=2, xy=6, b=2):
@@ -310,7 +346,7 @@ def test_k3_conv_phase_takes_plain_on_cpu(pool):
     (dict(mask=torch.uint8), "bf16 x and bool mask"),
     (dict(mask_z=4), "conv_phase: x"),
     (dict(zco=64), "conv_phase: x"),  # phase 2 maps Zcout to Zcout
-    (dict(zci=96, zco=96), "multiples of the kernel's"),
+    (dict(zci=100, zco=100), "outside the kernel's tiles"),  # C = 50
 ])
 def test_k3_conv_phase_checks_its_arguments(change, match):
     """``conv_phase`` rejects, before any dispatch, what its kernel's

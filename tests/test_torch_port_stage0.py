@@ -7,8 +7,12 @@ kernels run only on the card (``test_torch_port_cuda.py``).  Here the boxes
 are gathered from small integer tensors as TMA reads them (zero outside the
 tensor) and multiplied in float64, so every sum is exact: K2's replay must
 give the k2s2 down0 conv, K4's halo + im2col replay conv0's im2col and
-conv0 itself at every parity.  The shape rules raise with a message, and
-the plain versions keep their results.
+conv0 itself at every parity.  At the widths the sm90 tiles do not take,
+both run the wmma implicit GEMM of ``csrc/conv_igemm.cuh``; its gather
+(``ops/widths.igemm_a_source`` over ``igemm_grid``'s blocks) is replayed
+the same way.  The shape rules name the instance each width runs, raise
+with a message off the width grid, and the plain versions keep their
+results.
 """
 
 import numpy as np
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from agplace_tpu_torch import ops
-from agplace_tpu_torch.ops import _build, bev_down, bev_head
+from agplace_tpu_torch.ops import _build, bev_down, bev_head, widths
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 torch.set_num_threads(1)
@@ -122,25 +126,79 @@ def test_k2_persistent_grid_visits_every_tile_once():
     assert bev_down.down0_tiling(1, 16, 16, 64, 128, sms=132).grid == 1
 
 
+def _replay_igemm(x, w, stride, pad):
+    """The wmma instance (``conv_igemm.cuh``) replayed block by block: per
+    M x N tile of ``igemm_grid``, the A rows gathered column by column
+    where ``igemm_a_source`` says (zeros outside the map and past K), the
+    B rows of the weight matrix (zeros past K), multiplied over the
+    padded K; each output element written by one block."""
+    b, h, wy, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho = (h + 2 * pad - kh) // stride + 1
+    wo = (wy + 2 * pad - kw) // stride + 1
+    m, k = b * ho * wo, kh * kw * cin
+    mt, nt, kt = widths.igemm_grid(m, cout, k)
+    bb, ox, oy = torch.meshgrid(torch.arange(b), torch.arange(ho),
+                                torch.arange(wo), indexing="ij")
+    bb, ox, oy = bb.reshape(-1), ox.reshape(-1), oy.reshape(-1)
+    a = torch.zeros(m, kt * widths.IGEMM_BK, dtype=torch.float64)
+    for col in range(k):
+        (dx, dy), ci = widths.igemm_a_source(col, cin, kw)
+        ix, iy = ox * stride + dx - pad, oy * stride + dy - pad
+        ok = (ix >= 0) & (ix < h) & (iy >= 0) & (iy < wy)
+        a[ok, col] = x[bb[ok], ix[ok], iy[ok], ci]
+    wm = torch.zeros(kt * widths.IGEMM_BK, cout, dtype=torch.float64)
+    wm[:k] = w.reshape(k, cout)
+    got = torch.full((m, cout), float("nan"), dtype=torch.float64)
+    bm, bn = widths.IGEMM_BM, widths.IGEMM_BN
+    for i in range(mt):
+        for j in range(nt):
+            rows = slice(i * bm, (i + 1) * bm)
+            cols = slice(j * bn, (j + 1) * bn)
+            assert torch.isnan(got[rows, cols]).all()  # each element once
+            got[rows, cols] = a[rows] @ wm[:, cols]
+    want = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                    stride=stride, padding=pad)
+    assert torch.equal(got.reshape(b, ho, wo, cout),
+                       want.permute(0, 2, 3, 1))
+
+
 @pytest.mark.parametrize("x,y,zc1,zc2,z,match", [
     (20, 19, 256, 128, 4, "not even"),
-    (20, 20, 96, 128, 4, "outside the kernel's tiles"),   # Z*C1 % 64
-    (20, 20, 256, 64, 4, "outside the kernel's tiles"),   # Zo*C2 % 128
-    (20, 20, 2048, 128, 4, "outside the kernel's tiles"),  # above 1024
-    (20, 20, 512, 128, 32, "outside the kernel's tiles"),  # z > 16
-    (20, 20, 320, 128, 5, "outside the kernel's tiles"),  # Zo = 3, C2 odd
+    (20, 20, 320, 128, 5, "outside the kernel's tiles"),  # Zo = 3: C2 = 128/3
+    (20, 20, 100, 128, 4, "outside the kernel's tiles"),  # C1 = 25
+    (20, 20, 256, 128, 33, "outside the kernel's tiles"),  # z > 32
+    (20, 20, 8192, 4096, 4, "outside the kernel's tiles"),  # Z*C1 > 4096
 ])
 def test_k2_shape_rule_raises(x, y, zc1, zc2, z, match):
     with pytest.raises(ValueError, match=match):
         bev_down.check_down0_args("k2", x, y, zc1, zc2, z)
 
 
+@pytest.mark.parametrize("zc1,zc2,z", [
+    (96, 128, 4),    # Z*C1 not a multiple of the 64-channel slab (C1 = 24)
+    (256, 64, 4),    # Zo*C2 below the 128-channel N tile
+    (2048, 128, 4),  # Z*C1 above the 1024 the sm90 affine staging holds
+    (512, 128, 32),  # z = 32: past the 16 mask bits of a row and tap
+    (320, 192, 5),   # z = 5, Zo = 3 (--vox_grid_extent 128 128 5)
+])
+def test_k2_shape_rule_takes(zc1, zc2, z):
+    """Widths the sm90 tiles refuse run on the wmma instance; its gather
+    over those widths, replayed on the CPU, is the down0 conv exactly."""
+    assert bev_down.check_down0_args("k2", 8, 4, zc1, zc2, z) == "igemm"
+    _replay_igemm(_ints((1, 8, 4, zc1), 0), _ints((2, 2, zc1, zc2), 1), 2, 0)
+
+
 @pytest.mark.parametrize("zc2", [640, 1024])
 def test_k2_shape_rule_bounds_the_n_tiles(zc2):
-    """Zo*C2 up to 512: the down BN's affine is staged in shared memory."""
-    bev_down.check_down0_args("k2", 20, 20, 64, 512, 4)
-    with pytest.raises(ValueError, match="up to 512"):
-        bev_down.check_down0_args("k2", 20, 20, 1024, zc2, 4)
+    """The sm90 instance takes Zo*C2 up to 512 (the down BN's affine is
+    staged in shared memory); wider maps run the wmma one, whose N tiles
+    of 64 cover them; past Z*C = 4096 the rule raises."""
+    assert bev_down.check_down0_args("k2", 20, 20, 64, 512, 4) == "sm90"
+    assert bev_down.check_down0_args("k2", 20, 20, 1024, zc2, 4) == "igemm"
+    assert widths.igemm_grid(32, zc2, 4 * 1024)[1] * 64 == zc2
+    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+        bev_down.check_down0_args("k2", 20, 20, 1024, 8 * zc2, 4)
 
 
 def _stage0_cpu_args(z=4, c1=64, b=2, xy=8, k0=3):
@@ -209,8 +267,8 @@ def test_k2_down0_gemm_checks_then_takes_plain_on_cpu():
     assert torch.equal(m_want, bg.mask_down(mask, (0, 0), (0, 0), (0, 0)))
     assert sum(ops.launches().values()) == 0
     with pytest.raises(ValueError, match="outside the kernel's tiles"):
-        bev_down.down0_gemm(g0[..., :96], mask, s0[:96], b0[:96],
-                            wd[:, :, :96], sd, bd, m_want, z=z)
+        bev_down.down0_gemm(g0[..., :100], mask, s0[:100], b0[:100],
+                            wd[:, :, :100], sd, bd, m_want, z=z)
 
 
 # --------------------------------------------------------------------- K4
@@ -387,7 +445,7 @@ def test_k4_head_gemm_takes_plain_on_cpu():
     assert torch.equal(want, bev_head.head_plain(*args, z=z)[0])
     assert sum(ops.launches().values()) == 0
     with pytest.raises(ValueError, match="outside the kernel's tiles"):
-        bev_head.head_gemm(*args[:5], args[5][..., :64], *(a[:64] for a in
+        bev_head.head_gemm(*args[:5], args[5][..., :60], *(a[:60] for a in
                                                          args[6:]),
                            m_out, z=z)
 
@@ -400,17 +458,34 @@ def test_k4_persistent_grid_is_one_block_per_sm():
 
 
 @pytest.mark.parametrize("zc0,k0,zc1,zc2,z,match", [
-    (12, 5, 256, 128, 4, "Z\\*C0 in \\(4, 8, 16\\)"),
+    (5000, 5, 256, 128, 4, "Z\\*C0 from 1 to 4096"),
     (4, 7, 256, 128, 4, "k0 in \\(3, 5\\)"),
-    (4, 5, 2048, 128, 4, "up to 1024"),  # Z*C1 > 1024
-    (4, 3, 128, 64, 4, "outside the kernel's tiles"),  # Zo*C2 = 64
-    (4, 5, 160, 128, 4, "outside the kernel's tiles"),  # Z*C1 % 64
-    (8, 5, 512, 192, 8, "outside the kernel's tiles"),  # Zo*C2 % 128
-    (4, 5, 256, 128, 32, "outside the kernel's tiles"),  # z > 16
+    (4, 5, 8192, 128, 4, "outside the kernel's tiles"),  # Z*C1 > 4096
+    (4, 3, 128, 60, 4, "outside the kernel's tiles"),  # C2 = 30
+    (4, 5, 100, 128, 4, "outside the kernel's tiles"),  # C1 = 25
+    (8, 5, 512, 200, 8, "outside the kernel's tiles"),  # C2 = 50
+    (4, 5, 256, 128, 33, "outside the kernel's tiles"),  # z > 32
 ])
 def test_k4_shape_rule_raises(zc0, k0, zc1, zc2, z, match):
     with pytest.raises(ValueError, match=match):
         bev_head.check_head_args(32, 32, zc0, k0, zc1, zc2, z)
+
+
+@pytest.mark.parametrize("zc0,k0,zc1,zc2,z", [
+    (12, 5, 256, 128, 4),   # Z*C0 off the im2col box widths (C0 = 3)
+    (4, 5, 2048, 128, 4),   # Z*C1 > 1024
+    (4, 3, 128, 64, 4),     # Zo*C2 = 64
+    (6, 5, 192, 128, 6),    # z = 6 (W2 of the smoke's [widths])
+    (1, 3, 8, 8, 1),        # z = 1, C1 = 8
+])
+def test_k4_shape_rule_takes(zc0, k0, zc1, zc2, z):
+    """Widths K4's sm90 tiles refuse run on the narrow instance: conv0
+    (any Z*C0, element by element at Z*C0 not a multiple of 8) and down0,
+    each replayed through the wmma gather, are the convs exactly."""
+    assert bev_head.check_head_args(8, 4, zc0, k0, zc1, zc2, z) == "igemm"
+    _replay_igemm(_ints((1, 8, 4, zc0), 2), _ints((k0, k0, zc0, zc1), 3), 1,
+                  k0 // 2)
+    _replay_igemm(_ints((1, 8, 4, zc1), 4), _ints((2, 2, zc1, zc2), 5), 2, 0)
 
 
 def test_stage0_kitti_widths_pass_both_rules():
@@ -471,5 +546,7 @@ def test_k4_rule_takes_the_wider_widths(zc0, zc2):
         bev_head.check_head_args(32, 32, zc0, k0, 512, zc2, 8)
     for zc1, z in ((64, 1), (128, 2), (192, 3), (256, 4), (256, 2)):
         bev_head.check_head_args(20, 20, 4, 5, zc1, 128, z)
+    assert bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 64,
+                                    16) == "igemm"
     with pytest.raises(ValueError, match="outside the kernel's tiles"):
-        bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 64, 16)
+        bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 4, 16)
