@@ -9,9 +9,9 @@
 //   1. h   = relu(bn1(conv3x3(x))) * mask                (conv3x3_sm90.cu)
 //   2. g   = bn2(conv3x3(h)); pool[b, zc] += sum g*mask  (conv3x3_sm90.cu)
 //      -- at the widths the sm90 tiles do not divide (Zcin not a multiple
-//      of 64 or Zcout not of 128; ops/bev_block_sm.py: conv3x3_instance)
-//      both phases are conv_igemm.cuh's wmma implicit GEMM with the same
-//      bf16 epilogues (EPI 0 and 1, agp_block_conv_igemm below)
+//      of 64, Zcout not of 128, C not of 8; ops/bev_block_sm.py:
+//      conv3x3_instance) both phases are the z-banded wgmma GEMM
+//      (zband_sm90.cu) with the same bf16 epilogues
 //   3. att = sigmoid(conv1d_k(sum_z pool / count))       (eca.cuh)
 //   4. out = relu(g*att + r) * mask with r = x (combine_id_kernel) or
 //      r = bn_d(conv1x1(x)) computed in the GEMM epilogue (conv_igemm, EPI 2)
@@ -77,7 +77,8 @@ extern "C" int agp_block_eca(const float* pool, const uint8_t* mask,
 }
 
 // gather: conv_igemm's gather for Zcin (GATHER_SLAB32 at Zcin % 32 == 0,
-// every preset's; GATHER_C8 at the other multiples of 8)
+// every preset's; GATHER_C8 at the other multiples of 8: the wrapper pads
+// every z-slab to a multiple of 8 channels)
 extern "C" int agp_block_combine_ds(const bf16* x, const uint8_t* mask,
                                     const bf16* wd, const float* sd,
                                     const float* bd, const bf16* g,
@@ -90,29 +91,6 @@ extern "C" int agp_block_combine_ds(const bf16* x, const uint8_t* mask,
   p.att = att;
   return agp::launch_conv_gather<agp::EPI_AFFINE_COMBINE>(
       p, gather, static_cast<cudaStream_t>(stream));
-}
-
-// Phases 1 (epi 0) and 2 (epi 1, pool [B, Zcout] fp32 zeroed by the
-// caller) of K3's narrow instance: the 3x3 'same' conv as conv_igemm's
-// wmma implicit GEMM with K3's bf16 epilogues.
-extern "C" int agp_block_conv_igemm(const bf16* x, const uint8_t* mask,
-                                    const bf16* w, const float* scale,
-                                    const float* bias, bf16* out, float* pool,
-                                    int epi, int gather, int B, int X, int Y,
-                                    int zci, int zco, int z, void* stream) {
-  if (zco % z || (zco / z) % 8) return cudaErrorInvalidValue;
-  agp::ConvParams p = agp::same_conv_params(x, w, out, B, X, Y, zci, zco, 3,
-                                            z, scale, bias, mask);
-  p.pool = pool;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epi) {
-    case agp::EPI_BF16_RELU_MASK:
-      return agp::launch_conv_gather<agp::EPI_BF16_RELU_MASK>(p, gather, s);
-    case agp::EPI_BF16_POOL:
-      return agp::launch_conv_gather<agp::EPI_BF16_POOL>(p, gather, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 extern "C" int agp_block_combine_id(const bf16* g, const bf16* x,

@@ -1,11 +1,10 @@
 // One templated implicit-GEMM convolution with a fused epilogue, shared by
 // K6's conv phases at the widths the TMA + wgmma kernel's tiles do not
 // divide (bev_block.cu, EPI 3-4), K3's 1x1 residual combine (bev_block_sm.cu,
-// EPI 2), and the shape-chosen narrow instances of K2, K3 and K4: K3's conv
-// phases (EPI 0-1) and the 1x1 combine wherever the sm90 tiles do not
-// divide Z*C, K2's down0 GEMM with its BN0 prologue (GATHER_C8_BN) and K4's
-// two convs (conv0 over any Z*C0 with GATHER_ANY, then down0) off their
-// sm90 tiles; P1 and P2 use its cp.async helpers.
+// EPI 2) and K4's conv0 off its sm90 tiles (stage0_igemm.cu: any Z*C0 with
+// GATHER_ANY); P1 and P2 use its cp.async helpers.  K2's down0 and K3's
+// conv phases off their sm90 tiles run the z-banded wgmma GEMM
+// (zband_sm90.cu) instead.
 //
 // Layouts (the port's public layouts): x [B, H, W, Cin] bf16 (NHWC, the
 // z-major fold puts z*C in the channel axis), weights [KH, KW, Cin, Cout]
@@ -17,37 +16,33 @@
 // GEMM view: M = B*Ho*Wo output pixels, N = Cout, K = KH*KW*Cin.  A block
 // computes a BM x BN tile with 8 warps (4 x 2), each warp a 32 x 32 patch
 // of nvcuda::wmma bf16 16x16x16 tiles with fp32 accumulation.  The A tile
-// is gathered from x in chunks of 8 K-columns, by one of four gathers
+// is gathered from x in chunks of 8 K-columns, by one of three gathers
 // chosen at compile time (the wrapper's rule picks the instance):
 //   GATHER_SLAB32  Cin % 32 == 0: a BK slice lies inside one tap, one
 //                  16-byte cp.async per chunk (the first design's);
 //   GATHER_C8      Cin % 8 == 0: each chunk finds its own tap, K padded to
 //                  a multiple of BK with zeros (A and B both, so that no
 //                  0 x garbage product reaches the sum);
-//   GATHER_C8_BN   as GATHER_C8, through registers: the chunk gets the
-//                  input's bf16 BN affine, relu and its z-slab's mask
-//                  before the shared-memory store (K2's prologue,
-//                  bev_down.py:89-94's rounding, as down0_sm90.cuh);
 //   GATHER_ANY     any Cin: element by element through registers (conv0
 //                  over Z*C0 = z occupancy channels).
 // The B tile comes from the weight matrix, rows past K zero.  Tiles stream
 // through a 3-stage ring in shared memory, so two K slices are in flight
-// while one feeds the tensor cores (the register gathers load their
-// chunk when the slice is issued and store it at once).  The fp32
-// accumulator tile goes through shared memory to an epilogue that works on
-// 8 consecutive output channels per thread (16-byte stores: Cout % 8 == 0,
+// while one feeds the tensor cores (the register gather loads its chunk
+// when the slice is issued and stores it at once).  The fp32 accumulator
+// tile goes through shared memory to an epilogue that works on 8
+// consecutive output channels per thread (16-byte stores: Cout % 8 == 0,
 // and the output mask's z-slabs Cout / out_z a multiple of 8).
 //
-// Rounding points follow the JAX kernels.  The bf16 epilogues (EPI 0-2,
-// bev_block_sm.py / bev_down.py): the conv result is rounded to bf16, the
-// BN eval affine runs in bf16 (one rounding after the multiply, one after
-// the add), relu and the 0/1 mask are exact; scales and biases arrive in
-// fp32 and are rounded to bf16 here, as those Pallas kernels do
-// (`a_ref[0].astype(bf16)`).  The fp32 epilogues (EPI 3-4, bev_block.py and
-// bev_head.py): the affine runs in fp32 on the unrounded accumulator with
-// fp32 scale and bias, as a multiply and an add each rounded to fp32 (no
-// fma contraction, so the plain PyTorch `acc * s + b` gives the same bits),
-// and the result is rounded to bf16 once.
+// Rounding points follow the JAX kernels.  The bf16 epilogue (EPI 2,
+// bev_block_sm.py): the conv result is rounded to bf16, the BN eval affine
+// runs in bf16 (one rounding after the multiply, one after the add), relu
+// and the 0/1 mask are exact; scale and bias arrive in fp32 and are rounded
+// to bf16 here, as that Pallas kernel does (`a_ref[0].astype(bf16)`).  The
+// fp32 epilogues (EPI 3-4, bev_block.py and bev_head.py): the affine runs
+// in fp32 on the unrounded accumulator with fp32 scale and bias, as a
+// multiply and an add each rounded to fp32 (no fma contraction, so the
+// plain PyTorch `acc * s + b` gives the same bits), and the result is
+// rounded to bf16 once.
 #pragma once
 
 #include <mma.h>
@@ -57,14 +52,12 @@
 namespace agp {
 
 enum {
-  EPI_BF16_RELU_MASK = 0,  // relu(bf16(bf16(bf16(acc)*s) + b)) * mask
-  EPI_BF16_POOL = 1,       // g = bf16(bf16(bf16(acc)*s) + b); pool += g*mask
-  EPI_AFFINE_COMBINE = 2,
-  EPI_F32_RELU_MASK = 3,  // bf16(relu(acc*s + b) * mask), fp32 affine
-  EPI_F32_POOL = 4        // g = bf16(acc*s + b); pool += g * mask
+  EPI_AFFINE_COMBINE = 2,  // relu(g*att + bf16(bf16(bf16(acc)*s) + b))*mask
+  EPI_F32_RELU_MASK = 3,   // bf16(relu(acc*s + b) * mask), fp32 affine
+  EPI_F32_POOL = 4         // g = bf16(acc*s + b); pool += g * mask
 };
 
-enum { GATHER_SLAB32 = 0, GATHER_C8 = 1, GATHER_C8_BN = 2, GATHER_ANY = 3 };
+enum { GATHER_SLAB32 = 0, GATHER_C8 = 1, GATHER_ANY = 3 };
 
 struct ConvParams {
   const bf16* x;
@@ -79,11 +72,6 @@ struct ConvParams {
   float* pool;      // EPI_*_POOL: [B, Cout] fp32 masked sums (+=)
   const bf16* g;    // EPI_AFFINE_COMBINE: [M, Cout] second-conv output
   const bf16* att;  // EPI_AFFINE_COMBINE: [B, Cout] z-tiled attention
-  // GATHER_C8_BN: the input's BN affine [Cin] and occupancy [B, H, W, in_z]
-  const float* in_scale;
-  const float* in_bias;
-  const uint8_t* in_mask;
-  int in_z, in_cz;
 };
 
 constexpr int kBM = 128, kBN = 64, kBK = 32, kNT = 256, kStages = 3;
@@ -112,9 +100,8 @@ template <int EPI, int GATHER>
 __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
   using namespace nvcuda;
   constexpr bool kF32 = EPI == EPI_F32_RELU_MASK || EPI == EPI_F32_POOL;
-  constexpr bool kPool = EPI == EPI_F32_POOL || EPI == EPI_BF16_POOL;
-  constexpr bool kReluMask =
-      EPI == EPI_F32_RELU_MASK || EPI == EPI_BF16_RELU_MASK;
+  constexpr bool kPool = EPI == EPI_F32_POOL;
+  constexpr bool kReluMask = EPI == EPI_F32_RELU_MASK;
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
   __shared__ float red[kNT / 32][kBN];
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -220,24 +207,7 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
         // Cin % 8 == 0: the chunk lies in one tap (and one z-slab)
         const int tap = k / p.Cin, ci = k - tap * p.Cin;
         const long long pix = k < K ? a_pix(i, tap) : -1;
-        if (GATHER == GATHER_C8) {
-          cp_async16(dst, pix >= 0 ? p.x + pix * p.Cin + ci : p.x, pix >= 0);
-        } else {  // GATHER_C8_BN: relu(bf16(bf16(x*s) + b)) * mask
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (pix >= 0) {
-            v = *reinterpret_cast<const uint4*>(p.x + pix * p.Cin + ci);
-            const float mk =
-                (float)p.in_mask[pix * p.in_z + ci / p.in_cz];
-            bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const float t = rbf(rbf(bf2f(e[j]) * rbf(p.in_scale[ci + j])) +
-                                  rbf(p.in_bias[ci + j]));
-              e[j] = __float2bfloat16_rn(fmaxf(t, 0.0f) * mk);
-            }
-          }
-          *reinterpret_cast<uint4*>(dst) = v;
-        }
+        cp_async16(dst, pix >= 0 ? p.x + pix * p.Cin + ci : p.x, pix >= 0);
       }
     }
     const bool bk = b_ok && k0 + b_row < K;

@@ -31,6 +31,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # batch, n_steps, dt, act, then the 6 fields of ode_step.OdeTiling
     "agp_ode_euler": [_P] * 4 + [_I] * 2 + [_F] + [_I] * 7 + [_P],
+    "agp_ode_wide": [_P] * 4 + [_I] * 2 + [_F] + [_I] * 7 + [_P],
     # z, zo, then the 20 fields of bev_down.Down0Tiling
     "agp_bev_down": [_P] * 9 + [_I] * 22 + [_P],
     # epi, z, then the 17 fields of bev_block_sm.Conv3x3Tiling
@@ -38,16 +39,14 @@ _SIGNATURES = {
     "agp_block_eca": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     # ..., B, X, Y, Zcin, Zcout, z, gather
     "agp_block_combine_ds": [_P] * 8 + [_I] * 7 + [_P],
-    # x, mask, w, scale, bias, out, pool, epi, gather, B, X, Y, Zcin,
-    # Zcout, z: K3's narrow conv phases (bev_block_sm.conv3x3_instance)
-    "agp_block_conv_igemm": [_P] * 7 + [_I] * 8 + [_P],
     "agp_block_combine_id": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # z, zo, k0, Z*C0, then the 22 fields of bev_head.HeadTiling
     "agp_bev_head": [_P] * 10 + [_I] * 26 + [_P],
-    # the narrow instances of K2 (B, X, Y, Z*C1, Zo*C2, z, zo) and K4 (B,
-    # X, Y, k0, Z*C0, Z*C1, Zo*C2, z, zo, the two convs' gathers)
-    "agp_bev_down_igemm": [_P] * 9 + [_I] * 7 + [_P],
-    "agp_bev_head_igemm": [_P] * 11 + [_I] * 11 + [_P],
+    # inst, then the 38 fields of zband.ZbandTiling: the z-banded GEMM of
+    # K2, K3 and K4 off their sm90 tiles
+    "agp_zband": [_P] * 10 + [_I] * 39 + [_P],
+    # conv0 of K4's off-preset instance: B, X, Y, k0, Z*C0, Z*C1, z, gather
+    "agp_bev_head_conv0": [_P] * 6 + [_I] * 8 + [_P],
     # B, H, W, C, then the 9 fields of stem_pool.StemPoolTiling
     "agp_stem_pool": [_P] * 4 + [_I] * 13 + [_P],
     "agp_block_bm_conv1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -7,11 +7,16 @@ with the masked ECA pool in its epilogue), the ECA fold/conv/sigmoid
 (``csrc/eca.cuh``), and attention multiply + residual + relu + mask, with
 the 1x1 downsample conv+BN in the last phase's GEMM (``csrc/bev_block_sm.cu``).
 There is no VMEM gate (``sm_block_vmem_ok`` has no counterpart).  Like
-JAX's kernel the block takes any width of the MM's flag space (z up to
-``MAX_Z``, C a multiple of 8, Z*C up to ``MAX_ZC``): ``conv3x3_instance``
-is the rule by shape, the sm90 kernel where its tiles divide the widths,
-the wmma implicit GEMM of ``csrc/conv_igemm.cuh`` with the same bf16
-epilogues elsewhere (``block_instance`` names the pair a block runs).
+JAX's kernel the block takes any width of the MM's flag space (any z, any
+C, any Z*C): ``conv3x3_instance`` is the rule by shape, the sm90 kernel
+where its tiles divide the widths, the z-banded wgmma GEMM of
+``csrc/zband_sm90.cu`` (``ops/zband.py``) with the same bf16 epilogues
+elsewhere (``block_instance`` names the pair a block runs).  Where C is
+not a multiple of 8 the block runs at C8 = 8 * ceil(C / 8): every z-slab
+of x, the weights, the BN affines and the residual padded with zeros at
+its end (``widths.pad_slabs``), the output sliced back.  A padded channel
+stays 0 through both convs (zero weights, scale and bias), so ECA's pool
+holds zeros there: the zeros JAX's 1-D conv pads the C channels with.
 ``conv3x3_tiling`` is the sm90 conv phases' launch geometry, its one source:
 the kernel takes the tensor-map dims and boxes, the patch grid, the K steps
 and the grid from it.  ``eca_block_plain`` is the plain version, the JAX
@@ -26,9 +31,10 @@ from typing import Tuple
 
 import torch
 
-from agplace_tpu_torch.ops import _build
-from agplace_tpu_torch.ops.widths import (C_STEP, IGEMM, MAX_Z, MAX_ZC, SM90,
-                                          igemm_gather, on_grid)
+from agplace_tpu_torch.ops import _build, zband
+from agplace_tpu_torch.ops.widths import (SM90, ZBAND, c_step, check_fold,
+                                          igemm_gather, pad_fold, pad_slabs,
+                                          unpad_slabs)
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -105,21 +111,20 @@ def eca_block_plain(x, mask, w1, w2, scale1, bias1, scale2, bias2, w_eca,
 
 def conv3x3_instance(zci: int, zco: int, z: int) -> str:
     """The instance of one conv phase x [.., Zcin] -> [.., Zcout] at z:
-    SM90 (TMA + wgmma, ``csrc/conv3x3_sm90.cu``) where its 64-channel K
-    slabs divide Zcin and its 128-channel N tile Zcout, IGEMM (wmma,
-    ``csrc/conv_igemm.cuh``) at the grid's other widths; off the grid it
-    raises."""
-    if not (on_grid(zci, z) and on_grid(zco, z)):
-        raise ValueError(f"conv3x3: widths {zci}->{zco} at z={z} outside "
-                         f"the kernel's tiles (1 <= z <= {MAX_Z}, C a "
-                         f"multiple of {C_STEP}, Z*C <= {MAX_ZC})")
-    return SM90 if zci % SLAB == 0 and zco % BLOCK_N == 0 else IGEMM
+    SM90 (TMA + wgmma, ``csrc/conv3x3_sm90.cu``) where C is a multiple of
+    8 and its 64-channel K slabs divide Zcin and its 128-channel N tile
+    Zcout, ZBAND (``csrc/zband_sm90.cu``) at every other width; raises on
+    widths no z-fold gives."""
+    ci = check_fold("conv3x3", zci, z, "Zcin")
+    co = check_fold("conv3x3", zco, z, "Zcout")
+    return (SM90 if ci % 8 == 0 and co % 8 == 0 and zci % SLAB == 0
+            and zco % BLOCK_N == 0 else ZBAND)
 
 
 def block_instance(zci: int, zco: int, z: int) -> str:
     """K3's instance for a block Zcin -> Zcout: its two conv phases'
     (conv1 Zcin -> Zcout, conv2 Zcout -> Zcout), one name when they
-    agree, else 'igemm+sm90' (conv1 narrow, conv2 on the sm90 tiles)."""
+    agree, else 'zband+sm90' (conv1 off the sm90 tiles, conv2 on them)."""
     routes = dict.fromkeys((conv3x3_instance(zci, zco, z),
                             conv3x3_instance(zco, zco, z)))
     return "+".join(routes)
@@ -177,10 +182,11 @@ def conv_phase_plain(x, mask, w, scale, bias, z: int, pool: bool):
 
 def conv_phase(x, mask, w, scale, bias, z: int, pool: bool):
     """One of K3's conv phases (``csrc/conv3x3_sm90.cu`` or, by
-    ``conv3x3_instance``, ``csrc/conv_igemm.cuh`` on the card;
+    ``conv3x3_instance``, ``csrc/zband_sm90.cu`` on the card, each z-slab
+    padded to a multiple of 8 channels and the results sliced back;
     ``conv_phase_plain`` on the CPU): x [B,X,Y,Zcin] bf16, mask [B,X,Y,Z]
-    bool, w [3,3,Zcin,Zcout] folded, scale/bias [Zcout], widths on the
-    grid.  Phase 1 returns h = relu(bn(conv(x))) * mask; phase 2
+    bool, w [3,3,Zcin,Zcout] folded, scale/bias [Zcout], any z-fold's
+    widths.  Phase 1 returns h = relu(bn(conv(x))) * mask; phase 2
     (``pool``, Zcin == Zcout) returns (g = bn(conv(x)), its fp32 masked sum
     [B, Zcout])."""
     b, xd, yd, zci = x.shape
@@ -199,26 +205,35 @@ def conv_phase(x, mask, w, scale, bias, z: int, pool: bool):
     if not _build.on_cuda(x, mask, w, scale, bias):
         return conv_phase_plain(x, mask, w, scale, bias, z, pool)
     epi = EPI_BF16_POOL if pool else EPI_BF16_RELU_MASK
+    got = conv_phase_launch(*pad_phase(x, w, scale, bias, z), mask, epi, z,
+                            inst)
+    co = zco // z
+    if pool:
+        return unpad_slabs(got[0], z, co), unpad_slabs(got[1], z, co)
+    return unpad_slabs(got, z, co)
+
+
+def pad_phase(x, w, scale, bias, z: int):
+    """A conv phase's operands with every z-slab padded to C8 = 8 *
+    ceil(C / 8) channels, zeros at its end (a padded output channel's
+    weights, scale and bias are 0: it stays 0); each is itself where C ==
+    C8."""
+    ci8 = c_step(int(x.shape[3]) // z)
+    co8 = c_step(int(w.shape[3]) // z)
+    return (pad_slabs(x, z, ci8), pad_fold(w.to(_BF16), z, ci8, z, co8),
+            pad_slabs(scale, z, co8), pad_slabs(bias, z, co8))
+
+
+def conv_phase_launch(x, w, scale, bias, mask, epi: int, z: int,
+                      inst: str):
+    """One conv phase (EPI 0 or 1) on instance ``inst``, on CUDA tensors
+    the caller checked, every z-slab a multiple of 8 channels; returns
+    what ``conv3x3_launch`` does."""
     if inst == SM90:
         return conv3x3_launch(x, mask, w, scale, bias, epi, z)
-    return conv_igemm_launch(x, mask, w, scale, bias, epi, z)
-
-
-def conv_igemm_launch(x, mask, w, scale, bias, epi: int, z: int):
-    """K3's narrow conv phase (``agp_block_conv_igemm``, EPI 0 or 1) on
-    CUDA tensors the caller checked; returns what ``conv3x3_launch``
-    does."""
-    b, xd, yd, zci = x.shape
-    zco = int(w.shape[3])
-    out = torch.empty((b, xd, yd, zco), dtype=_BF16, device=x.device)
-    pool = epi == EPI_BF16_POOL
-    sums = (torch.zeros((b, zco), dtype=torch.float32, device=x.device)
-            if pool else None)
-    _build.call("agp_block_conv_igemm", _build.aligned(x), mask.contiguous(),
-                _build.aligned(w.to(_BF16)), scale.float().contiguous(),
-                bias.float().contiguous(), out, sums, epi, igemm_gather(zci),
-                b, xd, yd, zci, zco, z)
-    return (out, sums) if pool else out
+    return zband.zband_conv(zband.INST_K3_POOL if epi == EPI_BF16_POOL
+                            else zband.INST_K3_RELU, x, w, scale, bias, mask,
+                            z)
 
 
 def conv3x3_launch(x, mask, w, scale, bias, epi: int, z: int):
@@ -278,15 +293,39 @@ def fused_eca_block_sm(x, mask, w1, w2, scale1, bias1, scale2, bias2,
     x = _build.aligned(x.to(_BF16))
     _, _, _, zci, zco = check_block_args("fused_eca_block_sm", x, w1, w2, z,
                                          wd)
+    inst1, inst2 = conv3x3_instance(zci, zco, z), conv3x3_instance(zco, zco,
+                                                                   z)
+    x, w1, w2, scale1, bias1, scale2, bias2, wd, scale_d, bias_d = pad_block(
+        x, w1, w2, scale1, bias1, scale2, bias2, z, wd, scale_d, bias_d)
     m = mask.contiguous()
-    h = conv_phase(x, m, w1, scale1, bias1, z, pool=False)
-    g, pool = conv_phase(h, m, w2, scale2, bias2, z, pool=True)
+    h = conv_phase_launch(x, w1, scale1, bias1, m, EPI_BF16_RELU_MASK, z,
+                          inst1)
+    g, pool = conv_phase_launch(h, w2, scale2, bias2, m, EPI_BF16_POOL, z,
+                                inst2)
     out = eca_combine(x, m, g, pool, w_eca, z, wd, scale_d, bias_d)
     fused_eca_block_sm.launches += 1
     fused_eca_block_sm.instances[block_instance(zci, zco, z)] += 1
-    return out
+    return unpad_slabs(out, z, zco // z)
+
+
+def pad_block(x, w1, w2, scale1, bias1, scale2, bias2, z: int, wd=None,
+              scale_d=None, bias_d=None):
+    """A block's operands with every z-slab of x, the weights, the BN
+    affines and the residual padded to C8 = 8 * ceil(C / 8) channels, zeros
+    at its end (each is itself where C == C8): a padded channel stays 0
+    through both convs, so ECA's pool holds zeros there, the zeros JAX's
+    1-D conv pads C with."""
+    ci8 = c_step(int(x.shape[3]) // z)
+    co8 = c_step(int(w2.shape[3]) // z)
+    pads = (pad_slabs(x, z, ci8), pad_fold(w1.to(_BF16), z, ci8, z, co8),
+            pad_fold(w2.to(_BF16), z, co8, z, co8),
+            *(pad_slabs(v, z, co8) for v in (scale1, bias1, scale2, bias2)))
+    if wd is None:
+        return (*pads, None, None, None)
+    return (*pads, pad_fold(wd.to(_BF16), z, ci8, z, co8),
+            pad_slabs(scale_d, z, co8), pad_slabs(bias_d, z, co8))
 
 
 fused_eca_block_sm.launches = 0
-fused_eca_block_sm.instances = dict.fromkeys((SM90, IGEMM,
-                                              f"{IGEMM}+{SM90}"), 0)
+fused_eca_block_sm.instances = dict.fromkeys((SM90, ZBAND,
+                                              f"{ZBAND}+{SM90}"), 0)

@@ -7,10 +7,12 @@ wgmma, ``down0_gemm``) applies BN0, relu and the z-mask to the A operand in
 registers, runs the down0 product in fp32, and applies the down BN, relu and
 the output mask.  ``down0_tiling`` is the kernel's launch geometry, its one
 source; ``down0_coords`` replays its TMA boxes on the CPU.  Like JAX's
-kernel it takes every width of the MM's flags (``bev_block_sm.on_grid``):
-``down0_instance`` is the rule by shape, the sm90 GEMM where its tiles take
-the widths, the wmma implicit GEMM of ``csrc/stage0_igemm.cu`` (the same
-prologue, epilogue and rounding points) at the others.
+kernel it takes every width of the MM's flags: ``down0_instance`` is the
+rule by shape, the sm90 GEMM where its tiles take the widths, the z-banded
+wgmma GEMM of ``csrc/zband_sm90.cu`` (``ops/zband.py``: the same prologue,
+epilogue and rounding points, over the fold's live blocks only) at every
+other z, C and Z*C, each z-slab padded to a multiple of 8 channels
+(``widths.pad_slabs``).
 ``conv0_down0_plain`` is the plain version: the unfused prefix ``BEVConv ->
 BN -> relu -> mask -> BEVConv(k2s2) -> BN -> relu -> mask``
 (``bev_grid.py:720-740``), whose second half is ``down0_plain``.
@@ -24,8 +26,9 @@ from typing import Tuple
 import torch
 
 from agplace_tpu_torch.data.voxels import me_down_align
-from agplace_tpu_torch.ops import _build
-from agplace_tpu_torch.ops.widths import IGEMM, SM90, on_grid
+from agplace_tpu_torch.ops import _build, zband
+from agplace_tpu_torch.ops.widths import (SM90, ZBAND, c_step, check_fold,
+                                          pad_fold, pad_slabs, unpad_slabs)
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -35,8 +38,8 @@ _BF16 = torch.bfloat16
 # slab.  Z*C1 up to MAX_ZC1 and Zo*C2 up to MAX_ZC2 (the affines are staged
 # in shared memory), z up to MAX_Z (16 mask bits per row and tap): the
 # presets' z = 4, 8 and 16 (Z*C1 256, 512, 1024 -> Zo*C2 128, 256, 512).
-# Those are the sm90 instance's tiles; ``down0_instance`` sends the grid's
-# other widths to the wmma one.
+# Those are the sm90 instance's tiles; ``down0_instance`` sends every other
+# width to the z-banded one.
 PATCH_X, PATCH_Y, BLOCK_N, SLAB = 8, 16, 128, 64
 MAX_ZC1, MAX_ZC2, MAX_Z = 1024, 512, 16
 
@@ -149,15 +152,14 @@ def down0_widths_ok(zc1: int, zc2: int, z: int) -> bool:
 
 def down0_instance(zc1: int, zc2: int, z: int, name: str = "down0") -> str:
     """The down0 GEMM's instance at Z*C1 -> Zo*C2 and z: SM90 (TMA +
-    wgmma, ``csrc/bev_down.cu``) where ``down0_widths_ok``, IGEMM (wmma,
-    ``csrc/stage0_igemm.cu``) at the grid's other widths; off the grid
-    (``bev_block_sm.on_grid`` of Z*C1 at z and Zo*C2 at Zo) it raises."""
-    zo = me_down_align(z)[2] if z >= 1 else 0
-    if not (on_grid(zc1, z) and on_grid(zc2, zo)):
-        raise ValueError(f"{name}: channel widths {zc1}->{zc2} at z={z} "
-                         f"outside the kernel's tiles (1 <= z <= 32, C1 and "
-                         f"C2 multiples of 8, Z*C1 and Zo*C2 up to 4096)")
-    return SM90 if down0_widths_ok(zc1, zc2, z) else IGEMM
+    wgmma, ``csrc/bev_down.cu``) where ``down0_widths_ok`` and C1, C2 are
+    multiples of 8, ZBAND (``csrc/zband_sm90.cu``) at every other width;
+    raises on widths no z-fold gives."""
+    c1 = check_fold(name, zc1, z, "Z*C1")
+    zo = me_down_align(z)[2]
+    c2 = check_fold(name, zc2, zo, "Zo*C2")
+    return (SM90 if c1 % 8 == 0 and c2 % 8 == 0
+            and down0_widths_ok(zc1, zc2, z) else ZBAND)
 
 
 def check_down0_args(name, x: int, y: int, zc1: int, zc2: int,
@@ -208,20 +210,46 @@ def down0_gemm(g0, mask, scale0, bias0, wd_folded, scale_d, bias_d,
         return down0_plain(g0, mask, scale0, bias0, wd_folded, scale_d,
                            bias_d, z=z)[0]
     _build.check(g0.dtype == _BF16, "down0_gemm: bf16 g")
+    if inst == ZBAND:
+        return down0_zband(g0, mask, scale0, bias0, wd_folded, scale_d,
+                           bias_d, mask_out, z=z)
     out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16,
                       device=g0.device)
-    ins = (_build.aligned(g0), mask.contiguous(), scale0.float().contiguous(),
-           bias0.float().contiguous(), _build.aligned(wd_folded.to(_BF16)),
-           scale_d.float().contiguous(), bias_d.float().contiguous(),
-           mask_out.contiguous(), out)
-    zo = me_down_align(z)[2]
-    if inst == SM90:
-        t = down0_tiling(b, x, y, zc1, zc2, torch.cuda.get_device_properties(
-            g0.device).multi_processor_count)
-        _build.call("agp_bev_down", *ins, z, zo, *t.args())
-    else:
-        _build.call("agp_bev_down_igemm", *ins, b, x, y, zc1, zc2, z, zo)
+    t = down0_tiling(b, x, y, zc1, zc2, torch.cuda.get_device_properties(
+        g0.device).multi_processor_count)
+    _build.call("agp_bev_down", _build.aligned(g0), mask.contiguous(),
+                scale0.float().contiguous(), bias0.float().contiguous(),
+                _build.aligned(wd_folded.to(_BF16)),
+                scale_d.float().contiguous(), bias_d.float().contiguous(),
+                mask_out.contiguous(), out, z, me_down_align(z)[2], *t.args())
     return out
+
+
+def pad_down0(g0, scale0, bias0, wd_folded, scale_d, bias_d, *, z: int):
+    """The z-banded instance's operands: every z-slab of g0, wd and the
+    affines padded to C8 = 8 * ceil(C / 8) channels, zeros at the slab's
+    end (a padded channel's BN0 scale and bias are 0, so it stays 0
+    through the prologue); each is itself where C == C8."""
+    zo = me_down_align(z)[2]
+    c18 = c_step(int(g0.shape[3]) // z)
+    c28 = c_step(int(wd_folded.shape[3]) // zo)
+    return (pad_slabs(g0, z, c18), pad_slabs(scale0, z, c18),
+            pad_slabs(bias0, z, c18),
+            pad_fold(wd_folded.to(_BF16), z, c18, zo, c28),
+            pad_slabs(scale_d, zo, c28), pad_slabs(bias_d, zo, c28))
+
+
+def down0_zband(g0, mask, scale0, bias0, wd_folded, scale_d, bias_d,
+                mask_out, *, z: int):
+    """K2's down0 on the z-banded instance, on CUDA tensors whose shapes
+    ``down0_gemm`` checked: the operands padded (``pad_down0``), the
+    output sliced back to Zo*C2."""
+    g, s0, b0, wd, sd, bd = pad_down0(g0, scale0, bias0, wd_folded, scale_d,
+                                      bias_d, z=z)
+    out = zband.zband_conv(zband.INST_K2, g, wd, sd, bd, mask_out, z,
+                           mask_in=mask, s_in=s0, b_in=b0)
+    zo = me_down_align(z)[2]
+    return unpad_slabs(out, zo, int(wd_folded.shape[3]) // zo)
 
 
 def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
@@ -232,12 +260,14 @@ def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
     [Zo*C2] fp32.  X and Y must need no ME alignment padding.  Returns
     (feats [B,X/2,Y/2,Zo*C2], mask_out [B,X/2,Y/2,Zo]); bf16 from the
     kernel, the feats dtype from the plain version."""
+    k0 = int(w0_folded.shape[0])
+    _build.check(k0 % 2 == 1 and k0 >= 3,
+                 f"fused_conv0_down0: conv0 kernel size {k0} (odd and >= 3)")
     ins = (feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
            bias_d)
     if not _build.on_cuda(*ins):
         return conv0_down0_plain(*ins, z=z)
     _, x, y, _ = feats.shape
-    k0 = int(w0_folded.shape[0])
     lo_z, hi_z, _ = me_down_align(z)
     feats = feats.to(_BF16)  # the fp32 model's occupancy grid: exact
     _build.check(me_down_align(x)[:2] == (0, 0)
@@ -257,4 +287,4 @@ def fused_conv0_down0(feats, mask, w0_folded, scale0, bias0, wd_folded,
 
 
 fused_conv0_down0.launches = 0
-fused_conv0_down0.instances = dict.fromkeys((SM90, IGEMM), 0)
+fused_conv0_down0.instances = dict.fromkeys((SM90, ZBAND), 0)

@@ -9,10 +9,12 @@ of the parity's activation from registers straight into the down0 MMA.
 ``head_step`` and ``head_im2col`` replay its TMA boxes, its ring steps and
 its im2col on the CPU.  Like JAX's kernel it takes every width of the MM's
 flags: ``head_instance`` is the rule by shape, the sm90 kernel's resident
-or streamed instance where its tiles take the widths, and elsewhere the
-narrow instance of ``csrc/stage0_igemm.cu`` (conv0 and down0 as two wmma
-implicit GEMMs with the same fp32 epilogues; conv0's activation goes
-through memory).
+or streamed instance where its tiles take the widths, and elsewhere
+IGEMM_ZBAND: conv0 as the wmma implicit GEMM of ``csrc/stage0_igemm.cu``
+(any Z*C0, element by element), its activation through memory, then down0
+on the fp32 instance of the z-banded wgmma GEMM (``csrc/zband_sm90.cu``),
+the same fp32 epilogues; each z-slab of conv0's output padded to a
+multiple of 8 channels (``widths.pad_slabs``), the output sliced back.
 
 ``head_plain`` is the plain version, with the TPU kernel's rounding
 (``bev_head.py:146-163``): conv0 accumulated in fp32, the BN0 affine in
@@ -31,8 +33,10 @@ from typing import Tuple
 import torch
 
 from agplace_tpu_torch.data.voxels import me_down_align
-from agplace_tpu_torch.ops import _build, bev_down
-from agplace_tpu_torch.ops.widths import IGEMM, MAX_Z, MAX_ZC, igemm_gather
+from agplace_tpu_torch.ops import _build, bev_down, zband
+from agplace_tpu_torch.ops.widths import (IGEMM, SM90, ZBAND, c_step,
+                                          igemm_gather, pad_fold, pad_slabs,
+                                          unpad_slabs)
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -75,6 +79,7 @@ W0_STREAM_ROWS = 128
 HALO_LEAD = 2
 HALO_CELLS = 2 * PATCH_Y + 2 * HALO_LEAD
 RESIDENT, STREAMED = "resident", "streamed"
+IGEMM_ZBAND = f"{IGEMM}+{ZBAND}"  # conv0 on the wmma GEMM, down0 on zband
 
 
 @dataclass(frozen=True)
@@ -187,18 +192,19 @@ def head_im2col(k0: int, zc0: int, row: int, par: int, t: int):
 
 
 def head_instance(zc0: int, k0: int, zc1: int, zc2: int, z: int) -> str:
-    """K4's instance: conv0 k0 in (3, 5) over Z*C0 input channels (any
-    count up to MAX_ZC) to Z*C1, down0 to Zo*C2 on K2's grid.  RESIDENT or
-    STREAMED (the sm90 kernel, ``head_tiling`` picks which) at Z*C0 in
-    ZC0S and K2's sm90 widths; IGEMM (``csrc/stage0_igemm.cu``) at the
-    grid's other widths; off the grid it raises."""
-    if not (k0 in (3, 5) and 1 <= z <= MAX_Z and 0 < zc0 <= MAX_ZC):
-        raise ValueError(f"fused_head: conv0 k0={k0} over Z*C0={zc0} at "
-                         f"z={z} outside the kernel's tiles (k0 in (3, 5), "
-                         f"1 <= z <= {MAX_Z}, Z*C0 from 1 to {MAX_ZC})")
+    """K4's instance: conv0 k0 over Z*C0 input channels to Z*C1, down0 to
+    Zo*C2.  RESIDENT or STREAMED (the sm90 kernel, ``head_tiling`` picks
+    which) at k0 in (3, 5), Z*C0 in ZC0S and K2's sm90 widths; IGEMM_ZBAND
+    at every other width; raises outside JAX's gate (k0 odd and <= 5) and
+    on widths no z-fold gives."""
+    if not (k0 % 2 == 1 and 1 <= k0 <= 5):
+        raise ValueError(f"fused_head: conv0 kernel size {k0} outside "
+                         f"JAX's gate (odd and <= 5)")
+    if zc0 < 1:
+        raise ValueError(f"fused_head: conv0 over Z*C0 = {zc0} channels")
     down = bev_down.down0_instance(zc1, zc2, z, "fused_head")
-    if zc0 not in ZC0S or down == IGEMM:
-        return IGEMM
+    if zc0 not in ZC0S or k0 == 1 or down != SM90:
+        return IGEMM_ZBAND
     return (RESIDENT if zc0 == 4 and zc1 <= RESIDENT_ZC1 and zc2 == BLOCK_N
             else STREAMED)
 
@@ -231,19 +237,10 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
            bias_d, mask_out)
     if not _build.on_cuda(*ins):
         return head_plain(*ins[:-1], z=z)[0]
+    if inst == IGEMM_ZBAND:
+        return head_zband(*ins, z=z)
     dev = feats.device
     out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16, device=dev)
-    if inst == IGEMM:
-        h = torch.empty((b, x, y, zc1), dtype=_BF16, device=dev)
-        _build.call("agp_bev_head_igemm", _build.aligned(feats.to(_BF16)),
-                    mask.contiguous(), _build.aligned(w0_folded.to(_BF16)),
-                    scale0.float().contiguous(), bias0.float().contiguous(),
-                    h, _build.aligned(wd_folded.to(_BF16)),
-                    scale_d.float().contiguous(), bias_d.float().contiguous(),
-                    mask_out.contiguous(), out, b, x, y, k0, zc0, zc1, zc2, z,
-                    me_down_align(z)[2], igemm_gather(zc0),
-                    igemm_gather(zc1))
-        return out
     kk = k0 * k0 * zc0
     t = head_tiling(b, x, y, k0, zc0, zc1, zc2,
                     torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -257,6 +254,50 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
                 mask_out.contiguous(), out, z, me_down_align(z)[2], k0, zc0,
                 *t.args())
     return out
+
+
+def pad_head(w0_folded, scale0, bias0, wd_folded, scale_d, bias_d, *,
+             z: int):
+    """IGEMM_ZBAND's operands: each z-slab of conv0's output padded to
+    C1_8 = 8 * ceil(C1 / 8) channels (w0's columns, BN0's scale and bias:
+    zeros, so a padded channel of h is 0), wd's slabs and the down BN's
+    affine to C1_8 -> C2_8; each is itself where C == C8."""
+    zo = me_down_align(z)[2]
+    zc0 = int(w0_folded.shape[2])
+    c18 = c_step(int(w0_folded.shape[3]) // z)
+    c28 = c_step(int(wd_folded.shape[3]) // zo)
+    return (pad_fold(w0_folded.to(_BF16), 1, zc0, z, c18),
+            pad_slabs(scale0.float(), z, c18),
+            pad_slabs(bias0.float(), z, c18),
+            pad_fold(wd_folded.to(_BF16), z, c18, zo, c28),
+            pad_slabs(scale_d, zo, c28), pad_slabs(bias_d, zo, c28))
+
+
+def head_zband(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
+               bias_d, mask_out, *, z: int):
+    """K4's IGEMM_ZBAND instance on CUDA tensors whose shapes ``head_gemm``
+    checked: the operands padded (``pad_head``), conv0 (``head_conv0``)
+    into h [B, X, Y, Z*C1_8], then down0 over h on the z-banded GEMM's
+    fp32 instance, its output sliced back to Zo*C2."""
+    w0, s0, b0, wd, sd, bd = pad_head(w0_folded, scale0, bias0, wd_folded,
+                                      scale_d, bias_d, z=z)
+    h = head_conv0(feats, mask, w0, s0, b0, z=z)
+    out = zband.zband_conv(zband.INST_K4_DOWN, h, wd, sd, bd, mask_out, z)
+    zo = me_down_align(z)[2]
+    return unpad_slabs(out, zo, int(wd_folded.shape[3]) // zo)
+
+
+def head_conv0(feats, mask, w0, s0, b0, *, z: int):
+    """IGEMM_ZBAND's conv0 (``agp_bev_head_conv0``) on CUDA tensors, w0
+    and the affines padded by ``pad_head``: h [B, X, Y, Z*C1_8] bf16."""
+    b, x, y, zc0 = feats.shape
+    zc18 = int(w0.shape[3])
+    h = torch.empty((b, x, y, zc18), dtype=_BF16, device=feats.device)
+    _build.call("agp_bev_head_conv0", _build.aligned(feats.to(_BF16)),
+                mask.contiguous(), _build.aligned(w0), _build.aligned(s0),
+                _build.aligned(b0), h, b, x, y, int(w0.shape[0]), zc0, zc18,
+                z, igemm_gather(zc0))
+    return h
 
 
 def fused_head(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
@@ -289,4 +330,4 @@ def fused_head(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
 
 
 fused_head.launches = 0
-fused_head.instances = dict.fromkeys((RESIDENT, STREAMED, IGEMM), 0)
+fused_head.instances = dict.fromkeys((RESIDENT, STREAMED, IGEMM_ZBAND), 0)

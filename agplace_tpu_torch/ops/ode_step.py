@@ -3,10 +3,14 @@
 Port of ``agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode``.  The CUDA
 kernel is ``csrc/ode_step.cu``: one launch of thread-block clusters; W
 resident across the shared memory of each cluster's blocks up to D = 512,
-streamed from L2 on every step above (``ode_instance``, the rule by shape);
-``ode_tiling`` is its launch geometry, its one source.  Like JAX's kernel
-it takes any D (1 to ``MAX_DIM``): the wrapper pads x, W and b with zeros
-to the instance's width, a multiple of ``DIM_STEP``.  ``euler_ode_plain``
+streamed from L2 on every step up to 1024; above, ``csrc/ode_wide.cu``'s
+wide instance, D a runtime width walked by blocks of 1024 threads
+(``ode_instance``, the rule by shape).  ``ode_tiling`` is the launch
+geometry, its one source.  Like JAX's kernel it takes any D (1 to
+``MAX_DIM``, where the wide instance's one row of state no longer fits a
+block's shared memory; JAX's VMEM holds W whole only far below that): the
+wrapper pads x, W and b with zeros to the instance's width, a multiple of
+``DIM_STEP``.  ``euler_ode_plain``
 is the plain PyTorch version (the Python Euler loop of
 ``fusion.py:71-78``).
 
@@ -36,17 +40,20 @@ _ACT_FNS = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid,
 # * (r + 1)) of the instance's width D, a multiple of DIM_STEP (D = 256,
 # the FCODE width of every preset, is its own); W stays in the cluster's
 # shared memory up to MAX_RESIDENT_DIM, and is read from L2 every step up
-# to MAX_DIM.
+# to MAX_STREAMED_DIM.  Above, the wide instance (csrc/ode_wide.cu) keeps
+# 4, 2 or 1 rows per cluster, as many as its two states [2][rows][D] fit in
+# WIDE_SMEM bytes beside b's slice (``wide_rows``), up to MAX_DIM.
 DIM, CLUSTER, ROWS = 256, 8, 4
-DIM_STEP, MAX_RESIDENT_DIM, MAX_DIM = 128, 512, 1024
-RESIDENT, STREAMED = "resident", "streamed"
+DIM_STEP, MAX_RESIDENT_DIM, MAX_STREAMED_DIM = 128, 512, 1024
+WIDE_SMEM, MAX_DIM = 226 * 1024, 27136
+RESIDENT, STREAMED, WIDE = "resident", "streamed", "wide"
 
 
 @dataclass(frozen=True)
 class OdeTiling:
     """Launch geometry of K1 over x [B, D] padded to [B, ``dim``], as the
     kernel takes it (``args``): the instance's width and whether W is
-    resident, then row tile ``i`` (rows [ROWS i, ROWS i + ROWS), the last
+    resident, then row tile ``i`` (rows [rows i, rows i + rows), the last
     one ragged) as the cluster of blocks [CLUSTER i, CLUSTER i +
     CLUSTER)."""
 
@@ -65,11 +72,16 @@ class OdeTiling:
 def ode_instance(batch: int, dim: int) -> str:
     """K1's instance for x [batch, dim]: RESIDENT (W in the cluster's
     shared memory) up to MAX_RESIDENT_DIM, STREAMED (W's column slices
-    read from L2 every step) up to MAX_DIM; other shapes raise."""
-    if not (batch >= 1 and 1 <= dim <= MAX_DIM):
-        raise ValueError(f"fused_euler_ode: x [{batch}, {dim}] outside the "
-                         f"kernel's tiles (1 <= D <= {MAX_DIM}, B >= 1)")
-    return RESIDENT if dim <= MAX_RESIDENT_DIM else STREAMED
+    read from L2 every step) up to MAX_STREAMED_DIM, WIDE up to MAX_DIM;
+    an empty x and D past MAX_DIM raise."""
+    if batch < 1 or dim < 1:
+        raise ValueError(f"fused_euler_ode: x [{batch}, {dim}] is empty")
+    if dim > MAX_DIM:
+        raise ValueError(f"fused_euler_ode: x [{batch}, {dim}] wider than "
+                         f"the wide instance's shared memory holds "
+                         f"(D <= {MAX_DIM})")
+    return (RESIDENT if dim <= MAX_RESIDENT_DIM else
+            STREAMED if dim <= MAX_STREAMED_DIM else WIDE)
 
 
 def ode_width(dim: int) -> int:
@@ -77,16 +89,25 @@ def ode_width(dim: int) -> int:
     return -(-dim // DIM_STEP) * DIM_STEP
 
 
+def wide_rows(dim: int) -> int:
+    """Rows per cluster of the wide instance at padded width ``dim``: 4, 2
+    or 1, the most whose two states and b's slice fit WIDE_SMEM."""
+    return next(r for r in (4, 2, 1)
+                if (dim // CLUSTER + 2 * r * dim) * 4 <= WIDE_SMEM)
+
+
 def ode_tiling(batch: int, dim: int) -> OdeTiling:
-    resident = ode_instance(batch, dim) == RESIDENT
-    tiles = -(-batch // ROWS)
-    return OdeTiling(ode_width(dim), resident, ROWS, CLUSTER, tiles,
+    inst = ode_instance(batch, dim)
+    width = ode_width(dim)
+    rows = wide_rows(width) if inst == WIDE else ROWS
+    tiles = -(-batch // rows)
+    return OdeTiling(width, inst == RESIDENT, rows, CLUSTER, tiles,
                      tiles * CLUSTER)
 
 
 def ode_block(t: OdeTiling, block: int, batch: int):
     """The rows and W columns block ``block`` computes and writes, as the
-    kernel derives them from ``t`` (both instances): (rows range, columns
+    kernel derives them from ``t`` (every instance): (rows range, columns
     range) of the padded [B, t.dim] state."""
     r0 = (block // t.cluster) * t.rows
     cols = t.dim // t.cluster
@@ -176,12 +197,13 @@ def fused_euler_ode(x, w, b, n_steps: int = 10, dt: float = 0.1,
         w = F.pad(w, (0, pad, 0, pad))
     x, w, b = map(_build.aligned, (x, w, b))
     out = torch.empty_like(x)
-    _build.call("agp_ode_euler", x, w, b, out, batch, int(n_steps),
-                float(dt), ACTS[act], *t.args())
+    inst = ode_instance(batch, dim)
+    _build.call("agp_ode_wide" if inst == WIDE else "agp_ode_euler", x, w,
+                b, out, batch, int(n_steps), float(dt), ACTS[act], *t.args())
     fused_euler_ode.launches += 1
-    fused_euler_ode.instances[RESIDENT if t.resident else STREAMED] += 1
+    fused_euler_ode.instances[inst] += 1
     return out[:, :dim] if pad else out
 
 
 fused_euler_ode.launches = 0
-fused_euler_ode.instances = dict.fromkeys((RESIDENT, STREAMED), 0)
+fused_euler_ode.instances = dict.fromkeys((RESIDENT, STREAMED, WIDE), 0)

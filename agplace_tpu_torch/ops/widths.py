@@ -1,30 +1,77 @@
-"""The width grid of the BEV kernels K2-K4, and the names of their
-instances.
+"""The widths of the BEV kernels K2-K4: the names of their instances and
+the per-slab channel padding of the z-folded maps.
 
 JAX's Pallas kernels keep their operands whole in VMEM and take any width
 the MM's flags give (``--vox_grid_extent``, ``--mm_voxfe_planes``,
-``--mm_voxfe_dim``).  The port's kernels take every width of this grid: z
-up to MAX_Z, every per-z channel count a multiple of C_STEP (C0 = 1, K4's
-occupancy input, excepted), Z*C up to MAX_ZC; each wrapper's rule
+``--mm_voxfe_dim``).  So do the port's: each wrapper's rule
 (``bev_down.down0_instance``, ``bev_block_sm.conv3x3_instance``,
-``bev_head.head_instance``) picks the sm90 (TMA + wgmma) instance where its
-tiles divide the widths and the wmma implicit GEMM of
-``csrc/conv_igemm.cuh`` (IGEMM) elsewhere.
+``bev_head.head_instance``) picks the preset sm90 (TMA + wgmma) instance
+where its tiles divide the widths and the z-banded implicit GEMM of
+``csrc/zband_sm90.cu`` (ZBAND, ``ops/zband.py``) at every other z, C and
+Z*C.  Both read every z-slab of a folded map [..., Z*C] at a multiple of 8
+channels: where C is not one, the wrapper pads each slab with zeros at its
+end (``pad_slabs``, ``pad_fold``) and slices the output back
+(``unpad_slabs``).  Only shapes that no z-fold gives raise
+(``check_fold``).
 """
 
 from __future__ import annotations
 
-MAX_Z, C_STEP, MAX_ZC = 32, 8, 4096
-SM90, IGEMM = "sm90", "igemm"
-# conv_igemm.cuh's A gathers (its enum; GATHER_C8_BN = 2 is K2's own)
+import torch
+import torch.nn.functional as F
+
+C_STEP = 8  # the channel step of a slab the kernels read
+SM90, ZBAND, IGEMM = "sm90", "zband", "igemm"
+# conv_igemm.cuh's A gathers (its enum)
 GATHER_SLAB32, GATHER_C8, GATHER_ANY = 0, 1, 3
 
 
-def on_grid(zc: int, z: int) -> bool:
-    """Whether a folded width Z*C lies on the grid: 1 <= z <= MAX_Z, C a
-    multiple of C_STEP, Z*C <= MAX_ZC."""
-    return (1 <= z <= MAX_Z and 0 < zc <= MAX_ZC and zc % z == 0
-            and (zc // z) % C_STEP == 0)
+def check_fold(name: str, zc: int, z: int, what: str = "Z*C") -> int:
+    """The per-slab width of a folded width ``zc`` at ``z`` slabs; raises
+    on a shape that no z-fold gives (z < 1, zc < 1, zc not a multiple of
+    z)."""
+    if not (z >= 1 and zc >= 1 and zc % z == 0):
+        raise ValueError(f"{name}: {what} = {zc} at z = {z} is no z-fold's "
+                         f"width (z >= 1 slabs of C >= 1 channels each)")
+    return zc // z
+
+
+def c_step(c: int) -> int:
+    """A slab's channel count padded to the kernels' step: 8 * ceil(C / 8)."""
+    return -(-c // C_STEP) * C_STEP
+
+
+def pad_slabs(t: torch.Tensor, z: int, c8: int) -> torch.Tensor:
+    """[..., Z*C] -> [..., Z*C8]: each of the z slabs padded with zeros at
+    its end (``t`` itself where C == C8).  A pad at the end of the Z*C axis
+    would misalign every slab past the first."""
+    c = t.shape[-1] // z
+    if c == c8:
+        return t
+    return F.pad(t.reshape(*t.shape[:-1], z, c),
+                 (0, c8 - c)).reshape(*t.shape[:-1], z * c8)
+
+
+def unpad_slabs(t: torch.Tensor, z: int, c: int) -> torch.Tensor:
+    """[..., Z*C8] -> [..., Z*C]: ``pad_slabs`` undone."""
+    c8 = t.shape[-1] // z
+    if c == c8:
+        return t
+    return t.reshape(*t.shape[:-1], z, c8)[..., :c].reshape(
+        *t.shape[:-1], z * c)
+
+
+def pad_fold(w: torch.Tensor, zi: int, ci8: int, zo: int,
+             co8: int) -> torch.Tensor:
+    """A folded weight [k, k, Zi*Ci, Zo*Co] with every (zi, zo) block
+    padded to [Ci8, Co8], zeros at the end of each input and output slab."""
+    kh, kw, zci, zco = w.shape
+    ci, co = zci // zi, zco // zo
+    if (ci, co) == (ci8, co8):
+        return w
+    return F.pad(w.reshape(kh, kw, zi, ci, zo, co),
+                 (0, co8 - co, 0, 0, 0, ci8 - ci)).reshape(kh, kw, zi * ci8,
+                                                           zo * co8)
 
 
 def igemm_gather(cin: int) -> int:

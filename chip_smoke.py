@@ -393,7 +393,11 @@ TRAIN_STATS_TOL = 2e-2
 # (``conv_flops``), not the folded kernels' structural zeros.
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 # The wgmma kernels, by a part of their mangled names: each must hold HGMMA
-SM90_KERNELS = {"K3 conv phase 1": "conv3x3_sm90_kernelILi0E",
+SM90_KERNELS = {"zband K2 down0": "zband_sm90_kernelILi1ELb1ELi0E",
+                "zband K3 conv phase 1": "zband_sm90_kernelILi0ELb0ELi0E",
+                "zband K3 conv phase 2": "zband_sm90_kernelILi0ELb0ELi1E",
+                "zband K4 down0": "zband_sm90_kernelILi1ELb0ELi2E",
+                "K3 conv phase 1": "conv3x3_sm90_kernelILi0E",
                 "K3 conv phase 2": "conv3x3_sm90_kernelILi1E",
                 "K6 conv phase 1": "conv3x3_sm90_kernelILi2E",
                 "K6 conv phase 2": "conv3x3_sm90_kernelILi3E",
@@ -526,30 +530,56 @@ def bound(flops: float, n_bytes: int, peak: float = PEAK_BF16) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def conv_flops(cells: int, w, z_in: int, z_out: int) -> float:
-    """2 x output cells x the products of the 3-D conv whose folded kernel
-    is ``w`` [k, k, z_in*cin, z_out*cout].  The fold holds a k*k*cin*cout
-    block for each (zi, zo) pair the 3-D kernel reaches and zeros elsewhere
-    (at z_in = 4: 14 of 16 blocks for conv0's 5 taps, 4 of 8 for down0's
-    z pairing; at z = 2 the 3x3x3 kernels are dense, the 1x1 residual 2 of
-    4); only the non-zero blocks are work."""
+def live_blocks(w, z_in: int, z_out: int) -> int:
+    """The non-zero (zi, zo) blocks of a folded kernel ``w`` [k, k,
+    z_in*cin, z_out*cout].  The fold holds a k*k*cin*cout block for each
+    (zi, zo) pair the 3-D kernel reaches and zeros elsewhere (at z_in = 4:
+    14 of 16 blocks for conv0's 5 taps, 4 of 8 for down0's z pairing; at
+    z = 2 the 3x3x3 kernels are dense, the 1x1 residual 2 of 4; at z = 72,
+    3 of 72 per output slab)."""
     k1, k2, zci, zco = w.shape
     blocks = w.reshape(k1 * k2, z_in, zci // z_in, z_out, zco // z_out)
-    live = int((blocks.ne(0).sum(dim=(0, 2, 4)) > 0).sum())
-    return 2.0 * cells * live * k1 * k2 * (zci // z_in) * (zco // z_out)
+    return int((blocks.ne(0).sum(dim=(0, 2, 4)) > 0).sum())
+
+
+def conv_flops(cells: int, w, z_in: int, z_out: int) -> float:
+    """2 x output cells x the products of the 3-D conv whose folded kernel
+    is ``w``: only the fold's non-zero blocks (``live_blocks``) are work."""
+    k1, k2, zci, zco = w.shape
+    return (2.0 * cells * live_blocks(w, z_in, z_out) * k1 * k2
+            * (zci // z_in) * (zco // z_out))
+
+
+def fold_bytes(w, z_in: int, z_out: int) -> int:
+    """The bytes of a folded kernel's non-zero blocks: the zero blocks are
+    no data the conv needs, whatever reads them."""
+    k1, k2, zci, zco = w.shape
+    return (live_blocks(w, z_in, z_out) * k1 * k2 * (zci // z_in)
+            * (zco // z_out) * w.element_size())
+
+
+def stage0_bytes(args, z: int, *outs) -> int:
+    """K2's / K4's inputs (``args``: feats, mask, w0, s0, b0, wd, sd, bd,
+    the two folds by their live blocks) and ``outs`` once."""
+    from agplace_tpu_torch.data.voxels import me_down_align
+
+    return (nbytes(*args[:2], *args[3:5], *args[6:], *outs)
+            + fold_bytes(args[2], z, z)
+            + fold_bytes(args[5], z, me_down_align(z)[2]))
 
 
 def block_bound(x, mask, w1, w2, s1, b1, s2, b2, w_eca, z, wd=None,
                 scale_d=None, bias_d=None) -> dict:
     """An ECA block's bound (K3, K6, P1): its convs' operations against x,
-    the mask, the parameters and the output once."""
-    extra = () if wd is None else (wd, scale_d, bias_d)
+    the mask, the parameters (the folds by their live blocks) and the
+    output once."""
+    folds = (w1, w2) if wd is None else (w1, w2, wd)
+    extra = () if wd is None else (scale_d, bias_d)
     cells = x.shape[0] * x.shape[1] * x.shape[2]
     out_bytes = cells * w2.shape[3] * 2
-    return bound(sum(conv_flops(cells, w, z, z) for w in (w1, w2)
-                     + extra[:1]),
-                 nbytes(x, mask, w1, w2, s1, b1, s2, b2, w_eca, *extra)
-                 + out_bytes)
+    return bound(sum(conv_flops(cells, w, z, z) for w in folds),
+                 nbytes(x, mask, s1, b1, s2, b2, w_eca, *extra)
+                 + sum(fold_bytes(w, z, z) for w in folds) + out_bytes)
 
 
 def add_bound(rec: dict, other: dict) -> None:
@@ -667,9 +697,24 @@ def conv_phases(name, args, z):
         flops = conv_flops(cells, w, z, z)
         outs = cells * w.shape[3] * 2 + (x.shape[0] * w.shape[3] * 4
                                          if pool_ else 0)
-        bnd = bound(flops, nbytes(src, mask, w, s, b) + outs)
+        bnd = bound(flops, nbytes(src, mask, s, b) + fold_bytes(w, z, z)
+                    + outs)
         out[label] = dict(ms=ms, cudnn_ms=cudnn, tflops=flops / ms / 1e9,
                           share_of_bound=bnd["bound_ms"] / ms, **bnd)
+        inst = bev_block_sm.conv3x3_instance(int(src.shape[3]),
+                                             int(w.shape[3]), z)
+        if inst == "zband":  # its kernel alone beside the pad
+            epi = (bev_block_sm.EPI_BF16_POOL if pool_
+                   else bev_block_sm.EPI_BF16_RELU_MASK)
+
+            def pad(src=src, wb=wb, s=s, b=b):
+                return bev_block_sm.pad_phase(src, wb, s, b, z)
+
+            padded = pad()
+            out[label].update(instance_alone(
+                f"K3 {label} {name} zband",
+                lambda: bev_block_sm.conv_phase_launch(*padded, mask, epi, z,
+                                                       inst), pad))
         log(f"  K3 {label} {name}: {ms:.4f} ms = {flops / ms / 1e9:.1f} "
             f"TFLOP/s ({100 * flops / ms / 1e9 / (PEAK_BF16 / 1e12):.1f} % "
             f"of the bf16 peak), bound {bnd['bound_ms']:.4f} ms "
@@ -772,7 +817,8 @@ def down0_alone(args, mask, z):
     cudnn = queued_ms(lambda: F.conv2d(hc, wc, stride=2))
     bnd = bound(conv_flops(got.shape[0] * got.shape[1] * got.shape[2], wd,
                            z, me_down_align(z)[2]),
-                nbytes(g0, mask, s0, b0, wb, sd, bd, m_out, got))
+                nbytes(g0, mask, s0, b0, sd, bd, m_out, got)
+                + fold_bytes(wb, z, me_down_align(z)[2]))
     log(f"  K2 down0 GEMM alone b{bsz}: {ms:.4f} ms; bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
         f"{bnd['bound_ms'] / ms:.3f} = {nbytes(g0, got) / ms / 1e9:.2f} TB/s "
@@ -807,7 +853,8 @@ def down_concat_alone(args, mask, z):
         planes, *gemm_args, z=z))
     bnd = bound(conv_flops(got.shape[0] * got.shape[1] * got.shape[2], wd,
                            z, 2),
-                nbytes(*planes, mask, s0, b0, wb, sd, bd, m_out, got))
+                nbytes(*planes, mask, s0, b0, sd, bd, m_out, got)
+                + fold_bytes(wb, z, 2))
     log(f"  P2 kernel alone b{bsz}: {ms:.4f} ms ({dms:.4f} ms of device "
         f"time); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
         f"{bnd['bound_ms'] / dms:.3f} = "
@@ -840,7 +887,7 @@ def head_alone(args, mask, z):
     cells = bsz * x * y
     flops = (conv_flops(cells, ins[2], z, z)
              + conv_flops(cells // 4, ins[5], z, me_down_align(z)[2]))
-    bnd = bound(flops, nbytes(*ins, m_out, got))
+    bnd = bound(flops, stage0_bytes(ins, z, m_out, got))
     tflops = flops / ms / 1e9
     log(f"  K4 kernel alone {shape}: {ms:.4f} ms; {tflops:.1f} TFLOP/s = "
         f"{100 * tflops / (PEAK_BF16 / 1e12):.1f} % of the bf16 peak; bound "
@@ -932,7 +979,7 @@ def phase_parity(dev, masks, masks128, mask16):
                               args[2], z0, z0)
                    + conv_flops(out.shape[0] * out.shape[1] * out.shape[2],
                                 args[5], z0, 2),
-                   nbytes(*args, out, mo))
+                   stage0_bytes(args, z0, out, mo))
     rec.update(stage0)
     rec["gemm"] = {f"b{m.shape[0]}": down0_alone(args, m, z0)
                    for m in (m0, masks128[0])}
@@ -4309,16 +4356,21 @@ def phase_flags(dev):
 
 # ---- [widths]: K1-K4 at widths off the presets --------------------------
 
-# Three configurations of kitti360_config() (bf16, 256 px, 128 x 128 x z)
+# Five configurations of kitti360_config() (bf16, 256 px, 128 x 128 x z)
 # that together reach every instance the presets do not: W1, the default
-# route at z = 5 with a 1024-wide fusion (K2 at 320 -> 192 on the wmma
+# route at z = 5 with a 1024-wide fusion (K2 at 320 -> 192 on the z-banded
 # instance, K3 at z = 3, K1 at D = 1024, W streamed); W2, the fused route
 # at z = 6 with planes (24, 128) and a 128-wide fusion (K4 at Z*C0 = 6 on
-# its wmma instance, K3 at C = 24 and 24 -> 128, K1 at D = 128); W3, z =
-# 32 (K2 at Z*C1 = 2048 -> 1024).  JAX's MM adds the last image and voxel
-# vectors to the fusion width with no projection (fusion.py:136-146), so
-# the image branch (resnet50 at W1, two ResNet-18 stages at W2) and the
-# last voxel plane end at stg2fuse_dim.
+# its igemm+zband instance, K3 at C = 24 and 24 -> 128, K1 at D = 128);
+# W3, z = 32 (K2 at Z*C1 = 2048 -> 1024); W4, the default route at z = 72
+# with planes (60, 128, 256) (K2 at Z*C1 = 4320 -> 2160, C1 = 60: every
+# slab padded; K3's block0 at z = 36, C = 60); W5, the fused route at z =
+# 40 with planes (108, 128, 256) (K4's conv0 over 40 occupancy channels to
+# Z*C1 = 4320, C1 = 108, its down0 to Zo = 20; K3's block0 at z = 20, C =
+# 108).  JAX's MM adds the last image and voxel vectors to the fusion
+# width with no projection (fusion.py:136-146), so the image branch
+# (resnet50 at W1, two ResNet-18 stages at W2) and the last voxel plane
+# end at stg2fuse_dim (256 at W3-W5, KITTI-360's).
 WIDTHS_CONFIGS = (
     ("W1", 32, dict(vox_grid_extent=(128, 128, 5), imgfe="resnet50",
                     imgfe_planes=(256, 512, 1024), imgfe_dim=1024,
@@ -4330,25 +4382,167 @@ WIDTHS_CONFIGS = (
                     imgfe_planes=(64, 128), imgfe_dim=128,
                     stg2fuse_dim=128)),
     ("W3", 8, dict(vox_grid_extent=(128, 128, 32))),
+    ("W4", 4, dict(vox_grid_extent=(128, 128, 72),
+                   voxfe_planes=(60, 128, 256))),
+    ("W5", 4, dict(bev_pallas_head=True, stem_pallas=True,
+                   vox_grid_extent=(128, 128, 40),
+                   voxfe_planes=(108, 128, 256))),
 )
 WIDTHS_CPU_Q = 1  # queries each configuration's card run is held to on CPU
+# [widths]' lone launches: K3 at Z*C > 4096 (z = 20, C = 212: its CPU run
+# would cost ~1.3 TFLOP a conv a query), b8 on 64 x 64, identity residual;
+# K1's wide instance at D = 1536 and 2048, b32
+LONE_K3 = dict(z=20, c=212, b=8, xy=64)
+LONE_K1 = (1536, 2048)
+
+
+class rules_replay:
+    """While active, each call of K1-K4's wrappers is first named by its
+    rule (``ode_instance``, ``down0_instance``, ``block_instance``,
+    ``head_instance``) from its arguments' shapes alone, then runs as it
+    would (on the CPU: the plain version, which counts nothing).  The
+    names are counted in ``counts``, by kernel and instance, as
+    ``ops.instance_launches`` counts the card's launches."""
+
+    def __init__(self):
+        self.counts, self.saved = {}, []
+
+    def __enter__(self):
+        from agplace_tpu_torch.ops import (bev_block_sm, bev_down, bev_head,
+                                           ode_step)
+
+        rules = {
+            (ode_step, "fused_euler_ode"):
+                lambda a, k: ode_step.ode_instance(*a[0].shape),
+            (bev_down, "fused_conv0_down0"):
+                lambda a, k: bev_down.down0_instance(
+                    int(a[2].shape[3]), int(a[5].shape[3]), k["z"]),
+            (bev_block_sm, "fused_eca_block_sm"):
+                lambda a, k: bev_block_sm.block_instance(
+                    int(a[0].shape[3]), int(a[3].shape[3]), k["z"]),
+            (bev_head, "fused_head"):
+                lambda a, k: bev_head.head_instance(
+                    int(a[0].shape[3]), int(a[2].shape[0]),
+                    int(a[2].shape[3]), int(a[5].shape[3]), k["z"]),
+        }
+        for (mod, name), rule in rules.items():
+            real = getattr(mod, name)
+
+            def wrapper(*a, _real=real, _rule=rule, _name=name, **k):
+                inst = _rule(a, k)
+                by = self.counts.setdefault(_name, {})
+                by[inst] = by.get(inst, 0) + 1
+                return _real(*a, **k)
+
+            wrapper.launches = real.launches
+            wrapper.instances = real.instances
+            wrapper.__name__ = name
+            setattr(mod, name, wrapper)
+            self.saved.append((mod, name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+        return False
 
 
 def widths_new(name, inst, a) -> bool:
     """Whether an instance at these arguments is one no preset runs: K1
-    at a D other than 256 (each D its own compiled width), the wmma
-    instances of K2-K4 (K3's pair with one wmma phase too)."""
+    at a D other than 256 (each D its own compiled width, or the wide
+    instance's), the z-banded instances of K2-K4 (K3's pair with one
+    z-banded phase too)."""
     if name == "fused_euler_ode":
         return int(a[0].shape[1]) != 256
-    return "igemm" in inst
+    return "zband" in inst
+
+
+def instance_alone(label, kern, pad=None, yardstick=None) -> dict:
+    """A z-banded launch alone on its padded operands: its time (CUDA
+    events around one synchronised call, median of 20), its device time
+    (the profiler), the pad's time (the copy that pads every z-slab to 8k
+    channels; where no slab needs it, its unpadded tensors pass through),
+    and ``yardstick``'s (one cuDNN call of the same folded conv)."""
+    rec = dict(kernel_ms=cuda_ms(kern), kernel_device_ms=device_ms(kern))
+    if pad is not None:
+        rec["pad_ms"] = cuda_ms(pad)
+    if yardstick is not None:
+        rec["cudnn_ms"] = cuda_ms(yardstick)
+    log(f"  {label} alone: {rec['kernel_ms']:.4f} ms ({rec['kernel_device_ms']:.4f}"
+        f" ms of device time)" + (f", the pad {rec['pad_ms']:.4f} ms"
+                                  if pad is not None else "")
+        + (f", cuDNN's conv {rec['cudnn_ms']:.4f} ms"
+           if yardstick is not None else ""))
+    return rec
+
+
+def k2_zband_alone(a, z):
+    """K2's z-banded down0 alone: the pad (``bev_down.pad_down0``) and the
+    kernel on the padded operands (conv0's output precomputed)."""
+    import torch.nn.functional as F
+    from agplace_tpu_torch.data.voxels import me_down_align
+    from agplace_tpu_torch.ops import bev_down, zband
+    from agplace_tpu_torch.sparse import bev_grid as bg
+
+    feats, mask, w0, s0, b0, wd, sd, bd = stage0_inputs(a, a[1])
+    k0 = int(w0.shape[0])
+    g0 = bg.bev_conv2d(feats, w0, 1, (k0 // 2,) * 2,
+                       (k0 // 2,) * 2).contiguous()
+    lo_z, hi_z, _ = me_down_align(z)
+    m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
+    wb = wd.to(torch.bfloat16)
+
+    def pad():
+        return bev_down.pad_down0(g0, s0, b0, wb, sd, bd, z=z)
+
+    g, s0p, b0p, wdp, sdp, bdp = pad()
+    h = bg.mask_bev(torch.relu(g0 * s0.to(g0.dtype) + b0.to(g0.dtype)),
+                    mask, z).permute(0, 3, 1, 2)
+    wc = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return instance_alone(
+        f"K2 zband [{g0.shape[0]},{g0.shape[1]},{g0.shape[2]},{z}]",
+        lambda: zband.zband_conv(zband.INST_K2, g, wdp, sdp, bdp, m_out, z,
+                                 mask_in=mask, s_in=s0p, b_in=b0p), pad,
+        lambda: F.conv2d(h, wc, stride=2))
+
+
+def k4_zband_alone(a, z):
+    """K4's igemm+zband instance alone: its pad (``bev_head.pad_head``),
+    conv0 (the wmma GEMM) and the z-banded down0 on conv0's output, each
+    timed, beside cuDNN's down0 on the same map."""
+    import torch.nn.functional as F
+    from agplace_tpu_torch.data.voxels import me_down_align
+    from agplace_tpu_torch.ops import bev_head, zband
+    from agplace_tpu_torch.sparse import bev_grid as bg
+
+    feats, mask, w0, s0, b0, wd, sd, bd = stage0_inputs(a, a[1])
+    lo_z, hi_z, _ = me_down_align(z)
+    m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
+
+    def pad():
+        return bev_head.pad_head(w0, s0, b0, wd, sd, bd, z=z)
+
+    w0p, s0p, b0p, wdp, sdp, bdp = pad()
+    h = bev_head.head_conv0(feats, mask, w0p, s0p, b0p, z=z)
+    hc = h.permute(0, 3, 1, 2)
+    wc = wdp.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    rec = instance_alone(
+        f"K4 zband down0 [{h.shape[0]},{h.shape[1]},{h.shape[2]},{z}]",
+        lambda: zband.zband_conv(zband.INST_K4_DOWN, h, wdp, sdp, bdp, m_out,
+                                 z), pad, lambda: F.conv2d(hc, wc, stride=2))
+    rec["conv0_ms"] = cuda_ms(lambda: bev_head.head_conv0(
+        feats, mask, w0p, s0p, b0p, z=z))
+    log(f"  K4 conv0 (wmma) alone: {rec['conv0_ms']:.4f} ms")
+    return rec
 
 
 def widths_alone(name, inst, a, k):
     """One instance alone on the arguments of its first launch in the
     forward: the wrapper and its plain version timed with CUDA events
     (median of 20; K1 also by the profiler's device time, its launch being
-    shorter than the host's enqueue), the bound of its work, and where one
-    cuDNN call computes a product of it, that call's time."""
+    shorter than the host's enqueue), the bound of its work (the folds'
+    live blocks), where one cuDNN call computes a product of it, that
+    call's time, and the z-banded kernel alone beside the pad."""
     from agplace_tpu_torch.data.voxels import me_down_align
     from agplace_tpu_torch.ops import bev_block_sm, bev_down, bev_head, \
         ode_step
@@ -4369,24 +4563,30 @@ def widths_alone(name, inst, a, k):
         return rec
     z = k["z"]
     if name == "fused_eca_block_sm":
+        x, w1, w2 = a[0], a[2], a[3]
+        wd, sd, bd = (k.get(n) for n in ("wd", "scale_d", "bias_d"))
         ms = cuda_ms(lambda: bev_block_sm.fused_eca_block_sm(*a, **k))
         pms = cuda_ms(lambda: bev_block_sm.eca_block_plain(*a, **k))
         phases = conv_phases(f"{label} z={z}", a, z)
+        pad_ms = cuda_ms(lambda: bev_block_sm.pad_block(
+            x.to(torch.bfloat16), w1, w2, *a[4:8], z, wd, sd, bd))
         bnd = block_bound(*a, **k)
-        rec = dict(shape=[*a[0].shape, int(a[2].shape[3])], ms=ms,
-                   plain_ms=pms, library_ms=sum(ph["cudnn_ms"]
-                                                for ph in phases.values()),
+        rec = dict(shape=[*x.shape, int(w2.shape[3])], ms=ms,
+                   plain_ms=pms, pad_ms=pad_ms,
+                   library_ms=sum(ph["cudnn_ms"] for ph in phases.values()),
                    library_ms_is="cuDNN's two 3x3 convs alone",
                    conv_phases=phases, **bnd)
-        log(f"  {label} {rec['shape']} z={z}: {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']}), share {bnd['bound_ms'] / ms:.3f}")
+        log(f"  {label} {rec['shape']} z={z}: {ms:.4f} ms (the block's pad "
+            f"{pad_ms:.4f} ms), plain {pms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
+            f"{bnd['bound_ms'] / ms:.3f}")
         return rec
     mask = a[1]
     if name == "fused_conv0_down0":
         ms = cuda_ms(lambda: bev_down.fused_conv0_down0(*a, **k))
         pms = cuda_ms(lambda: bev_down.conv0_down0_plain(*a, **k))
         gemm = down0_alone(a, mask, z)
+        gemm.update(k2_zband_alone(a, z))
         rec = dict(shape=[*a[0].shape, int(a[5].shape[3])], ms=ms,
                    plain_ms=pms, gemm=gemm, library_ms=gemm["cudnn_ms"],
                    library_ms_is="cuDNN's down0 conv alone (the GEMM's "
@@ -4397,8 +4597,60 @@ def widths_alone(name, inst, a, k):
         return rec
     head = head_alone(a, mask, z)
     head.update(shape=[*a[0].shape, int(a[5].shape[3])], library_ms=None,
-                zo=me_down_align(z)[2])
+                zo=me_down_align(z)[2], down0=k4_zband_alone(a, z))
     return head
+
+
+def phase_widths_lone(dev):
+    """[widths] lone launches, each against its plain version on the card:
+    K3 at z = 20, C = 212 (Z*C = 4240 past 4096; its CPU run would cost
+    ~1.3 TFLOP a conv a query): one conv phase of each kind and one whole
+    block, timed as [widths]' instances are; K1 at D = 1536 and 2048
+    (its wide instance), b32."""
+    from agplace_tpu_torch.ops import bev_block_sm, ode_step
+    from agplace_tpu_torch.sparse.bev_grid import fold_w2_stride1
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    z, c, bsz, xy = (LONE_K3[n] for n in ("z", "c", "b", "xy"))
+    mask = torch.rand(bsz, xy, xy, z, generator=g, device=dev) < 0.3
+    x = torch.randn(bsz, xy, xy, z, c, generator=g, device=dev)
+    x = torch.where(mask[..., None], x, 0).reshape(bsz, xy, xy, z * c).to(
+        torch.bfloat16)
+
+    def fold():
+        kern = torch.randn(3, 3, 3, c, c, generator=g, device=dev)
+        return fold_w2_stride1(kern * (2 / (27 * c)) ** .5, z).to(
+            torch.bfloat16)
+
+    def affine():
+        s = torch.rand(c, generator=g, device=dev) + 0.5
+        b = torch.randn(c, generator=g, device=dev) * 0.1
+        return s.repeat(z), b.repeat(z)
+
+    args = (x, mask, fold(), fold(), *affine(), *affine(),
+            torch.randn(5, generator=g, device=dev))
+    label = f"[widths lone] K3 [{bsz},{xy},{xy},{z * c}] z={z} C={c}"
+    with torch.inference_mode():
+        got = bev_block_sm.fused_eca_block_sm(*args, z=z)
+        cmp = compare(f"{label} block", got,
+                      bev_block_sm.eca_block_plain(*args, z=z), KBF16_TOL)
+        k3 = widths_alone("fused_eca_block_sm", bev_block_sm.block_instance(
+            z * c, z * c, z), args, dict(z=z))
+        k3.update(max_abs_err=cmp["max_abs_err"],
+                  frac_differ=cmp["frac_differ"])
+        k1 = {}
+        for d in LONE_K1:
+            xd = torch.randn(32, d, generator=g, device=dev)
+            wd = torch.randn(d, d, generator=g, device=dev) / d ** .5
+            bd = torch.randn(d, generator=g, device=dev) * 0.1
+            a = (xd, wd, bd, 10, 0.1, "relu")
+            cmp = compare(f"[widths lone] K1 [32,{d}]",
+                          ode_step.fused_euler_ode(*a),
+                          ode_step.euler_ode_plain(*a), K1_TOL)
+            k1[f"D{d}"] = widths_alone("fused_euler_ode",
+                                       ode_step.ode_instance(32, d), a, {})
+            k1[f"D{d}"].update(max_abs_err=cmp["max_abs_err"])
+    return {"fused_eca_block_sm": k3, "fused_euler_ode": k1}
 
 
 def phase_widths(base, dev):
@@ -4407,11 +4659,12 @@ def phase_widths(base, dev):
     its plain version at its own shapes), exact launch counts, the launches
     of each instance, the output against the CPU run of the same module,
     and each instance the presets do not reach timed alone on its first
-    launch's arguments."""
+    launch's arguments; then the lone launches (``phase_widths_lone``)."""
     from agplace_tpu_torch import ops
     from agplace_tpu_torch.data.voxels import prepare_query_vox
 
-    log("[widths] K1-K4 off the preset widths: three MM forwards")
+    log(f"[widths] K1-K4 off the preset widths: {len(WIDTHS_CONFIGS)} MM "
+        f"forwards")
     out_counts, records = [], {}
     for label, bsz, flags in WIDTHS_CONFIGS:
         t0 = time.perf_counter()
@@ -4431,13 +4684,23 @@ def phase_widths(base, dev):
         if checked != {n: counts[n] for n in held_names}:
             raise AssertionError(f"[widths {label}] launches held to their "
                                  f"plain versions {checked} != {counts}")
-        err = against_cpu(f"widths {label}", cfg, out, cpu_mm, images,
-                          points, q=WIDTHS_CPU_Q)
+        t_cpu = time.perf_counter()
+        with rules_replay() as named:  # the CPU's query, instances named
+            err = against_cpu(f"widths {label}", cfg, out, cpu_mm, images,
+                              points, q=WIDTHS_CPU_Q)
+        cpu_s = time.perf_counter() - t_cpu
+        card = {k: {i: n for i, n in by.items() if n}
+                for k, by in instances.items() if any(by.values())}
+        if named.counts != card:
+            raise AssertionError(f"[widths {label}] instances launched "
+                                 f"{card} != the rules' replay on the CPU "
+                                 f"{named.counts}")
         fwd_s = time.perf_counter() - t0
         log(f"  [widths {label}] b{bsz} {flags}: launches {counts}; by "
             f"instance {instances}; all held to plain (worst "
-            f"{held.worst}); card vs CPU {err:.3g} of scale; "
-            f"{fwd_s:.1f} s")
+            f"{held.worst}); the rules' CPU replay names the same; card vs "
+            f"CPU {err:.3g} of scale; {fwd_s:.1f} s ({cpu_s:.1f} s of them "
+            f"the CPU's query)")
         alone = {}
         with torch.inference_mode():
             for (kname, inst), (a, k) in sorted(keep.items()):
@@ -4447,11 +4710,15 @@ def phase_widths(base, dev):
         records[label] = dict(batch=bsz, flags={f: list(v) if isinstance(
             v, tuple) else v for f, v in flags.items()},
             launches=counts, instances=instances, held=checked,
-            worst=held.worst, cpu_err=err, alone=alone)
+            worst=held.worst, cpu_err=err, cpu_s=cpu_s, alone=alone)
         out_counts.append((counts, instances))
         del mm, cpu_mm, out, keep, vox
         torch.cuda.empty_cache()
-    return out_counts, records
+    t0 = time.perf_counter()
+    lone = phase_widths_lone(dev)
+    log(f"  [widths lone] {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return out_counts, records, lone
 
 
 MG_WORLD = 2  # gloo ranks sharing cuda:0
@@ -5021,7 +5288,7 @@ def main() -> None:
     counts_tl = phase_tail(cfg, dev, name, mm)
     phase_flags(dev)
     # ---- K1-K4 off the preset widths: W1-W3
-    widths_counts, widths = phase_widths(cfg, dev)
+    widths_counts, widths, lone = phase_widths(cfg, dev)
     counts_w = {k: sum(c[k] for c, _ in widths_counts) for k in counts}
     instances_w = {}
     for _, inst in widths_counts:
@@ -5040,6 +5307,8 @@ def main() -> None:
                                    "batch": rec["batch"],
                                    "flags": rec["flags"]}
             for label, rec in widths.items()}
+    for k, rec in lone.items():
+        parity[k].setdefault("widths", {})["lone"] = rec
     # ---- the multi-GPU layer: NCCL at one rank, two gloo ranks
     counts_mg = phase_multi_gpu(cfg, towers, dev, name)
 

@@ -17,8 +17,10 @@ after warm-up with ``torch.profiler`` and prints the device ms per forward
 of every hand-written kernel (by template: ``conv3x3_sm90_kernel<EPI>`` is
 K3's conv1 for ``<0>`` and conv2 + pool for ``<1>``;
 ``conv_igemm_kernel<2, 0>`` is K3's 1x1 + combine (``<EPI, GATHER>``;
-its other instances are K2-K4's at widths off the sm90 tiles);
-``down0_sm90_kernel`` is K2, ``head_sm90_kernel`` K4), of each class of
+its other instances K4's conv0 and K6's at widths off the sm90 tiles);
+``down0_sm90_kernel`` is K2, ``head_sm90_kernel`` K4,
+``zband_sm90_kernel<FOLD, PRO, EPI>`` the z-banded GEMM of K2-K4 off
+their sm90 tiles, ``ode_wide_kernel`` K1 above D = 1024), of each class of
 library kernels,
 the device total and the launch count; beside it the unprofiled
 back-to-back ms per forward (CUDA events, median of 5 runs of
@@ -44,7 +46,8 @@ from chip_smoke import (IMAGE, card, cuda_ms, lidar,  # noqa: E402
                         profile_calls, seed_bn)
 
 _OWN = re.compile(r"(conv3x3_sm90_kernel<[^>]*>|conv_igemm_kernel<[^>]*>"
-                  r"|ode_euler_kernel|head_sm90_kernel"
+                  r"|ode_euler_kernel|ode_wide_kernel|head_sm90_kernel"
+                  r"|zband_sm90_kernel<[^>]*>"
                   r"|down0_sm90_kernel"
                   r"|stem_pool_kernel|eca_kernel|combine_id_kernel"
                   r"|combine_kernel|p1_sm90_kernel<[^>]*>"

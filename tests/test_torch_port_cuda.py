@@ -115,10 +115,12 @@ def test_k1_kernel_matches_plain_at_batches(cuda, batch, act):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", ["relu", "sigmoid"])
-@pytest.mark.parametrize("dim", [1, 100, 128, 384, 512, 600, 1024])
+@pytest.mark.parametrize("dim", [1, 100, 128, 384, 512, 600, 1024, 1025,
+                                 1536, 2048])
 def test_k1_kernel_matches_plain_off_the_preset_width(cuda, dim, act):
-    """D other than the presets' 256: the resident instance up to 512 and
-    the streamed one above, D padded to a multiple of 128 with zeros (the
+    """D other than the presets' 256: the resident instance up to 512, the
+    streamed one up to 1024, the wide one above, D padded to a multiple of
+    128 with zeros (the
     sigmoid moves the padded columns off 0; W's zero rows keep them out of
     the real sums)."""
     g = _gen()
@@ -214,13 +216,16 @@ def test_stage0_item_with_empty_mask_gives_exact_zeros(cuda, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k2", "k4"])
 @pytest.mark.parametrize("z,c1,k0", [(4, 32, 3), (5, 64, 5), (6, 32, 5),
-                                     (3, 8, 3), (1, 8, 5), (32, 16, 3)])
+                                     (3, 8, 3), (1, 8, 5), (32, 16, 3),
+                                     (72, 60, 5), (40, 108, 3), (6, 25, 5),
+                                     (33, 12, 3)])
 def test_stage0_kernels_match_plain_off_their_tiles(cuda, kernel, z, c1,
                                                     k0):
-    """Widths off the presets, each on its rule's instance (the narrow one
-    wherever the sm90 tiles do not take them): Z*C1 = 128 -> Zo*C2 = 64 at
-    z = 4, 320 -> 192 at z = 5 (Zo = 3), K4's Z*C0 = 6, 3, 1 and 32, C1 =
-    8, z = 32 (K2 at z = 6: 192 -> 128, on the sm90 tiles)."""
+    """Widths off the presets, each on its rule's instance (the z-banded
+    down0 wherever the sm90 tiles do not take them): Z*C1 = 128 -> Zo*C2 =
+    64 at z = 4, 320 -> 192 at z = 5 (Zo = 3), K4's Z*C0 = 6, 3, 1 and 32,
+    C1 = 8, z = 32, 33, 40 and 72, C1 = 60, 108, 25 and 12 (every slab
+    padded), Z*C1 = 4320 (K2 at z = 6: 192 -> 128, on the sm90 tiles)."""
     args = _stage0_args(_gen(), 2, 20, c1, cuda, k0, z)
     fn, plain = {"k2": (bev_down.fused_conv0_down0,
                         bev_down.conv0_down0_plain),
@@ -228,7 +233,8 @@ def test_stage0_kernels_match_plain_off_their_tiles(cuda, kernel, z, c1,
     zc1, zc2 = z * c1, me_down_align(z)[2] * c1
     inst = (bev_down.down0_instance(zc1, zc2, z) if kernel == "k2" else
             bev_head.head_instance(z, k0, zc1, zc2, z))
-    assert inst == ("sm90" if (kernel, z) == ("k2", 6) else "igemm")
+    assert inst == ("sm90" if (kernel, z, c1) == ("k2", 6, 32) else
+                    "zband" if kernel == "k2" else "igemm+zband")
     ops.reset_launches()
     with torch.inference_mode():
         got, m1 = fn(*args, z=z)
@@ -336,11 +342,14 @@ def test_k3_item_with_empty_mask_pools_exactly_zero(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,c,z", [(48, 64, 2), (64, 96, 2), (32, 32, 2),
                                      (64, 64, 3), (8, 16, 5), (256, 256, 1),
-                                     (24, 24, 1)])
+                                     (24, 24, 1), (30, 60, 36), (108, 108, 4),
+                                     (20, 212, 3), (5, 12, 40)])
 def test_k3_kernel_matches_plain_off_its_tiles(cuda, cin, c, z):
-    """Zcin = 96 (not a multiple of the 64-channel TMA slab: conv1 narrow,
-    conv2 sm90), Zcout = 192, 64, 80 (not of the 128-channel tile: both
-    narrow), z = 1 (stage 2's voxel block at voxfe_dim), C = 24."""
+    """Zcin = 96 (not a multiple of the 64-channel TMA slab: conv1 on the
+    z-banded instance, conv2 sm90), Zcout = 192, 64, 80 (not of the
+    128-channel tile: both z-banded), z = 1 (stage 2's voxel block at
+    voxfe_dim), C = 24; C not a multiple of 8 (30, 60, 108, 212, 5, 12:
+    every slab padded), z = 36 and 40, Z*C past 4096 (C = 212)."""
     mask, args, kw = _block_args(_gen(), cin, c, 8, z, cuda)
     inst = bev_block_sm.block_instance(z * cin, z * c, z)
     ops.reset_launches()

@@ -102,24 +102,31 @@ def _replay_k1_blocks(t, batch, dim):
 
 
 @pytest.mark.parametrize("batch,dim", [(32, 128), (32, 512), (33, 1),
-                                       (33, 100), (5, 600), (33, 1024)])
+                                       (33, 100), (5, 600), (33, 1024),
+                                       (32, 1025), (32, 2048), (3, 7000),
+                                       (3, 7100), (2, 27136)])
 def test_k1_tiling_takes_every_width(batch, dim):
-    """D up to 1024, each on its instance (W resident up to 512, streamed
-    above), padded to a multiple of 128: ``ode_block``'s replay covers
-    every row and column once at the padded width."""
+    """Any D, each on its instance (W resident up to 512, streamed up to
+    1024, the wide instance above, 4, 2 or 1 rows a cluster as its shared
+    memory allows), padded to a multiple of 128: ``ode_block``'s replay
+    covers every row and column once at the padded width."""
     t = ode_step.ode_tiling(batch, dim)
     assert t.resident == (dim <= 512)
-    assert ode_step.ode_instance(batch, dim) == ("resident" if dim <= 512
-                                                 else "streamed")
-    assert t.args() == (t.dim, int(t.resident), 4, 8, -(-batch // 4),
-                        -(-batch // 4) * 8)
+    inst = ("resident" if dim <= 512 else
+            "streamed" if dim <= 1024 else "wide")
+    assert ode_step.ode_instance(batch, dim) == inst
+    rows = 4 if inst != "wide" else ode_step.wide_rows(t.dim)
+    assert rows == (4 if dim <= 7040 else 2 if dim <= 13952 else 1)
+    assert t.args() == (t.dim, int(t.resident), rows, 8, -(-batch // rows),
+                        -(-batch // rows) * 8)
     _replay_k1_blocks(t, batch, dim)
 
 
-@pytest.mark.parametrize("batch,dim", [(0, 256), (32, 0), (32, 1025),
-                                       (32, 2048)])
+@pytest.mark.parametrize("batch,dim", [(0, 256), (32, 0), (32, 27137)])
 def test_k1_tiling_refuses_other_widths(batch, dim):
-    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+    """An empty x (JAX's kernel refuses it too) and D past the wide
+    instance's one row of state in shared memory."""
+    with pytest.raises(ValueError, match=r"fused_euler_ode: x \["):
         ode_step.ode_tiling(batch, dim)
 
 
@@ -285,24 +292,25 @@ def test_k3_conv_tiling_covers_the_conv(b, xd, yd, zci, zco):
 
 
 def test_k3_width_rule():
-    """K3's conv phases run on the sm90 kernel where Zcin is a multiple of
-    the 64-channel TMA slab and Zcout of the 128-channel tile, on the wmma
-    implicit GEMM at the grid's other widths (C a multiple of 8, z <= 32,
-    Z*C <= 4096), and raise off the grid; P1 keeps 32 and 32."""
+    """K3's conv phases run on the sm90 kernel where C is a multiple of 8,
+    Zcin of the 64-channel TMA slab and Zcout of the 128-channel tile, on
+    the z-banded GEMM at every other width (C = 50, Z*C = 8192 included),
+    and raise on widths no z-fold gives; P1 keeps 32 and 32."""
     def args(zci, zco):
         return (torch.zeros(1, 4, 4, zci, dtype=torch.bfloat16),
                 torch.zeros(3, 3, zci, zco), torch.zeros(3, 3, zco, zco))
 
     assert bev_block_sm.check_block_args("k3", *args(128, 128), 2) == \
         (1, 4, 4, 128, 128)
-    for zci, zco, inst in ((128, 128, "sm90"), (96, 128, "igemm+sm90"),
-                           (128, 192, "igemm"), (64, 64, "igemm")):
+    for zci, zco, inst in ((128, 128, "sm90"), (96, 128, "zband+sm90"),
+                           (128, 192, "zband"), (64, 64, "zband"),
+                           (100, 100, "zband"), (8192, 8192, "sm90")):
         wd = None if zci == zco else torch.zeros(1, 1, zci, zco)
         assert bev_block_sm.check_block_args("k3", *args(zci, zco), 2,
                                              wd)[3:] == (zci, zco)
         assert bev_block_sm.block_instance(zci, zco, 2) == inst
-    for zci, zco, z in ((100, 100, 2), (96, 96, 33), (8192, 8192, 2)):
-        with pytest.raises(ValueError, match="outside the kernel's tiles"):
+    for zci, zco, z in ((96, 96, 33), (101, 101, 2), (64, 64, 0)):
+        with pytest.raises(ValueError, match="no z-fold"):
             bev_block_sm.check_block_args("k3", *args(zci, zco), z)
     assert bev_block_sm.check_block_args("p1", *args(96, 96), 2, None, 32,
                                          32)[3:] == (96, 96)
@@ -319,12 +327,14 @@ def _phase_args(zci=128, zco=128, z=2, xy=6, b=2):
             torch.randn(zco, generator=g) * 0.1)
 
 
+@pytest.mark.parametrize("zc", [128, 100])
 @pytest.mark.parametrize("pool", [False, True])
-def test_k3_conv_phase_takes_plain_on_cpu(pool):
+def test_k3_conv_phase_takes_plain_on_cpu(pool, zc):
     """On CPU tensors ``conv_phase`` is its plain version, even for a
-    strided x, and launches nothing; phase 2's pool is the fp32 masked
+    strided x, and launches nothing, at the sm90 widths and at C = 50 (the
+    z-banded instance's on the card); phase 2's pool is the fp32 masked
     sum of g."""
-    x, mask, w, s, b = _phase_args()
+    x, mask, w, s, b = _phase_args(zc, zc)
     z = 2
     strided = torch.stack([x, -x], dim=-1)[..., 0]  # non-contiguous, == x
     ops.reset_launches()
@@ -346,12 +356,12 @@ def test_k3_conv_phase_takes_plain_on_cpu(pool):
     (dict(mask=torch.uint8), "bf16 x and bool mask"),
     (dict(mask_z=4), "conv_phase: x"),
     (dict(zco=64), "conv_phase: x"),  # phase 2 maps Zcout to Zcout
-    (dict(zci=100, zco=100), "outside the kernel's tiles"),  # C = 50
+    (dict(zci=101, zco=101), "no z-fold"),  # C = 101/2
 ])
 def test_k3_conv_phase_checks_its_arguments(change, match):
     """``conv_phase`` rejects, before any dispatch, what its kernel's
     tensor maps cannot read: a non-bf16 x, a non-bool or misshapen mask, a
-    phase 2 that changes width, widths off the tiles."""
+    phase 2 that changes width, widths no z-fold gives."""
     x, mask, w, s, b = _phase_args(change.get("zci", 128),
                                    change.get("zco", 128))
     if "x" in change:

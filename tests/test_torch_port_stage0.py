@@ -8,11 +8,13 @@ are gathered from small integer tensors as TMA reads them (zero outside the
 tensor) and multiplied in float64, so every sum is exact: K2's replay must
 give the k2s2 down0 conv, K4's halo + im2col replay conv0's im2col and
 conv0 itself at every parity.  At the widths the sm90 tiles do not take,
-both run the wmma implicit GEMM of ``csrc/conv_igemm.cuh``; its gather
-(``ops/widths.igemm_a_source`` over ``igemm_grid``'s blocks) is replayed
-the same way.  The shape rules name the instance each width runs, raise
-with a message off the width grid, and the plain versions keep their
-results.
+K2's down0 and K4's down0 half run the z-banded GEMM of
+``csrc/zband_sm90.cu`` (replayed by ``test_torch_port_zband.replay_zband``)
+and K4's conv0 the wmma implicit GEMM of ``csrc/conv_igemm.cuh``, whose
+gather (``ops/widths.igemm_a_source`` over ``igemm_grid``'s blocks) is
+replayed the same way.  The shape rules name the instance each width
+runs, raise with a message on shapes no z-fold gives, and the plain
+versions keep their results.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from agplace_tpu_torch import ops
-from agplace_tpu_torch.ops import _build, bev_down, bev_head, widths
+from agplace_tpu_torch.ops import _build, bev_down, bev_head, widths, zband
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 torch.set_num_threads(1)
@@ -163,12 +165,15 @@ def _replay_igemm(x, w, stride, pad):
                        want.permute(0, 2, 3, 1))
 
 
+NO_FOLD = "no z-fold's width"
+
+
 @pytest.mark.parametrize("x,y,zc1,zc2,z,match", [
     (20, 19, 256, 128, 4, "not even"),
-    (20, 20, 320, 128, 5, "outside the kernel's tiles"),  # Zo = 3: C2 = 128/3
-    (20, 20, 100, 128, 4, "outside the kernel's tiles"),  # C1 = 25
-    (20, 20, 256, 128, 33, "outside the kernel's tiles"),  # z > 32
-    (20, 20, 8192, 4096, 4, "outside the kernel's tiles"),  # Z*C1 > 4096
+    (20, 20, 320, 128, 5, NO_FOLD),  # Zo = 3: C2 = 128/3
+    (20, 20, 256, 128, 33, NO_FOLD),  # z = 33: C1 = 256/33
+    (20, 20, 256, 128, 0, NO_FOLD),  # z = 0
+    (20, 20, 102, 128, 4, NO_FOLD),  # C1 = 102/4
 ])
 def test_k2_shape_rule_raises(x, y, zc1, zc2, z, match):
     with pytest.raises(ValueError, match=match):
@@ -181,24 +186,34 @@ def test_k2_shape_rule_raises(x, y, zc1, zc2, z, match):
     (2048, 128, 4),  # Z*C1 above the 1024 the sm90 affine staging holds
     (512, 128, 32),  # z = 32: past the 16 mask bits of a row and tap
     (320, 192, 5),   # z = 5, Zo = 3 (--vox_grid_extent 128 128 5)
+    (100, 128, 4),   # C1 = 25
+    (8192, 4096, 128),  # Z*C1 > 4096
 ])
 def test_k2_shape_rule_takes(zc1, zc2, z):
-    """Widths the sm90 tiles refuse run on the wmma instance; its gather
-    over those widths, replayed on the CPU, is the down0 conv exactly."""
-    assert bev_down.check_down0_args("k2", 8, 4, zc1, zc2, z) == "igemm"
-    _replay_igemm(_ints((1, 8, 4, zc1), 0), _ints((2, 2, zc1, zc2), 1), 2, 0)
+    """Widths the sm90 tiles refuse run on the z-banded instance; its
+    schedule over those widths, replayed on the CPU, is the down0 conv
+    exactly."""
+    from tests.test_torch_port_zband import replay_zband
+
+    zo = bev_down.me_down_align(z)[2]
+    assert bev_down.check_down0_args("k2", 8, 4, zc1, zc2, z) == "zband"
+    replay_zband("k2s2", 1, 8, 4, z, zc1 // z, zc2 // zo)
 
 
 @pytest.mark.parametrize("zc2", [640, 1024])
 def test_k2_shape_rule_bounds_the_n_tiles(zc2):
     """The sm90 instance takes Zo*C2 up to 512 (the down BN's affine is
-    staged in shared memory); wider maps run the wmma one, whose N tiles
-    of 64 cover them; past Z*C = 4096 the rule raises."""
+    staged in shared memory); wider maps run the z-banded one, whose N
+    tiles of 64 cover each output slab, at any width; a Zo*C2 that is no
+    multiple of Zo raises."""
     assert bev_down.check_down0_args("k2", 20, 20, 64, 512, 4) == "sm90"
-    assert bev_down.check_down0_args("k2", 20, 20, 1024, zc2, 4) == "igemm"
-    assert widths.igemm_grid(32, zc2, 4 * 1024)[1] * 64 == zc2
-    with pytest.raises(ValueError, match="outside the kernel's tiles"):
-        bev_down.check_down0_args("k2", 20, 20, 1024, 8 * zc2, 4)
+    for zc2_ in (zc2, 8 * zc2):
+        assert bev_down.check_down0_args("k2", 20, 20, 1024, zc2_,
+                                         4) == "zband"
+        t = zband.zband_tiling("k2s2", 32, 20, 20, 4, 256, zc2_ // 2, 132)
+        assert t.ntn * 64 >= zc2_ // 2 > (t.ntn - 1) * 64
+    with pytest.raises(ValueError, match=NO_FOLD):
+        bev_down.check_down0_args("k2", 20, 20, 1024, zc2 + 1, 4)
 
 
 def _stage0_cpu_args(z=4, c1=64, b=2, xy=8, k0=3):
@@ -266,9 +281,14 @@ def test_k2_down0_gemm_checks_then_takes_plain_on_cpu():
     assert torch.equal(got, want)
     assert torch.equal(m_want, bg.mask_down(mask, (0, 0), (0, 0), (0, 0)))
     assert sum(ops.launches().values()) == 0
-    with pytest.raises(ValueError, match="outside the kernel's tiles"):
-        bev_down.down0_gemm(g0[..., :100], mask, s0[:100], b0[:100],
-                            wd[:, :, :100], sd, bd, m_want, z=z)
+    # C1 = 25: taken, each slab padded to 32 channels on the card
+    narrow = (g0[..., :100], mask, s0[:100], b0[:100], wd[:, :, :100], sd,
+              bd)
+    assert torch.equal(bev_down.down0_gemm(*narrow, m_want, z=z),
+                       bev_down.down0_plain(*narrow, z=z)[0])
+    with pytest.raises(ValueError, match=NO_FOLD):
+        bev_down.down0_gemm(g0[..., :102], mask, s0[:102], b0[:102],
+                            wd[:, :, :102], sd, bd, m_want, z=z)
 
 
 # --------------------------------------------------------------------- K4
@@ -444,8 +464,8 @@ def test_k4_head_gemm_takes_plain_on_cpu():
     assert torch.equal(bev_head.head_gemm(*args, m_out, z=z), want)
     assert torch.equal(want, bev_head.head_plain(*args, z=z)[0])
     assert sum(ops.launches().values()) == 0
-    with pytest.raises(ValueError, match="outside the kernel's tiles"):
-        bev_head.head_gemm(*args[:5], args[5][..., :60], *(a[:60] for a in
+    with pytest.raises(ValueError, match=NO_FOLD):
+        bev_head.head_gemm(*args[:5], args[5][..., :61], *(a[:61] for a in
                                                          args[6:]),
                            m_out, z=z)
 
@@ -458,13 +478,11 @@ def test_k4_persistent_grid_is_one_block_per_sm():
 
 
 @pytest.mark.parametrize("zc0,k0,zc1,zc2,z,match", [
-    (5000, 5, 256, 128, 4, "Z\\*C0 from 1 to 4096"),
-    (4, 7, 256, 128, 4, "k0 in \\(3, 5\\)"),
-    (4, 5, 8192, 128, 4, "outside the kernel's tiles"),  # Z*C1 > 4096
-    (4, 3, 128, 60, 4, "outside the kernel's tiles"),  # C2 = 30
-    (4, 5, 100, 128, 4, "outside the kernel's tiles"),  # C1 = 25
-    (8, 5, 512, 200, 8, "outside the kernel's tiles"),  # C2 = 50
-    (4, 5, 256, 128, 33, "outside the kernel's tiles"),  # z > 32
+    (4, 7, 256, 128, 4, "odd and <= 5"),
+    (4, 4, 256, 128, 4, "odd and <= 5"),
+    (4, 5, 256, 128, 33, NO_FOLD),  # z = 33: C1 = 256/33
+    (0, 5, 256, 128, 4, "Z\\*C0 = 0"),
+    (4, 5, 256, 131, 4, NO_FOLD),  # C2 = 131/2
 ])
 def test_k4_shape_rule_raises(zc0, k0, zc1, zc2, z, match):
     with pytest.raises(ValueError, match=match):
@@ -477,15 +495,29 @@ def test_k4_shape_rule_raises(zc0, k0, zc1, zc2, z, match):
     (4, 3, 128, 64, 4),     # Zo*C2 = 64
     (6, 5, 192, 128, 6),    # z = 6 (W2 of the smoke's [widths])
     (1, 3, 8, 8, 1),        # z = 1, C1 = 8
+    (4100, 3, 40, 20, 4),   # Z*C0 past 4096 (C0 = 1025)
+    (4, 5, 8192, 128, 4),   # Z*C1 > 4096
+    (4, 3, 128, 60, 4),     # C2 = 30
+    (4, 5, 100, 128, 4),    # C1 = 25
+    (8, 5, 512, 200, 8),    # C2 = 50
+    (40, 1, 4320, 2160, 40),  # k0 = 1, z = 40, C1 = 108, Z*C1 = 4320
 ])
 def test_k4_shape_rule_takes(zc0, k0, zc1, zc2, z):
-    """Widths K4's sm90 tiles refuse run on the narrow instance: conv0
-    (any Z*C0, element by element at Z*C0 not a multiple of 8) and down0,
-    each replayed through the wmma gather, are the convs exactly."""
-    assert bev_head.check_head_args(8, 4, zc0, k0, zc1, zc2, z) == "igemm"
-    _replay_igemm(_ints((1, 8, 4, zc0), 2), _ints((k0, k0, zc0, zc1), 3), 1,
-                  k0 // 2)
-    _replay_igemm(_ints((1, 8, 4, zc1), 4), _ints((2, 2, zc1, zc2), 5), 2, 0)
+    """Widths K4's sm90 tiles refuse run on IGEMM_ZBAND: conv0 (any Z*C0,
+    element by element at Z*C0 not a multiple of 8) replayed through the
+    wmma gather, down0 through the z-banded schedule, are the convs
+    exactly (conv0's output slabs padded to a multiple of 8 channels)."""
+    from tests.test_torch_port_zband import replay_zband
+
+    assert bev_head.check_head_args(8, 4, zc0, k0, zc1, zc2,
+                                    z) == "igemm+zband"
+    c18 = widths.c_step(zc1 // z)
+    if zc0 * zc1 <= 1 << 22:
+        _replay_igemm(_ints((1, 8, 4, zc0), 2),
+                      widths.pad_fold(_ints((k0, k0, zc0, zc1), 3), 1, zc0,
+                                      z, c18), 1, k0 // 2)
+    replay_zband("k2s2", 1, 8, 4, z, zc1 // z,
+                 zc2 // bev_down.me_down_align(z)[2])
 
 
 def test_stage0_kitti_widths_pass_both_rules():
@@ -547,6 +579,6 @@ def test_k4_rule_takes_the_wider_widths(zc0, zc2):
     for zc1, z in ((64, 1), (128, 2), (192, 3), (256, 4), (256, 2)):
         bev_head.check_head_args(20, 20, 4, 5, zc1, 128, z)
     assert bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 64,
-                                    16) == "igemm"
-    with pytest.raises(ValueError, match="outside the kernel's tiles"):
+                                    16) == "igemm+zband"
+    with pytest.raises(ValueError, match=NO_FOLD):
         bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 4, 16)

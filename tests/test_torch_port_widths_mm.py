@@ -1,11 +1,12 @@
 """The port's MM against JAX's at the widths of ``chip_smoke.py``'s
-[widths] configurations (W1-W3), on the CPU.
+[widths] configurations (W1-W5), on the CPU.
 
 Each configuration is KITTI-360's with the flags of
 ``chip_smoke.WIDTHS_CONFIGS`` (W1 and W2 carry their own image branch and
 voxel planes: JAX's MM adds the last image and voxel vectors to the
 fusion width with no projection, ``fusion.py:136-146``), its grid cut to
-16 x 16 x z at batch 2; both packages run in bf16 on the same seeded
+16 x 16 x z at batch 2 (W4 and W5, at z = 72 and 40 with Z*C1 = 4320: 8 x
+8 x z at batch 1); both packages run in bf16 on the same seeded
 weights and clouds.  JAX's Pallas kernels (K1-K4) run in interpret mode
 (``_pallas_backend_ok`` patched, as the JAX tests do), the port's
 wrappers take their plain versions.  The weights are drawn over the
@@ -42,6 +43,8 @@ from tests.test_torch_port_mm_options import KEYS, close, cloud
 torch.set_num_threads(2)
 
 B, IMG, XY, CAP = 2, 32, 16, 512
+# the batch and grid side of the configurations whose folded maps are wide
+SMALL = {"W4": (1, 8), "W5": (1, 8)}
 # bf16 activations in both packages: the rounding points agree, the conv
 # accumulation orders do not, and 1-ulp bf16 flips propagate through the
 # FPN and the fusion (``test_torch_port_slice.TOL_BF16``, the fused MM's
@@ -100,12 +103,13 @@ def test_mm_matches_jax_at_the_widths(name, monkeypatch):
     """The port's bf16 MM (plain versions on the CPU) against JAX's bf16
     MM with its Pallas kernels interpreted: every output key within
     TOL_BF16 of its scale."""
-    cfg_j, cfg = (widths_cfg(jax_kitti360, name),
-                  widths_cfg(kitti360_config, name))
+    b, xy = SMALL.get(name, (B, XY))
+    cfg_j, cfg = (widths_cfg(jax_kitti360, name, xy),
+                  widths_cfg(kitti360_config, name, xy))
     monkeypatch.setattr(jax_bev, "_pallas_backend_ok", lambda: True)
     rng = np.random.default_rng(0)
-    img = rng.standard_normal((B, IMG, IMG, 3)).astype(np.float32)
-    pts = cloud(rng, B)
+    img = rng.standard_normal((b, IMG, IMG, 3)).astype(np.float32)
+    pts = cloud(rng, b)
     mm = MM(cfg.model.mm, dtype=torch.bfloat16)
     v = flax_variables(mm, rng)
     mm_j = JaxMM(config=cfg_j.model.mm, train=False, dtype=jnp.bfloat16)
