@@ -1,10 +1,10 @@
 // One templated implicit-GEMM convolution with a fused epilogue, shared by
 // K6's conv phases at the widths the TMA + wgmma kernel's tiles do not
-// divide (bev_block.cu, EPI 3-4), K3's 1x1 residual combine (bev_block_sm.cu,
-// EPI 2) and K4's conv0 off its sm90 tiles (stage0_igemm.cu: any Z*C0 with
-// GATHER_ANY); P1 and P2 use its cp.async helpers.  K2's down0 and K3's
-// conv phases off their sm90 tiles run the z-banded wgmma GEMM
-// (zband_sm90.cu) instead.
+// divide (bev_block.cu, EPI 3-4) and K3's 1x1 residual combine
+// (bev_block_sm.cu, EPI 2); P1 and P2 use its cp.async helpers.  K2's
+// down0, K3's conv phases and K4's down0 off their sm90 tiles run the
+// z-banded wgmma GEMM (zband_sm90.cu), K4's conv0 there the window GEMM
+// (head_conv0_sm90.cu).
 //
 // Layouts (the port's public layouts): x [B, H, W, Cin] bf16 (NHWC, the
 // z-major fold puts z*C in the channel axis), weights [KH, KW, Cin, Cout]
@@ -16,19 +16,16 @@
 // GEMM view: M = B*Ho*Wo output pixels, N = Cout, K = KH*KW*Cin.  A block
 // computes a BM x BN tile with 8 warps (4 x 2), each warp a 32 x 32 patch
 // of nvcuda::wmma bf16 16x16x16 tiles with fp32 accumulation.  The A tile
-// is gathered from x in chunks of 8 K-columns, by one of three gathers
+// is gathered from x in chunks of 8 K-columns, by one of two gathers
 // chosen at compile time (the wrapper's rule picks the instance):
 //   GATHER_SLAB32  Cin % 32 == 0: a BK slice lies inside one tap, one
 //                  16-byte cp.async per chunk (the first design's);
 //   GATHER_C8      Cin % 8 == 0: each chunk finds its own tap, K padded to
 //                  a multiple of BK with zeros (A and B both, so that no
-//                  0 x garbage product reaches the sum);
-//   GATHER_ANY     any Cin: element by element through registers (conv0
-//                  over Z*C0 = z occupancy channels).
+//                  0 x garbage product reaches the sum).
 // The B tile comes from the weight matrix, rows past K zero.  Tiles stream
 // through a 3-stage ring in shared memory, so two K slices are in flight
-// while one feeds the tensor cores (the register gather loads its chunk
-// when the slice is issued and stores it at once).  The fp32 accumulator
+// while one feeds the tensor cores.  The fp32 accumulator
 // tile goes through shared memory to an epilogue that works on 8
 // consecutive output channels per thread (16-byte stores: Cout % 8 == 0,
 // and the output mask's z-slabs Cout / out_z a multiple of 8).
@@ -38,7 +35,7 @@
 // runs in bf16 (one rounding after the multiply, one after the add), relu
 // and the 0/1 mask are exact; scale and bias arrive in fp32 and are rounded
 // to bf16 here, as that Pallas kernel does (`a_ref[0].astype(bf16)`).  The
-// fp32 epilogues (EPI 3-4, bev_block.py and bev_head.py): the affine runs
+// fp32 epilogues (EPI 3-4, bev_block.py): the affine runs
 // in fp32 on the unrounded accumulator with fp32 scale and bias, as a
 // multiply and an add each rounded to fp32 (no fma contraction, so the
 // plain PyTorch `acc * s + b` gives the same bits), and the result is
@@ -57,7 +54,7 @@ enum {
   EPI_F32_POOL = 4         // g = bf16(acc*s + b); pool += g * mask
 };
 
-enum { GATHER_SLAB32 = 0, GATHER_C8 = 1, GATHER_ANY = 3 };
+enum { GATHER_SLAB32 = 0, GATHER_C8 = 1 };
 
 struct ConvParams {
   const bf16* x;
@@ -191,18 +188,6 @@ __global__ void __launch_bounds__(kNT) conv_igemm_kernel(ConvParams p) {
         const long long pix = a_pix(i, k0 / p.Cin);
         cp_async16(dst, pix >= 0 ? p.x + pix * p.Cin + ci0 + a_kc[i] : p.x,
                    pix >= 0);
-      } else if (GATHER == GATHER_ANY) {
-        uint4 v = make_uint4(0, 0, 0, 0);
-        bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int kj = k + j;
-          if (kj >= K) break;
-          const int tap = kj / p.Cin;
-          const long long pix = a_pix(i, tap);
-          if (pix >= 0) e[j] = p.x[pix * p.Cin + kj - tap * p.Cin];
-        }
-        *reinterpret_cast<uint4*>(dst) = v;
       } else {
         // Cin % 8 == 0: the chunk lies in one tap (and one z-slab)
         const int tap = k / p.Cin, ci = k - tap * p.Cin;
@@ -374,7 +359,7 @@ cudaError_t launch_conv(const ConvParams& p, cudaStream_t stream) {
 }
 
 // The gather a Cin takes (the wrappers' rules pass it): GATHER_SLAB32 at
-// Cin % 32 == 0, GATHER_C8 at Cin % 8 == 0, else GATHER_ANY.
+// Cin % 32 == 0, GATHER_C8 at the other multiples of 8.
 template <int EPI>
 cudaError_t launch_conv_gather(const ConvParams& p, int gather,
                                cudaStream_t stream) {
@@ -385,8 +370,6 @@ cudaError_t launch_conv_gather(const ConvParams& p, int gather,
     case GATHER_C8:
       if (p.Cin % 8) return cudaErrorInvalidValue;
       return launch_conv<EPI, GATHER_C8>(p, stream);
-    case GATHER_ANY:
-      return launch_conv<EPI, GATHER_ANY>(p, stream);
     default:
       return cudaErrorInvalidValue;
   }

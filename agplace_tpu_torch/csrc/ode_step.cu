@@ -3,10 +3,11 @@
 // Replaces the TPU kernel agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode
 // (_ode_kernel, forward only; the custom-VJP backward is a later port).
 // Computes n_steps Euler steps x <- x + dt * act(x W + b) for x [B, D] fp32,
-// W [D, D] fp32 ([in, out] layout), b [D], D a multiple of 128 up to 1024
+// W [D, D] fp32 ([in, out] layout), b [D], D a multiple of 128 up to 512
 // (the wrapper pads any other stg2fuse_dim with zero columns of x and b
 // and zero rows and columns of W, which leave the real columns' sums
-// exact; 256 at every preset).
+// exact; 256 at every preset).  Wider D runs ode_grid.cu (up to 2560) or
+// ode_wide.cu.
 //
 // What bounds it on the H100: latency, not bytes or FLOPs.  At the slice
 // shape (B = 32, 10 steps) the chain is 42 MFLOP and 0.3 MB, under a
@@ -34,18 +35,9 @@
 //     cluster barrier per step measured slower: PERF.md).  With two
 //     buffers no block can overwrite a state another block still reads;
 //   * at the end each block writes its column slice of its rows.
-// Two instances of this one kernel, chosen by D (ode_instance in
-// ops/ode_step.py):
-//   * resident (D <= 512): W's column slices stay in the cluster's shared
-//     memory as above (128 KB a block at D = 512);
-//   * streamed (512 < D <= 1024): W in fp32 is up to 4 MB, more than a
-//     portable cluster of 8 blocks can hold (8 x 227 KB), so each step
-//     reads the block's column slice from L2 (every cluster reads the same
-//     4 MB, which stays resident in the 50 MB L2 across the steps); the
-//     lanes of a warp read 16 consecutive columns of two k rows, and the
-//     row tile's kRows threads of a column share each load through L1.
-//     Still one launch for all n_steps: the state exchange is the
-//     resident instance's.
+// W's column slices take up to 128 KB a block at D = 512; past that a
+// portable cluster of 8 blocks cannot hold W, and ode_grid.cu holds it
+// across the shared memory of the whole card.
 // Rows are independent, so kRows is small enough that b32 already spreads
 // over several clusters.  The cluster size, kRows and kSplit were chosen by
 // timing (scripts/ablate_torch_ode.py, the AGP_ODE_* switches below).
@@ -82,13 +74,11 @@ constexpr int kCluster = AGP_ODE_CLUSTER;
 constexpr int kRows = AGP_ODE_ROWS;
 constexpr int kSplit = AGP_ODE_SPLIT;
 constexpr int kLaneCols = 32 / kSplit;  // a warp: kLaneCols x kSplit lanes
-// D steps: every instance's D is a multiple of kDimStep, up to kMaxDim;
-// W stays resident up to kMaxResidentDim
-constexpr int kDimStep = 128, kMaxResidentDim = 512, kMaxDim = 1024;
+// D steps: every instance's D is a multiple of kDimStep, up to kMaxDim
+constexpr int kDimStep = 128, kMaxDim = 512;
 
-// The geometry of the instance at width DIM (resident: W's slice in
-// shared memory)
-template <int DIM, bool RES>
+// The geometry of the instance at width DIM
+template <int DIM>
 struct Ode {
   static constexpr int kDim = DIM;
   static constexpr int kCols = kDim / kCluster;  // W's columns of a block
@@ -99,8 +89,8 @@ struct Ode {
   // bank (c + kPad s) mod 32: distinct over a warp
   static constexpr int kPad = kSplit > 1 ? kLaneCols : 0;
   static constexpr int kSegStride = kSeg * kCols + kPad;
-  static constexpr int kWFloats = RES ? kSplit * kSegStride : 0;
-  // W's slice (resident), b's slice, the states [2][kRows][kDim]
+  static constexpr int kWFloats = kSplit * kSegStride;
+  // W's slice, b's slice, the states [2][kRows][kDim]
   static constexpr int kSmemBytes =
       (kWFloats + kCols + 2 * kRows * kDim) * (int)sizeof(float);
   // whether the cluster / row tile / split fit the block's limits at this
@@ -139,12 +129,12 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v,
       : "memory");
 }
 
-template <int ACT, int DIM, bool RES>
-__global__ void __launch_bounds__(Ode<DIM, RES>::kThreads)
+template <int ACT, int DIM>
+__global__ void __launch_bounds__(Ode<DIM>::kThreads)
 ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ out,
                  int batch, int n_steps, float dt) {
-  using O = Ode<DIM, RES>;
+  using O = Ode<DIM>;
   static_assert(O::kValid, "cluster / row tile / split off the block's "
                            "limits");
   constexpr int kDim = O::kDim, kCols = O::kCols, kThreads = O::kThreads;
@@ -164,9 +154,9 @@ ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x;
   // W's slice and the tile's rows as 16-byte loads, all of a thread's
   // issued before any is stored: one round trip to L2, not one per load
-  constexpr int kW4 = RES ? kDim * kCols / 4 : 0;  // float4s of the slice
+  constexpr int kW4 = kDim * kCols / 4;  // float4s of the slice
   constexpr int kW4PerThread = (kW4 + kThreads - 1) / kThreads;
-  float4 wv[kW4PerThread > 0 ? kW4PerThread : 1];
+  float4 wv[kW4PerThread];
 #pragma unroll
   for (int u = 0; u < kW4PerThread; ++u) {
     const int i = tid + u * kThreads, k = i / (kCols / 4);
@@ -213,10 +203,9 @@ ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int jl = (warp % (kCols / kLaneCols)) * kLaneCols + lane % kLaneCols;
   const int r = warp / (kCols / kLaneCols), j = c0 + jl;
   const float bj = bs[jl];
-  // W[s kSeg + k][j]: in the block's slice (resident) or in global memory
-  constexpr int kWStride = RES ? kCols : kDim;
-  const float* wsl =
-      RES ? ws + s * kSegStride + jl : w + (size_t)s * kSeg * kDim + j;
+  // W[s kSeg + k][j] in the block's slice
+  constexpr int kWStride = kCols;
+  const float* wsl = ws + s * kSegStride + jl;
   // this output in the state of the blocks q = s, s + kSplit, ... of the
   // cluster (the slices' lanes share the stores)
   constexpr int kPeers = (kCluster + kSplit - 1) / kSplit;
@@ -268,12 +257,12 @@ ode_euler_kernel(const float* __restrict__ x, const float* __restrict__ w,
   cluster.sync();
 }
 
-template <int ACT, int DIM, bool RES>
+template <int ACT, int DIM>
 cudaError_t launch(const float* x, const float* w, const float* b, float* out,
                    int batch, int n_steps, float dt, int grid,
                    cudaStream_t stream) {
-  using O = Ode<DIM, RES>;
-  auto kernel = ode_euler_kernel<ACT, DIM, RES>;
+  using O = Ode<DIM>;
+  auto kernel = ode_euler_kernel<ACT, DIM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, O::kSmemBytes);
   if (err == cudaSuccess && kCluster > 8)
@@ -297,8 +286,7 @@ cudaError_t launch(const float* x, const float* w, const float* b, float* out,
   return cudaGetLastError();
 }
 
-// The instance at width `dim` (a multiple of kDimStep up to kMaxDim; W
-// resident up to kMaxResidentDim)
+// The instance at width `dim` (a multiple of kDimStep up to kMaxDim)
 template <int ACT, int DIM = kDimStep>
 cudaError_t launch_dim(int dim, const float* x, const float* w,
                        const float* b, float* out, int batch, int n_steps,
@@ -306,30 +294,29 @@ cudaError_t launch_dim(int dim, const float* x, const float* w,
   if constexpr (DIM > kMaxDim) {
     return cudaErrorInvalidValue;
   } else {
-    constexpr bool kRes = DIM <= kMaxResidentDim;
     if (dim != DIM)
       return launch_dim<ACT, DIM + kDimStep>(dim, x, w, b, out, batch,
                                              n_steps, dt, grid, stream);
-    if constexpr (!Ode<DIM, kRes>::kValid)
+    if constexpr (!Ode<DIM>::kValid)
       return cudaErrorInvalidValue;
     else
-      return launch<ACT, DIM, kRes>(x, w, b, out, batch, n_steps, dt, grid,
-                                    stream);
+      return launch<ACT, DIM>(x, w, b, out, batch, n_steps, dt, grid,
+                              stream);
   }
 }
 
 }  // namespace
 
 // The geometry arguments are the fields of the wrapper's OdeTiling in order:
-// the instance's width (x, W and b padded to it) and whether W is resident,
-// rows per cluster, blocks per cluster, row tiles, blocks.
+// the instance's width (x, W and b padded to it) and whether W is resident
+// (always, here), rows per cluster, blocks per cluster, row tiles, blocks.
 extern "C" int agp_ode_euler(const float* x, const float* w, const float* b,
                              float* out, int batch, int n_steps, float dt,
                              int act, int dim, int resident, int rows,
                              int cluster, int tiles, int grid,
                              void* stream) {
   if (dim < kDimStep || dim > kMaxDim || dim % kDimStep != 0 ||
-      resident != (dim <= kMaxResidentDim) || rows != kRows ||
+      resident != 1 || rows != kRows ||
       cluster != kCluster || batch < 1 ||
       tiles != (batch + kRows - 1) / kRows || grid != tiles * kCluster ||
       n_steps < 0)

@@ -1,5 +1,6 @@
 // K1's wide instance: the fused fixed-step Euler chain of the FCODE block
-// above D = 1024.
+// above D = 2560, where W no longer fits the card's shared memory (below,
+// ode_grid.cu holds it there).
 //
 // Replaces, at those widths, the TPU kernel agplace_tpu/ops/pallas/
 // ode_step.py:fused_euler_ode, which keeps x and W whole in VMEM at any D.
@@ -18,7 +19,7 @@
 //   * a warp takes an item of 16 columns of one row, its two half-warps a
 //     half of the k range each (the 16 lanes reading 16 consecutive floats
 //     of two W rows per k step, W's column slice streamed from L2 every
-//     step, as ode_step.cu's streamed instance), four partial sums, then
+//     step), four partial sums, then
 //     one shuffle adds the halves; the 32 warps walk the block's
 //     kRows * D/128 items;
 //   * the new value goes to the next state buffer of every block of the

@@ -32,6 +32,10 @@ _SIGNATURES = {
     # batch, n_steps, dt, act, then the 6 fields of ode_step.OdeTiling
     "agp_ode_euler": [_P] * 4 + [_I] * 2 + [_F] + [_I] * 7 + [_P],
     "agp_ode_wide": [_P] * 4 + [_I] * 2 + [_F] + [_I] * 7 + [_P],
+    # x, w, b, out, scratch, batch, n_steps, dt, act, then the 5 fields of
+    # ode_step.OdeGridTiling
+    "agp_ode_grid": [_P] * 5 + [_I] * 2 + [_F] + [_I] * 6 + [_P],
+    "agp_ode_grid_resident": [_I] * 3,  # returns a count, not an error
     # z, zo, then the 20 fields of bev_down.Down0Tiling
     "agp_bev_down": [_P] * 9 + [_I] * 22 + [_P],
     # epi, z, then the 17 fields of bev_block_sm.Conv3x3Tiling
@@ -45,8 +49,9 @@ _SIGNATURES = {
     # inst, then the 38 fields of zband.ZbandTiling: the z-banded GEMM of
     # K2, K3 and K4 off their sm90 tiles
     "agp_zband": [_P] * 10 + [_I] * 39 + [_P],
-    # conv0 of K4's off-preset instance: B, X, Y, k0, Z*C0, Z*C1, z, gather
-    "agp_bev_head_conv0": [_P] * 6 + [_I] * 8 + [_P],
+    # conv0 of K4's off-preset instance: the 31 fields of
+    # bev_head.Conv0Tiling
+    "agp_head_conv0": [_P] * 6 + [_I] * 31 + [_P],
     # B, H, W, C, then the 9 fields of stem_pool.StemPoolTiling
     "agp_stem_pool": [_P] * 4 + [_I] * 13 + [_P],
     "agp_block_bm_conv1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

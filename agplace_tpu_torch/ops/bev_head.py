@@ -10,11 +10,15 @@ of the parity's activation from registers straight into the down0 MMA.
 its im2col on the CPU.  Like JAX's kernel it takes every width of the MM's
 flags: ``head_instance`` is the rule by shape, the sm90 kernel's resident
 or streamed instance where its tiles take the widths, and elsewhere
-IGEMM_ZBAND: conv0 as the wmma implicit GEMM of ``csrc/stage0_igemm.cu``
-(any Z*C0, element by element), its activation through memory, then down0
-on the fp32 instance of the z-banded wgmma GEMM (``csrc/zband_sm90.cu``),
-the same fp32 epilogues; each z-slab of conv0's output padded to a
-multiple of 8 channels (``widths.pad_slabs``), the output sliced back.
+WINDOW_ZBAND: conv0 on the TMA + wgmma GEMM of ``csrc/head_conv0_sm90.cu``,
+whose K loop reads only the window of input channels a tile's output
+slabs reach in the fold (``conv0_tiling``; ``conv0_tile`` and
+``conv0_window`` replay it), its activation through memory, then down0 on
+the fp32 instance of the z-banded wgmma GEMM (``csrc/zband_sm90.cu``), the
+same fp32 epilogues; each z-slab of conv0's output padded to a multiple
+of 8 channels (``widths.pad_slabs``), the output sliced back.  Both halves
+take the fold's off-band blocks as the zeros ``fold_w2_stride1`` and
+``fold_w2_k2s2`` put there: hand them folds, not dense weights.
 
 ``head_plain`` is the plain version, with the TPU kernel's rounding
 (``bev_head.py:146-163``): conv0 accumulated in fp32, the BN0 affine in
@@ -31,12 +35,12 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from agplace_tpu_torch.data.voxels import me_down_align
 from agplace_tpu_torch.ops import _build, bev_down, zband
-from agplace_tpu_torch.ops.widths import (IGEMM, SM90, ZBAND, c_step,
-                                          igemm_gather, pad_fold, pad_slabs,
-                                          unpad_slabs)
+from agplace_tpu_torch.ops.widths import (SM90, WINDOW, ZBAND, c_step,
+                                          pad_fold, pad_slabs, unpad_slabs)
 from agplace_tpu_torch.sparse import bev_grid as bg
 
 _BF16 = torch.bfloat16
@@ -79,7 +83,7 @@ W0_STREAM_ROWS = 128
 HALO_LEAD = 2
 HALO_CELLS = 2 * PATCH_Y + 2 * HALO_LEAD
 RESIDENT, STREAMED = "resident", "streamed"
-IGEMM_ZBAND = f"{IGEMM}+{ZBAND}"  # conv0 on the wmma GEMM, down0 on zband
+WINDOW_ZBAND = f"{WINDOW}+{ZBAND}"  # conv0's window GEMM, down0 on zband
 
 
 @dataclass(frozen=True)
@@ -194,7 +198,7 @@ def head_im2col(k0: int, zc0: int, row: int, par: int, t: int):
 def head_instance(zc0: int, k0: int, zc1: int, zc2: int, z: int) -> str:
     """K4's instance: conv0 k0 over Z*C0 input channels to Z*C1, down0 to
     Zo*C2.  RESIDENT or STREAMED (the sm90 kernel, ``head_tiling`` picks
-    which) at k0 in (3, 5), Z*C0 in ZC0S and K2's sm90 widths; IGEMM_ZBAND
+    which) at k0 in (3, 5), Z*C0 in ZC0S and K2's sm90 widths; WINDOW_ZBAND
     at every other width; raises outside JAX's gate (k0 odd and <= 5) and
     on widths no z-fold gives."""
     if not (k0 % 2 == 1 and 1 <= k0 <= 5):
@@ -204,7 +208,7 @@ def head_instance(zc0: int, k0: int, zc1: int, zc2: int, z: int) -> str:
         raise ValueError(f"fused_head: conv0 over Z*C0 = {zc0} channels")
     down = bev_down.down0_instance(zc1, zc2, z, "fused_head")
     if zc0 not in ZC0S or k0 == 1 or down != SM90:
-        return IGEMM_ZBAND
+        return WINDOW_ZBAND
     return (RESIDENT if zc0 == 4 and zc1 <= RESIDENT_ZC1 and zc2 == BLOCK_N
             else STREAMED)
 
@@ -237,7 +241,7 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
            bias_d, mask_out)
     if not _build.on_cuda(*ins):
         return head_plain(*ins[:-1], z=z)[0]
-    if inst == IGEMM_ZBAND:
+    if inst == WINDOW_ZBAND:
         return head_zband(*ins, z=z)
     dev = feats.device
     out = torch.empty((b, x // 2, y // 2, zc2), dtype=_BF16, device=dev)
@@ -258,7 +262,7 @@ def head_gemm(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
 
 def pad_head(w0_folded, scale0, bias0, wd_folded, scale_d, bias_d, *,
              z: int):
-    """IGEMM_ZBAND's operands: each z-slab of conv0's output padded to
+    """WINDOW_ZBAND's operands: each z-slab of conv0's output padded to
     C1_8 = 8 * ceil(C1 / 8) channels (w0's columns, BN0's scale and bias:
     zeros, so a padded channel of h is 0), wd's slabs and the down BN's
     affine to C1_8 -> C2_8; each is itself where C == C8."""
@@ -275,7 +279,7 @@ def pad_head(w0_folded, scale0, bias0, wd_folded, scale_d, bias_d, *,
 
 def head_zband(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
                bias_d, mask_out, *, z: int):
-    """K4's IGEMM_ZBAND instance on CUDA tensors whose shapes ``head_gemm``
+    """K4's WINDOW_ZBAND instance on CUDA tensors whose shapes ``head_gemm``
     checked: the operands padded (``pad_head``), conv0 (``head_conv0``)
     into h [B, X, Y, Z*C1_8], then down0 over h on the z-banded GEMM's
     fp32 instance, its output sliced back to Zo*C2."""
@@ -287,16 +291,130 @@ def head_zband(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
     return unpad_slabs(out, zo, int(wd_folded.shape[3]) // zo)
 
 
+# conv0 of WINDOW_ZBAND (csrc/head_conv0_sm90.cu): a tile is a 16 (x) x 8
+# (y) patch of output cells times C0_BLOCK_N channels of the flattened
+# Z*C1_8 axis; its A operand is the halo'd patch of the tile's channel
+# window, one TMA box per 8-channel block, C0_SLICE_BLOCKS blocks a halo
+# slice; C0_BLOCKS_PER_SM persistent blocks per SM
+C0_PATCH_X, C0_PATCH_Y, C0_BLOCK_N = 16, 8, 128
+C0_SLICE_BLOCKS, C0_BLOCKS_PER_SM, C0_STAGE_BYTES = 8, 2, 24 * 1024
+
+
+@dataclass(frozen=True)
+class Conv0Tiling:
+    """Launch geometry of conv0 over feats [B, X, Y, Z*C0] (channels padded
+    to Z*C0_8, a multiple of 8) to h [B, X, Y, Z*C1_8], as the kernel takes
+    it (``args``).  Tile ``i`` is ((b * npx + xp) * npy + yp) * ntn + n;
+    block j takes tiles j, j + grid, ...  Dims and boxes innermost first:
+    feats as (Z*C0_8, Y, X, B), its halo box one 8-channel block of 15 + k0
+    x 8 + k0 cells (one spare cell a row); w0 as (Z*C1_8, Z*C0, k0 dy, k0
+    dx), its box 64 columns of 8 rows of two taps (``pair``) or of 8 sb
+    rows of one tap."""
+
+    x_dims: Tuple[int, int, int, int]
+    x_box: Tuple[int, int, int, int]
+    w_dims: Tuple[int, int, int, int]
+    w_box: Tuple[int, int, int, int]
+    z: int
+    k0: int
+    c0: int
+    c18: int
+    npx: int
+    npy: int
+    ntn: int  # N tiles: ceil(Z*C1_8 / C0_BLOCK_N)
+    nb: int  # the widest window, in 8-channel blocks
+    sb: int  # blocks of a halo slice
+    nsl: int  # slices of a tile
+    pair: int  # 1: a 16-deep MMA step is two taps of one block
+    tg: int  # taps (pairs) of a ring step: a row of k0, or 1
+    steps: int  # ring steps of a slice
+    tiles: int
+    grid: int
+
+    def args(self) -> Tuple[int, ...]:
+        return (*self.x_dims, *self.x_box, *self.w_dims, *self.w_box, self.z,
+                self.k0, self.c0, self.c18, self.npx, self.npy, self.ntn,
+                self.nb, self.sb, self.nsl, self.pair, self.tg, self.steps,
+                self.tiles, self.grid)
+
+
+def conv0_window(k0: int, c0: int, c18: int, z: int, n0: int):
+    """The input channels [a0, hi) of feats that the output channels [n0,
+    n0 + C0_BLOCK_N) of Z*C1_8 read in the fold: the slabs za .. zb they
+    lie in reach slabs za - k0 // 2 .. zb + k0 // 2 (clipped to [0, Z)),
+    channels [lo, hi); a0 is lo rounded down to 8 (a TMA box's start is
+    16-byte aligned)."""
+    h = k0 // 2
+    za = n0 // c18
+    zb = (min(n0 + C0_BLOCK_N, z * c18) - 1) // c18
+    return max(za - h, 0) * c0 // 8 * 8, min(zb + h + 1, z) * c0
+
+
+def conv0_tiling(b: int, x: int, y: int, k0: int, c0: int, z: int,
+                 c18: int, sms: int) -> Conv0Tiling:
+    """The persistent grid of C0_BLOCKS_PER_SM blocks per SM (``sms``: the
+    card's SM count) over B x X x Y cells, conv0 k0 x k0 from z slabs of
+    c0 channels to z slabs of c18 (a multiple of 8)."""
+    zc0, zc18 = z * c0, z * c18
+    ntn = -(-zc18 // C0_BLOCK_N)
+    nb = max(-(-(hi - a0) // 8) for a0, hi in (
+        conv0_window(k0, c0, c18, z, n * C0_BLOCK_N) for n in range(ntn)))
+    pair = int(nb == 1)
+    sb = 1 if pair else min(C0_SLICE_BLOCKS, nb + nb % 2)
+    row = (k0 + 1) // 2 if pair else k0  # taps (pairs) of a dx row
+    w_box = (64, 8, 2, 1) if pair else (64, 8 * sb, 1, 1)
+    tap_bytes = 2 * 2 * w_box[0] * w_box[1] * w_box[2]
+    tg = row if row * tap_bytes <= C0_STAGE_BYTES else 1
+    npx, npy = -(-x // C0_PATCH_X), -(-y // C0_PATCH_Y)
+    tiles = b * npx * npy * ntn
+    return Conv0Tiling((c_step(zc0), y, x, b),
+                       (8, C0_PATCH_Y + k0, C0_PATCH_X + k0 - 1, 1),
+                       (zc18, zc0, k0, k0), w_box, z, k0, c0, c18, npx, npy,
+                       ntn, nb, sb, -(-nb // sb), pair, tg, k0 * row // tg,
+                       tiles, min(tiles, C0_BLOCKS_PER_SM * sms))
+
+
+def conv0_tile(t: Conv0Tiling, tile: int):
+    """Tile ``tile`` as the kernel decodes it: (b, x0, y0, n0, a0), the
+    patch origin, its first output channel and its window's start."""
+    n0, r = (tile % t.ntn) * C0_BLOCK_N, tile // t.ntn
+    yp, r = r % t.npy, r // t.npy
+    xp, b = r % t.npx, r // t.npx
+    a0 = conv0_window(t.k0, t.c0, t.c18, t.z, n0)[0]
+    return b, xp * C0_PATCH_X, yp * C0_PATCH_Y, n0, a0
+
+
+def conv0_step(t: Conv0Tiling, i: int):
+    """Ring step ``i`` of a slice: its ``tg`` taps (dx, dy) in the order of
+    the stage's boxes (with a pair, the first of taps dy, dy + 1)."""
+    taps = []
+    for j in range(i * t.tg, (i + 1) * t.tg):
+        if t.pair:
+            dx, m = divmod(j, (t.k0 + 1) // 2)
+            taps.append((dx, 2 * m))
+        else:
+            taps.append(divmod(j, t.k0))
+    return taps
+
+
 def head_conv0(feats, mask, w0, s0, b0, *, z: int):
-    """IGEMM_ZBAND's conv0 (``agp_bev_head_conv0``) on CUDA tensors, w0
-    and the affines padded by ``pad_head``: h [B, X, Y, Z*C1_8] bf16."""
+    """WINDOW_ZBAND's conv0 (``agp_head_conv0``) on CUDA tensors, w0 (a
+    ``fold_w2_stride1``) and the affines padded by ``pad_head``: h [B, X,
+    Y, Z*C1_8] bf16.  feats' channels are padded with zeros to a multiple
+    of 8 (the tensor map's row stride); w0's rows end at Z*C0, and TMA reads
+    the rows past it as zeros."""
     b, x, y, zc0 = feats.shape
-    zc18 = int(w0.shape[3])
+    k0, zc18 = int(w0.shape[0]), int(w0.shape[3])
+    t = conv0_tiling(b, x, y, k0, zc0 // z, z, zc18 // z,
+                     torch.cuda.get_device_properties(
+                         feats.device).multi_processor_count)
+    xp = feats.to(_BF16)
+    if t.x_dims[0] != zc0:
+        xp = F.pad(xp, (0, t.x_dims[0] - zc0))
     h = torch.empty((b, x, y, zc18), dtype=_BF16, device=feats.device)
-    _build.call("agp_bev_head_conv0", _build.aligned(feats.to(_BF16)),
-                mask.contiguous(), _build.aligned(w0), _build.aligned(s0),
-                _build.aligned(b0), h, b, x, y, int(w0.shape[0]), zc0, zc18,
-                z, igemm_gather(zc0))
+    _build.call("agp_head_conv0", _build.aligned(xp), mask.contiguous(),
+                _build.aligned(w0), _build.aligned(s0), _build.aligned(b0),
+                h, *t.args())
     return h
 
 
@@ -330,4 +448,4 @@ def fused_head(feats, mask, w0_folded, scale0, bias0, wd_folded, scale_d,
 
 
 fused_head.launches = 0
-fused_head.instances = dict.fromkeys((RESIDENT, STREAMED, IGEMM_ZBAND), 0)
+fused_head.instances = dict.fromkeys((RESIDENT, STREAMED, WINDOW_ZBAND), 0)

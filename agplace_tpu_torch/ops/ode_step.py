@@ -1,11 +1,14 @@
 """K1 — fused fixed-step Euler chain of the FCODE block.
 
-Port of ``agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode``.  The CUDA
-kernel is ``csrc/ode_step.cu``: one launch of thread-block clusters; W
-resident across the shared memory of each cluster's blocks up to D = 512,
-streamed from L2 on every step up to 1024; above, ``csrc/ode_wide.cu``'s
-wide instance, D a runtime width walked by blocks of 1024 threads
-(``ode_instance``, the rule by shape).  ``ode_tiling`` is the launch
+Port of ``agplace_tpu/ops/pallas/ode_step.py:fused_euler_ode``.  Three
+instances, chosen by shape (``ode_instance``): up to D = 512
+``csrc/ode_step.cu``, one launch of thread-block clusters, W resident
+across the shared memory of each cluster's blocks; up to GRID_MAX_DIM
+``csrc/ode_grid.cu``, a co-resident grid of one block per SM holding W
+across the whole card's shared memory, groups of 4 blocks splitting each
+column band's k range, a grid barrier per step; above,
+``csrc/ode_wide.cu``'s wide instance, D a runtime width walked by blocks
+of 1024 threads, W read from L2 every step.  ``ode_tiling`` is the launch
 geometry, its one source.  Like JAX's kernel it takes any D (1 to
 ``MAX_DIM``, where the wide instance's one row of state no longer fits a
 block's shared memory; JAX's VMEM holds W whole only far below that): the
@@ -39,14 +42,22 @@ _ACT_FNS = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid,
 # ROWS rows of x, block r of it W's columns [D / CLUSTER * r, D / CLUSTER
 # * (r + 1)) of the instance's width D, a multiple of DIM_STEP (D = 256,
 # the FCODE width of every preset, is its own); W stays in the cluster's
-# shared memory up to MAX_RESIDENT_DIM, and is read from L2 every step up
-# to MAX_STREAMED_DIM.  Above, the wide instance (csrc/ode_wide.cu) keeps
-# 4, 2 or 1 rows per cluster, as many as its two states [2][rows][D] fit in
-# WIDE_SMEM bytes beside b's slice (``wide_rows``), up to MAX_DIM.
+# shared memory up to MAX_RESIDENT_DIM.  Up to GRID_MAX_DIM the grid
+# instance (csrc/ode_grid.cu): GRID_BLOCKS blocks in groups of
+# GRID_GROUP, group g W's column band [band g, band (g + 1)), band = D /
+# (GRID_BLOCKS / GRID_GROUP), its block q the band's k-slice [kslice q,
+# kslice (q + 1)), kslice = D / GRID_GROUP; all B rows in row tiles of 4 x
+# GRID_ROW_GROUPS at most.  GRID_MAX_DIM is the widest D whose W tile and
+# x slice of 32 rows fit GRID_SMEM bytes (``grid_smem``).  Above, the
+# wide instance (csrc/ode_wide.cu) keeps 4, 2 or 1 rows per cluster, as
+# many as its two states [2][rows][D] fit in WIDE_SMEM bytes beside b's
+# slice (``wide_rows``), up to MAX_DIM.
 DIM, CLUSTER, ROWS = 256, 8, 4
-DIM_STEP, MAX_RESIDENT_DIM, MAX_STREAMED_DIM = 128, 512, 1024
+DIM_STEP, MAX_RESIDENT_DIM = 128, 512
+GRID_BLOCKS, GRID_GROUP, GRID_ROW_GROUPS = 128, 4, 8
+GRID_THREADS, GRID_SMEM, GRID_MAX_DIM = 256, 227 * 1024, 2176
 WIDE_SMEM, MAX_DIM = 226 * 1024, 27136
-RESIDENT, STREAMED, WIDE = "resident", "streamed", "wide"
+RESIDENT, GRID, WIDE = "resident", "grid", "wide"
 
 
 @dataclass(frozen=True)
@@ -69,11 +80,53 @@ class OdeTiling:
                 self.tiles, self.grid)
 
 
+@dataclass(frozen=True)
+class OdeGridTiling:
+    """Launch geometry of K1's grid instance over x [B, D] padded to [B,
+    ``dim``] (``args``): block j of group j // GRID_GROUP sums its k-slice
+    of W's column band for every row, in row tiles of 4 rg rows, and
+    finishes a quarter of the band's columns."""
+
+    dim: int
+    band: int  # W's columns of a group
+    kslice: int  # W's rows of a block
+    grid: int
+    rg: int
+
+    @property
+    def rows(self) -> int:
+        """Rows of a row tile."""
+        return 4 * self.rg
+
+    def args(self):
+        return (self.dim, self.band, self.kslice, self.grid, self.rg)
+
+    def scratch_floats(self, batch: int) -> int:
+        """The kernel's scratch: the other state [B, dim], two buffers of
+        every block's partial tile, then 1 + GRID_BLOCKS / GRID_GROUP
+        barrier counters."""
+        return (batch * self.dim + 2 * self.grid * self.rows * self.band
+                + 1 + self.grid // GRID_GROUP)
+
+
+def grid_smem(dim: int, rg: int = GRID_ROW_GROUPS) -> int:
+    """The grid instance's shared memory a block at width ``dim``: W's
+    tile, b's finishing columns (padded to 4), the x slice of 4 rg rows
+    (each padded by 4 floats; its space then holds the k split's
+    shares)."""
+    band = dim // (GRID_BLOCKS // GRID_GROUP)
+    kslice = dim // GRID_GROUP
+    tiles = band // 4 * rg
+    shares = GRID_THREADS // tiles * tiles * 16
+    return 4 * (kslice * band + -(-band // GRID_GROUP // 4) * 4
+                + max(4 * rg * (kslice + 4), shares))
+
+
 def ode_instance(batch: int, dim: int) -> str:
     """K1's instance for x [batch, dim]: RESIDENT (W in the cluster's
-    shared memory) up to MAX_RESIDENT_DIM, STREAMED (W's column slices
-    read from L2 every step) up to MAX_STREAMED_DIM, WIDE up to MAX_DIM;
-    an empty x and D past MAX_DIM raise."""
+    shared memory) up to MAX_RESIDENT_DIM, GRID (W across the shared
+    memory of a co-resident grid) up to GRID_MAX_DIM, WIDE (W read from L2
+    every step) up to MAX_DIM; an empty x and D past MAX_DIM raise."""
     if batch < 1 or dim < 1:
         raise ValueError(f"fused_euler_ode: x [{batch}, {dim}] is empty")
     if dim > MAX_DIM:
@@ -81,7 +134,7 @@ def ode_instance(batch: int, dim: int) -> str:
                          f"the wide instance's shared memory holds "
                          f"(D <= {MAX_DIM})")
     return (RESIDENT if dim <= MAX_RESIDENT_DIM else
-            STREAMED if dim <= MAX_STREAMED_DIM else WIDE)
+            GRID if dim <= GRID_MAX_DIM else WIDE)
 
 
 def ode_width(dim: int) -> int:
@@ -96,23 +149,45 @@ def wide_rows(dim: int) -> int:
                 if (dim // CLUSTER + 2 * r * dim) * 4 <= WIDE_SMEM)
 
 
-def ode_tiling(batch: int, dim: int) -> OdeTiling:
+def ode_tiling(batch: int, dim: int):
+    """The instance's launch geometry: an ``OdeGridTiling`` for GRID, else
+    an ``OdeTiling``."""
     inst = ode_instance(batch, dim)
     width = ode_width(dim)
+    if inst == GRID:
+        return OdeGridTiling(width, width // (GRID_BLOCKS // GRID_GROUP),
+                             width // GRID_GROUP, GRID_BLOCKS,
+                             min(GRID_ROW_GROUPS, -(-batch // 4)))
     rows = wide_rows(width) if inst == WIDE else ROWS
     tiles = -(-batch // rows)
     return OdeTiling(width, inst == RESIDENT, rows, CLUSTER, tiles,
                      tiles * CLUSTER)
 
 
-def ode_block(t: OdeTiling, block: int, batch: int):
+def ode_block(t, block: int, batch: int):
     """The rows and W columns block ``block`` computes and writes, as the
     kernel derives them from ``t`` (every instance): (rows range, columns
     range) of the padded [B, t.dim] state."""
+    if isinstance(t, OdeGridTiling):  # the columns it finishes
+        fc = t.band // GRID_GROUP
+        c0 = block // GRID_GROUP * t.band + block % GRID_GROUP * fc
+        return range(batch), range(c0, c0 + fc)
     r0 = (block // t.cluster) * t.rows
     cols = t.dim // t.cluster
     c0 = (block % t.cluster) * cols
     return range(r0, min(r0 + t.rows, batch)), range(c0, c0 + cols)
+
+
+def check_grid_resident(t: OdeGridTiling) -> None:
+    """Raise unless the card holds every block of the grid instance at
+    once (its steps wait on grid-wide barriers: a block that never ran
+    would hold the others)."""
+    got = _build.lib().agp_ode_grid_resident(t.band, t.kslice, t.rg)
+    if got < t.grid:
+        raise RuntimeError(
+            f"fused_euler_ode: the card holds {got} blocks of the grid "
+            f"instance at once (negative: a CUDA error), {t.grid} needed "
+            f"({torch.cuda.get_device_name()})")
 
 
 def euler_ode_plain(x, w, b, n_steps: int = 10, dt: float = 0.1,
@@ -198,12 +273,20 @@ def fused_euler_ode(x, w, b, n_steps: int = 10, dt: float = 0.1,
     x, w, b = map(_build.aligned, (x, w, b))
     out = torch.empty_like(x)
     inst = ode_instance(batch, dim)
-    _build.call("agp_ode_wide" if inst == WIDE else "agp_ode_euler", x, w,
-                b, out, batch, int(n_steps), float(dt), ACTS[act], *t.args())
+    if inst == GRID:
+        check_grid_resident(t)
+        scratch = torch.empty(t.scratch_floats(batch), dtype=torch.float32,
+                              device=x.device)
+        _build.call("agp_ode_grid", x, w, b, out, scratch, batch,
+                    int(n_steps), float(dt), ACTS[act], *t.args())
+    else:
+        _build.call("agp_ode_wide" if inst == WIDE else "agp_ode_euler", x,
+                    w, b, out, batch, int(n_steps), float(dt), ACTS[act],
+                    *t.args())
     fused_euler_ode.launches += 1
     fused_euler_ode.instances[inst] += 1
     return out[:, :dim] if pad else out
 
 
 fused_euler_ode.launches = 0
-fused_euler_ode.instances = dict.fromkeys((RESIDENT, STREAMED, WIDE), 0)
+fused_euler_ode.instances = dict.fromkeys((RESIDENT, GRID, WIDE), 0)

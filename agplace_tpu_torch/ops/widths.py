@@ -21,9 +21,9 @@ import torch
 import torch.nn.functional as F
 
 C_STEP = 8  # the channel step of a slab the kernels read
-SM90, ZBAND, IGEMM = "sm90", "zband", "igemm"
+SM90, ZBAND, WINDOW = "sm90", "zband", "window"
 # conv_igemm.cuh's A gathers (its enum)
-GATHER_SLAB32, GATHER_C8, GATHER_ANY = 0, 1, 3
+GATHER_SLAB32, GATHER_C8 = 0, 1
 
 
 def check_fold(name: str, zc: int, z: int, what: str = "Z*C") -> int:
@@ -75,10 +75,12 @@ def pad_fold(w: torch.Tensor, zi: int, ci8: int, zo: int,
 
 
 def igemm_gather(cin: int) -> int:
-    """conv_igemm.cuh's A gather for Cin input channels: 16-byte copies of
-    32-channel slices, of 8-channel chunks, or element by element."""
-    return (GATHER_SLAB32 if cin % 32 == 0 else
-            GATHER_C8 if cin % 8 == 0 else GATHER_ANY)
+    """conv_igemm.cuh's A gather for Cin input channels (a multiple of 8:
+    the wrappers pad every slab): 16-byte copies of 32-channel slices or of
+    8-channel chunks."""
+    if cin % 8:
+        raise ValueError(f"conv_igemm: Cin = {cin} is not a multiple of 8")
+    return GATHER_SLAB32 if cin % 32 == 0 else GATHER_C8
 
 
 # conv_igemm.cuh's tiles: a block computes BM output pixels x BN output

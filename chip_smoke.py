@@ -246,19 +246,25 @@ K6 has no path; only its parity is checked.
     card for 1 step with ``--odeint_method dopri5 --odeint_rtol 1e-3
     --odeint_atol 1e-3 --dopri5_max_steps 16 --horizontal_flip true
     --patience 3``: exit 0, a finite loss, each flag in its field;
-31. [widths] K1-K4 off the preset widths: one MM forward of each of three
+31. [widths] K1-K4 off the preset widths: one MM forward of each of five
     configurations of ``kitti360_config()`` at full width (256 px, 128 x
     128 x z, bf16): W1 (b32) ``--vox_grid_extent 128 128 5`` with a
-    1024-wide fusion (ResNet-50 image branch, voxel planes 64 128 1024),
-    W2 (b32) the fused route at z = 6 with voxel planes 24 128 and a
-    128-wide fusion, W3 (b8) z = 32 (``WIDTHS_CONFIGS``); each inside
-    ``held_to_plain`` (every K1-K5 launch compared with its plain version
-    at its own shapes, none missed), exact launch counts, the launches
-    of each instance (``ops.instance_launches``), one query against the
-    CPU run (SLICE_TOL), and each instance no preset runs timed alone on
-    its first launch's arguments (CUDA events, median of 20; K1 also by
-    the profiler) beside its plain version, its bound and cuDNN's convs
-    where they compute a product of it;
+    1024-wide fusion (ResNet-50 image branch, voxel planes 64 128 1024:
+    K1's grid instance), W2 (b32) the fused route at z = 6 with voxel
+    planes 24 128 and a 128-wide fusion (K4's window+zband), W3 (b8) z =
+    32, W4 (b4) z = 72, W5 (b4) the fused route at z = 40
+    (``WIDTHS_CONFIGS``); each inside ``held_to_plain`` (every K1-K5
+    launch compared with its plain version at its own shapes, none
+    missed), exact launch counts, the launches of each instance
+    (``ops.instance_launches``) against the rules' replay on the CPU, one
+    query against the CPU run (SLICE_TOL), and each instance no preset
+    runs timed alone on its first launch's arguments (CUDA events, median
+    of 20; K1 and K4's window conv0 also by the profiler) beside its plain
+    version, its bound and cuDNN's convs where they compute a product of
+    it; then [widths lone], each launch counted and held to its plain
+    version: K3 at z = 20, C = 212 and K1 at D = 1024, 1536, 2048 (grid)
+    and 3072 (wide), b32.  Each instance [widths] launched gets a row of
+    its own in the kernels line (``instance_rows``);
 32. [multi-gpu] the multi-GPU layer (``agplace_tpu_torch/parallel``,
     ``retrieval/sharded.py``) in processes of its own, this script run
     as ``chip_smoke.py --multi-gpu-rank ...``: one rank over NCCL
@@ -287,12 +293,16 @@ K6 has no path; only its parity is checked.
 Every phase raises on failure.  The second-to-last line is the per-kernel
 JSON record (``launches`` summed over the paths, split in
 ``launches_by_path``; K1-K4's [widths] launches by instance in
-``launches_by_instance_in_widths``, their timings under ``widths``;
-``bound_ms`` / ``bound_by`` computed from this run's inputs by ``bound``; ``library_ms`` the yardstick for part of the work
-where there is one: cuDNN's convs for K3's, K6's and P1's conv phases
-and K2's and P2's down0 GEMM, ``F.max_pool2d`` for K5; null for the
-kernels no single PyTorch call computes), the last
-line ``{"ok": true, "device": {...}}``.
+``launches_by_instance_in_widths``, their timings under ``widths``; then
+one row per instance [widths] launched, named ``kernel/instance``, with
+its own source, its launches in [widths] and [widths lone] and the times
+of its first launch alone; ``bound_ms`` / ``bound_by`` computed from this
+run's inputs by ``bound``; ``library_ms`` the yardstick for part of the
+work where there is one: cuDNN's convs for K3's, K6's and P1's conv
+phases, K2's and P2's down0 GEMM and K4's window+zband (conv0 on the
+dense fold and down0), ``F.max_pool2d`` for K5; null for the kernels no
+single PyTorch call computes), the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -403,6 +413,7 @@ SM90_KERNELS = {"zband K2 down0": "zband_sm90_kernelILi1ELb1ELi0E",
                 "K6 conv phase 2": "conv3x3_sm90_kernelILi3E",
                 "K2 down0 GEMM": "down0_sm90_kernel",
                 "K4 fused head": "head_sm90_kernel",
+                "K4 window conv0": "head_conv0_sm90_kernel",
                 "P2 concat GEMM": "down_concat_sm90_kernel",
                 **{f"P1 conv phase {ph + 1} chunk {ch}":
                    f"p1_sm90_kernelILi{ch}ELi{ph}E"
@@ -464,43 +475,75 @@ def queued_ms(fn, n: int = 10) -> float:
 
 def device_ms(fn, n: int = 50) -> float:
     """Mean device time per call of ``fn``'s kernels (``torch.profiler``
-    over ``n`` calls after one warm-up): for a kernel shorter than the
-    host's enqueue of one call, whose CUDA-event timings are the host's."""
+    over up to ``n`` calls after one warm-up): for a kernel shorter than
+    the host's enqueue of one call, whose CUDA-event timings are the
+    host's.  The calls are as many as fit PROFILE_SPAN_MS by CUDA
+    events, at least 3 (the tracer drops more events in longer profiles),
+    and of several profiles the one with the most device events is read
+    (``profile_calls``)."""
     fn()
     torch.cuda.synchronize()
+    per_call = cuda_ms(fn, warmup=0, iters=3)
+    n = max(3, min(n, int(PROFILE_SPAN_MS / max(per_call, 1e-3))))
     return profiled_ms(profile_calls(fn, n)) / n
 
 
-# a profile that recorded no device activity at all (the tracer failed,
-# not the calls: once in a whole smoke on an H100) is taken again, this
-# many times in all
-PROFILE_TRIES = 3
+# A profile may record fewer device events than its calls launched: the
+# tracer drops some (once in a whole smoke on an H100 none at all; the lone
+# K3's 12.8 ms read 5.5-9.0; 50 calls of one kernel gave 21, 45 and 50
+# events; 5 calls of a cuDNN conv 30, 9, 30, 9, ...; every other profile
+# may record nothing: 0, 13, 0, 13), and no count taken in other profiles
+# is a yardstick (5 calls of the P2 probe gave 65 events, then 62 four
+# times; two profiles may agree on a partial count).  Dropping only takes
+# events away, so of PROFILE_TRIES profiles the one with the most device
+# events is read, each let settle PROFILE_SETTLE_S before it stops;
+# ``device_ms`` keeps a profile's calls to about PROFILE_SPAN_MS (the
+# drops above came in profiles of 10-35 ms).
+PROFILE_TRIES, PROFILE_SETTLE_S, PROFILE_SPAN_MS = 4, 0.05, 5.0
+
+
+def profile_once(fn, n: int):
+    """The ``torch.profiler`` run (device activity) of ``n`` calls of
+    ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+    return prof
+
+
+def device_events(prof) -> int:
+    """The device events (kernels, copies, fills) a profile recorded."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def profile_calls(fn, n: int):
-    """The ``torch.profiler`` run (device activity) of ``n`` calls of
-    ``fn``, taken again while it recorded no device time, up to
-    ``PROFILE_TRIES`` times in all; then it raises."""
-    from torch.profiler import ProfilerActivity, profile
+    """Of PROFILE_TRIES profiles of ``n`` calls of ``fn``, the one with the
+    most device events (none of the others holds an event it lacks, as far
+    as counts tell: the tracer only drops); raises if it has no device
+    time."""
+    profs = [profile_once(fn, n) for _ in range(PROFILE_TRIES)]
+    counts = [device_events(p) for p in profs]
+    best = profs[counts.index(max(counts))]
+    if profiled_total(best) <= 0:
+        raise RuntimeError(f"none of {PROFILE_TRIES} profiles of {n} calls "
+                           f"recorded device time: {counts} device events")
+    return best
 
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        try:
-            profiled_ms(prof)
-            return prof
-        except RuntimeError:
-            pass
-    raise RuntimeError(f"the profiler recorded no device time in "
-                       f"{PROFILE_TRIES} tries")
+
+def profiled_total(prof) -> float:
+    """Device microseconds of every event a profile recorded."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def profiled_ms(prof) -> float:
     """Device ms of every kernel a ``torch.profiler`` run recorded."""
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    total = profiled_total(prof)
     if total <= 0:
         raise RuntimeError("the profiler recorded no device time")
     return total / 1e3
@@ -4359,9 +4402,10 @@ def phase_flags(dev):
 # Five configurations of kitti360_config() (bf16, 256 px, 128 x 128 x z)
 # that together reach every instance the presets do not: W1, the default
 # route at z = 5 with a 1024-wide fusion (K2 at 320 -> 192 on the z-banded
-# instance, K3 at z = 3, K1 at D = 1024, W streamed); W2, the fused route
+# instance, K3 at z = 3, K1 at D = 1024 on its grid instance); W2, the
+# fused route
 # at z = 6 with planes (24, 128) and a 128-wide fusion (K4 at Z*C0 = 6 on
-# its igemm+zband instance, K3 at C = 24 and 24 -> 128, K1 at D = 128);
+# its window+zband instance, K3 at C = 24 and 24 -> 128, K1 at D = 128);
 # W3, z = 32 (K2 at Z*C1 = 2048 -> 1024); W4, the default route at z = 72
 # with planes (60, 128, 256) (K2 at Z*C1 = 4320 -> 2160, C1 = 60: every
 # slab padded; K3's block0 at z = 36, C = 60); W5, the fused route at z =
@@ -4391,9 +4435,10 @@ WIDTHS_CONFIGS = (
 WIDTHS_CPU_Q = 1  # queries each configuration's card run is held to on CPU
 # [widths]' lone launches: K3 at Z*C > 4096 (z = 20, C = 212: its CPU run
 # would cost ~1.3 TFLOP a conv a query), b8 on 64 x 64, identity residual;
-# K1's wide instance at D = 1536 and 2048, b32
+# K1's grid instance at D = 1024, 1536 and 2048 and its wide one at 3072,
+# b32
 LONE_K3 = dict(z=20, c=212, b=8, xy=64)
-LONE_K1 = (1536, 2048)
+LONE_K1 = (1024, 1536, 2048, 3072)
 
 
 class rules_replay:
@@ -4506,10 +4551,14 @@ def k2_zband_alone(a, z):
         lambda: F.conv2d(h, wc, stride=2))
 
 
-def k4_zband_alone(a, z):
-    """K4's igemm+zband instance alone: its pad (``bev_head.pad_head``),
-    conv0 (the wmma GEMM) and the z-banded down0 on conv0's output, each
-    timed, beside cuDNN's down0 on the same map."""
+def k4_window_alone(a, z):
+    """K4's window+zband instance alone, each half on its padded operands:
+    the pad (``bev_head.pad_head``); conv0 on the window GEMM
+    (``head_conv0``) by events and by device, held to its plain form,
+    beside its bound (the fold's live blocks, feats and h once) and
+    cuDNN's conv0 on the dense fold (``F.conv2d`` of feats with w0, bf16,
+    channels_last: the conv alone, no epilogue); the z-banded down0 on
+    conv0's output beside cuDNN's down0 on the same map."""
     import torch.nn.functional as F
     from agplace_tpu_torch.data.voxels import me_down_align
     from agplace_tpu_torch.ops import bev_head, zband
@@ -4518,21 +4567,51 @@ def k4_zband_alone(a, z):
     feats, mask, w0, s0, b0, wd, sd, bd = stage0_inputs(a, a[1])
     lo_z, hi_z, _ = me_down_align(z)
     m_out = bg.mask_down(mask, (0, 0), (0, 0), (lo_z, hi_z)).contiguous()
+    k0 = int(w0.shape[0])
 
     def pad():
         return bev_head.pad_head(w0, s0, b0, wd, sd, bd, z=z)
 
     w0p, s0p, b0p, wdp, sdp, bdp = pad()
     h = bev_head.head_conv0(feats, mask, w0p, s0p, b0p, z=z)
+    shape = f"[{h.shape[0]},{h.shape[1]},{h.shape[2]},{z}]"
+    want = bg.bev_conv2d(feats.float(), w0p.float(), 1, (k0 // 2,) * 2,
+                         (k0 // 2,) * 2, torch.float32)
+    want = bg.mask_bev(torch.relu(want * s0p + b0p), mask, z).to(
+        torch.bfloat16)
+    cmp = compare(f"K4 window conv0 {shape}", h, want, KSTAGE0_TOL)
     hc = h.permute(0, 3, 1, 2)
     wc = wdp.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     rec = instance_alone(
-        f"K4 zband down0 [{h.shape[0]},{h.shape[1]},{h.shape[2]},{z}]",
+        f"K4 zband down0 {shape}",
         lambda: zband.zband_conv(zband.INST_K4_DOWN, h, wdp, sdp, bdp, m_out,
                                  z), pad, lambda: F.conv2d(hc, wc, stride=2))
-    rec["conv0_ms"] = cuda_ms(lambda: bev_head.head_conv0(
-        feats, mask, w0p, s0p, b0p, z=z))
-    log(f"  K4 conv0 (wmma) alone: {rec['conv0_ms']:.4f} ms")
+
+    def conv0():
+        return bev_head.head_conv0(feats, mask, w0p, s0p, b0p, z=z)
+
+    fc = feats.permute(0, 3, 1, 2)
+    w0c = w0.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+    def cudnn():
+        return F.conv2d(fc, w0c, padding=k0 // 2)
+
+    cells = feats.shape[0] * feats.shape[1] * feats.shape[2]
+    bnd = bound(conv_flops(cells, w0, z, z),
+                nbytes(feats, mask, s0, b0) + fold_bytes(w0, z, z)
+                + cells * int(w0.shape[3]) * 2)
+    c0 = dict(ms=cuda_ms(conv0), device_ms=device_ms(conv0),
+              cudnn_ms=cuda_ms(cudnn), cudnn_device_ms=device_ms(cudnn),
+              max_abs_err=cmp["max_abs_err"],
+              frac_differ=cmp["frac_differ"], **bnd)
+    c0["share_of_bound"] = bnd["bound_ms"] / c0["device_ms"]
+    log(f"  K4 window conv0 alone {shape}: {c0['ms']:.4f} ms "
+        f"({c0['device_ms']:.4f} ms of device time), bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), share "
+        f"{c0['share_of_bound']:.3f}; cuDNN's conv0 on the dense fold "
+        f"{c0['cudnn_ms']:.4f} ms ({c0['cudnn_device_ms']:.4f} ms device)")
+    rec["conv0"] = c0
     return rec
 
 
@@ -4596,8 +4675,15 @@ def widths_alone(name, inst, a, k):
             f"plain {pms:.4f} ms")
         return rec
     head = head_alone(a, mask, z)
-    head.update(shape=[*a[0].shape, int(a[5].shape[3])], library_ms=None,
-                zo=me_down_align(z)[2], down0=k4_zband_alone(a, z))
+    halves = k4_window_alone(a, z)
+    head.update(shape=[*a[0].shape, int(a[5].shape[3])],
+                library_ms=halves["conv0"]["cudnn_ms"]
+                + halves["cudnn_ms"],
+                library_ms_is="cuDNN's conv0 on the dense fold and its "
+                              "down0, each alone, no epilogues (a yardstick "
+                              "for both convs)",
+                zo=me_down_align(z)[2], conv0=halves.pop("conv0"),
+                down0=halves)
     return head
 
 
@@ -4605,8 +4691,11 @@ def phase_widths_lone(dev):
     """[widths] lone launches, each against its plain version on the card:
     K3 at z = 20, C = 212 (Z*C = 4240 past 4096; its CPU run would cost
     ~1.3 TFLOP a conv a query): one conv phase of each kind and one whole
-    block, timed as [widths]' instances are; K1 at D = 1536 and 2048
-    (its wide instance), b32."""
+    block, timed as [widths]' instances are; K1 at D = 1024, 1536 and
+    2048 (its grid instance) and 3072 (its wide one), b32.  Returns the
+    records and the launches of each instance (each lone launch counted
+    from 0, the timing calls not)."""
+    from agplace_tpu_torch import ops
     from agplace_tpu_torch.ops import bev_block_sm, ode_step
     from agplace_tpu_torch.sparse.bev_grid import fold_w2_stride1
 
@@ -4630,13 +4719,26 @@ def phase_widths_lone(dev):
     args = (x, mask, fold(), fold(), *affine(), *affine(),
             torch.randn(5, generator=g, device=dev))
     label = f"[widths lone] K3 [{bsz},{xy},{xy},{z * c}] z={z} C={c}"
+    counts = {}
+
+    def count(by_kernel):
+        for k, by in by_kernel.items():
+            for i, n in by.items():
+                if n:
+                    counts.setdefault(k, {}).setdefault(i, 0)
+                    counts[k][i] += n
+
     with torch.inference_mode():
+        ops.reset_launches()  # ---- the lone launch, counted
         got = bev_block_sm.fused_eca_block_sm(*args, z=z)
+        torch.cuda.synchronize()
+        count(ops.instance_launches())
         cmp = compare(f"{label} block", got,
                       bev_block_sm.eca_block_plain(*args, z=z), KBF16_TOL)
         k3 = widths_alone("fused_eca_block_sm", bev_block_sm.block_instance(
             z * c, z * c, z), args, dict(z=z))
-        k3.update(max_abs_err=cmp["max_abs_err"],
+        k3.update(instance=bev_block_sm.block_instance(z * c, z * c, z),
+                  max_abs_err=cmp["max_abs_err"],
                   frac_differ=cmp["frac_differ"])
         k1 = {}
         for d in LONE_K1:
@@ -4644,13 +4746,16 @@ def phase_widths_lone(dev):
             wd = torch.randn(d, d, generator=g, device=dev) / d ** .5
             bd = torch.randn(d, generator=g, device=dev) * 0.1
             a = (xd, wd, bd, 10, 0.1, "relu")
-            cmp = compare(f"[widths lone] K1 [32,{d}]",
-                          ode_step.fused_euler_ode(*a),
+            ops.reset_launches()  # ---- the lone launch, counted
+            got = ode_step.fused_euler_ode(*a)
+            torch.cuda.synchronize()
+            count(ops.instance_launches())
+            cmp = compare(f"[widths lone] K1 [32,{d}]", got,
                           ode_step.euler_ode_plain(*a), K1_TOL)
-            k1[f"D{d}"] = widths_alone("fused_euler_ode",
-                                       ode_step.ode_instance(32, d), a, {})
-            k1[f"D{d}"].update(max_abs_err=cmp["max_abs_err"])
-    return {"fused_eca_block_sm": k3, "fused_euler_ode": k1}
+            inst = ode_step.ode_instance(32, d)
+            k1[f"D{d}"] = widths_alone("fused_euler_ode", inst, a, {})
+            k1[f"D{d}"].update(instance=inst, max_abs_err=cmp["max_abs_err"])
+    return {"fused_eca_block_sm": k3, "fused_euler_ode": k1}, counts
 
 
 def phase_widths(base, dev):
@@ -4715,10 +4820,61 @@ def phase_widths(base, dev):
         del mm, cpu_mm, out, keep, vox
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    lone = phase_widths_lone(dev)
-    log(f"  [widths lone] {time.perf_counter() - t0:.1f} s")
+    lone, lone_counts = phase_widths_lone(dev)
+    log(f"  [widths lone] launches by instance {lone_counts}; "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    return out_counts, records, lone
+    return out_counts, records, lone, lone_counts
+
+
+# The source of each instance K1-K4 run off their preset ones
+INSTANCE_SOURCES = {
+    ("fused_euler_ode", "grid"): "agplace_tpu_torch/csrc/ode_grid.cu",
+    ("fused_euler_ode", "wide"): "agplace_tpu_torch/csrc/ode_wide.cu",
+    ("fused_conv0_down0", "zband"): "agplace_tpu_torch/csrc/zband_sm90.cu",
+    ("fused_eca_block_sm", "zband"): "agplace_tpu_torch/csrc/zband_sm90.cu",
+    ("fused_eca_block_sm", "zband+sm90"):
+        "agplace_tpu_torch/csrc/zband_sm90.cu",
+    ("fused_head", "window+zband"):
+        "agplace_tpu_torch/csrc/head_conv0_sm90.cu",
+}
+
+
+def instance_rows(parity, widths, instances_w, lone_counts, sources):
+    """The kernels line's row of each instance of INSTANCE_SOURCES that
+    [widths] launched (its MM forwards, then its lone launches): launches
+    by path, the times, bound and library call of the first record of it
+    alone, its worst error against its plain version where it ran."""
+    rows = []
+    for (k, inst), src in INSTANCE_SOURCES.items():
+        n_w = (instances_w.get(k) or {}).get(inst, 0)
+        n_l = lone_counts.get(k, {}).get(inst, 0)
+        if not n_w + n_l:
+            continue
+        alone, err = None, 0.0
+        for label, rec in widths.items():
+            if (rec["instances"].get(k) or {}).get(inst):
+                alone = alone or rec["alone"].get(f"{k}/{inst}")
+                err = max(err, rec["worst"].get(k) or 0.0)
+        lone = parity[k].get("widths", {}).get("lone", {})
+        lone = lone.values() if k == "fused_euler_ode" else [lone]
+        for rec in lone:
+            if rec.get("instance") == inst:
+                alone = alone or rec
+                err = max(err, rec["max_abs_err"])
+        if alone is None:
+            raise AssertionError(f"[widths] {k}/{inst} ran but was never "
+                                 f"timed alone")
+        rows.append(dict(
+            name=f"{k}/{inst}", route="cuda", source=src,
+            replaces=sources[k][1], launches=n_w + n_l,
+            launches_by_path={"widths": n_w, "widths_lone": n_l},
+            max_abs_err=err, ms=alone["ms"], plain_ms=alone["plain_ms"],
+            bound_ms=alone["bound_ms"], bound_by=alone["bound_by"],
+            library_ms=alone.get("library_ms"),
+            **{x: alone[x] for x in ("device_ms", "library_ms_is",
+                                     "conv0", "shape") if x in alone}))
+    return rows
 
 
 MG_WORLD = 2  # gloo ranks sharing cuda:0
@@ -5288,7 +5444,7 @@ def main() -> None:
     counts_tl = phase_tail(cfg, dev, name, mm)
     phase_flags(dev)
     # ---- K1-K4 off the preset widths: W1-W3
-    widths_counts, widths, lone = phase_widths(cfg, dev)
+    widths_counts, widths, lone, lone_counts = phase_widths(cfg, dev)
     counts_w = {k: sum(c[k] for c, _ in widths_counts) for k in counts}
     instances_w = {}
     for _, inst in widths_counts:
@@ -5382,6 +5538,8 @@ def main() -> None:
                     **{x: parity[k][x] for x in RECORD_KEYS
                        if x in parity[k]})
                for k, (src, rep) in sources.items()]
+    kernels += instance_rows(parity, widths, instances_w, lone_counts,
+                             sources)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of wall time "
         f"(after imports)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,10 +4,10 @@ These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one; on the card run ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -m cuda``.  The file
 imports no JAX, so it runs on a machine that has only the port's stack.
-Shapes are small.  K1-K4 take every width of the MM's flag space (z up to
-32, C a multiple of 8, Z*C up to 4096; K1 any D up to 1024), each width on
-the instance its wrapper's rule picks; the other kernels keep their tile
-constraints (folded channel widths in multiples of 32).
+Shapes are small.  K1-K4 take every width of the MM's flag space (any z,
+C and Z*C; K1 any D up to 27136), each width on the instance its
+wrapper's rule picks; the other kernels keep their tile constraints
+(folded channel widths in multiples of 32).
 """
 
 import copy
@@ -116,11 +116,11 @@ def test_k1_kernel_matches_plain_at_batches(cuda, batch, act):
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", ["relu", "sigmoid"])
 @pytest.mark.parametrize("dim", [1, 100, 128, 384, 512, 600, 1024, 1025,
-                                 1536, 2048])
+                                 1536, 2048, 2176, 3072])
 def test_k1_kernel_matches_plain_off_the_preset_width(cuda, dim, act):
     """D other than the presets' 256: the resident instance up to 512, the
-    streamed one up to 1024, the wide one above, D padded to a multiple of
-    128 with zeros (the
+    grid one up to 2176, the wide one above (3072), D padded to a multiple
+    of 128 with zeros (the
     sigmoid moves the padded columns off 0; W's zero rows keep them out of
     the real sums)."""
     g = _gen()
@@ -234,7 +234,7 @@ def test_stage0_kernels_match_plain_off_their_tiles(cuda, kernel, z, c1,
     inst = (bev_down.down0_instance(zc1, zc2, z) if kernel == "k2" else
             bev_head.head_instance(z, k0, zc1, zc2, z))
     assert inst == ("sm90" if (kernel, z, c1) == ("k2", 6, 32) else
-                    "zband" if kernel == "k2" else "igemm+zband")
+                    "zband" if kernel == "k2" else "window+zband")
     ops.reset_launches()
     with torch.inference_mode():
         got, m1 = fn(*args, z=z)
@@ -410,6 +410,64 @@ def test_k4_kernel_matches_plain_on_wider_maps(cuda, z, b, xy, k0, c1):
     mf = m1.repeat_interleave(c1, dim=-1)
     assert bool((got[~mf] == 0).all()) and bool((got != 0).any())
     assert bev_head.fused_head.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z,c1,b,xy,k0", [(6, 24, 2, 32, 5),
+                                          (40, 108, 1, 32, 5),
+                                          (6, 24, 1, 20, 3),
+                                          (40, 108, 1, 16, 1)])
+def test_k4_window_conv0_matches_plain_at_the_widths(cuda, z, c1, b, xy, k0):
+    """K4 off its sm90 tiles at the stage-0 widths of [widths]' W2 (z = 6,
+    C1 = 24: every window fits 8 channels, two taps an MMA step) and W5 (z
+    = 40, C1 = 108 -> 112: windows of two 8-channel blocks) on smaller
+    maps, k0 = 5, 3 and 1: conv0 alone (``head_conv0``, the window GEMM)
+    against its plain form, and the whole head against ``head_plain``."""
+    from agplace_tpu_torch.sparse import bev_grid as bg
+
+    args = _stage0_args(_gen(), b, xy, c1, cuda, k0, z=z)
+    feats, mask = args[:2]
+    assert bev_head.head_instance(z, k0, z * c1, me_down_align(z)[2] * c1,
+                                  z) == "window+zband"
+    w0, s0, b0 = bev_head.pad_head(*args[2:], z=z)[:3]
+    ops.reset_launches()
+    with torch.inference_mode():
+        h = bev_head.head_conv0(feats, mask, w0, s0, b0, z=z)
+        hw = bg.bev_conv2d(feats.float(), w0.float(), 1, (k0 // 2,) * 2,
+                           (k0 // 2,) * 2, torch.float32)
+        hw = bg.mask_bev(torch.relu(hw * s0 + b0), mask, z).to(torch.bfloat16)
+        got, m1 = bev_head.fused_head(*args, z=z)
+        want, m2 = bev_head.head_plain(*args, z=z)
+    c18 = w0.shape[3] // z
+    assert not h.reshape(b, xy, xy, z, c18)[..., c1:].any()
+    _close_bf16(h, hw, STAGE0_FRAC_DIFFER)
+    assert torch.equal(m1, m2)
+    _close_bf16(got, want, STAGE0_FRAC_DIFFER)
+    assert bev_head.fused_head.instances["window+zband"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("batch", [1, 32, 128])
+@pytest.mark.parametrize("dim", [520, 1024, 2048])
+def test_k1_grid_kernel_matches_plain(cuda, dim, batch, act):
+    """K1's grid instance (W across the shared memory of 128 co-resident
+    blocks in groups of 4, two barriers a step) against its plain
+    version: D = 520 (padded to 640: bands of 20 columns, 5 finished by
+    each block), 1024 and 2048, B = 1, 32 and 128 (four row tiles)."""
+    g = _gen()
+    x = torch.randn(batch, dim, generator=g).to(cuda)
+    w = (torch.randn(dim, dim, generator=g) / dim ** .5).to(cuda)
+    b = (torch.randn(dim, generator=g) * 0.1).to(cuda)
+    assert ode_step.ode_instance(batch, dim) == "grid"
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = ode_step.fused_euler_ode(x, w, b, 10, 0.1, act)
+        again = ode_step.fused_euler_ode(x, w, b, 10, 0.1, act)
+        want = ode_step.euler_ode_plain(x, w, b, 10, 0.1, act)
+    torch.testing.assert_close(got, want, **K1_TOL)
+    assert torch.equal(got, again)  # a fixed summation order
+    assert ode_step.fused_euler_ode.instances["grid"] == 2
 
 
 # K5: the stem shapes at b32 and b128 (256 px images), a ragged last band

@@ -89,36 +89,48 @@ def test_k1_tiling_covers_every_row_and_column_once(batch):
 def _replay_k1_blocks(t, batch, dim):
     """Every (row, column < dim) of the padded state [B, t.dim] is computed
     and written by exactly one block; the padded columns only by blocks
-    that also hold real ones or none."""
+    that also hold real ones or none.  Cluster instances: a cluster's
+    blocks share its rows and split W's columns evenly; the grid instance:
+    every block all rows."""
     assert t.dim % ode_step.DIM_STEP == 0 and dim <= t.dim < dim + 128
     seen = np.zeros((batch, t.dim), np.int64)
+    grid = isinstance(t, ode_step.OdeGridTiling)
     for blk in range(t.grid):
         rows, cols = ode_step.ode_block(t, blk, batch)
-        assert len(cols) == t.dim // t.cluster
-        same = ode_step.ode_block(t, blk - blk % t.cluster, batch)[0]
-        assert rows == same  # the cluster's rows
+        if grid:
+            assert rows == range(batch) and len(cols) == t.band // 4
+        else:
+            assert len(cols) == t.dim // t.cluster
+            same = ode_step.ode_block(t, blk - blk % t.cluster, batch)[0]
+            assert rows == same  # the cluster's rows
         seen[rows.start:rows.stop, cols.start:cols.stop] += 1
     assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("batch,dim", [(32, 128), (32, 512), (33, 1),
                                        (33, 100), (5, 600), (33, 1024),
-                                       (32, 1025), (32, 2048), (3, 7000),
-                                       (3, 7100), (2, 27136)])
+                                       (32, 1025), (32, 2048), (3, 2176),
+                                       (3, 2177), (3, 7000), (3, 7100),
+                                       (2, 27136)])
 def test_k1_tiling_takes_every_width(batch, dim):
-    """Any D, each on its instance (W resident up to 512, streamed up to
-    1024, the wide instance above, 4, 2 or 1 rows a cluster as its shared
-    memory allows), padded to a multiple of 128: ``ode_block``'s replay
-    covers every row and column once at the padded width."""
+    """Any D, each on its instance (W resident in a cluster up to 512,
+    across the grid up to GRID_MAX_DIM = 2176, the wide instance above, 4,
+    2 or 1 rows a cluster as its shared memory allows), padded to a
+    multiple of 128: ``ode_block``'s replay covers every row and column
+    once at the padded width."""
     t = ode_step.ode_tiling(batch, dim)
-    assert t.resident == (dim <= 512)
     inst = ("resident" if dim <= 512 else
-            "streamed" if dim <= 1024 else "wide")
+            "grid" if dim <= 2176 else "wide")
     assert ode_step.ode_instance(batch, dim) == inst
-    rows = 4 if inst != "wide" else ode_step.wide_rows(t.dim)
-    assert rows == (4 if dim <= 7040 else 2 if dim <= 13952 else 1)
-    assert t.args() == (t.dim, int(t.resident), rows, 8, -(-batch // rows),
-                        -(-batch // rows) * 8)
+    if inst == "grid":
+        assert t.args() == (t.dim, t.dim // 32, t.dim // 4, 128,
+                            min(8, -(-batch // 4)))
+    else:
+        assert t.resident == (dim <= 512)
+        rows = 4 if inst != "wide" else ode_step.wide_rows(t.dim)
+        assert rows == (4 if dim <= 7040 else 2 if dim <= 13952 else 1)
+        assert t.args() == (t.dim, int(t.resident), rows, 8,
+                            -(-batch // rows), -(-batch // rows) * 8)
     _replay_k1_blocks(t, batch, dim)
 
 

@@ -10,9 +10,11 @@ give the k2s2 down0 conv, K4's halo + im2col replay conv0's im2col and
 conv0 itself at every parity.  At the widths the sm90 tiles do not take,
 K2's down0 and K4's down0 half run the z-banded GEMM of
 ``csrc/zband_sm90.cu`` (replayed by ``test_torch_port_zband.replay_zband``)
-and K4's conv0 the wmma implicit GEMM of ``csrc/conv_igemm.cuh``, whose
-gather (``ops/widths.igemm_a_source`` over ``igemm_grid``'s blocks) is
-replayed the same way.  The shape rules name the instance each width
+and K4's conv0 the window GEMM of ``csrc/head_conv0_sm90.cu`` (replayed by
+``test_torch_port_zband.replay_conv0``); the wmma implicit GEMM of
+``csrc/conv_igemm.cuh`` that K3's 1x1 residual and K6's narrow conv
+phases run is replayed the same way (``ops/widths.igemm_a_source`` over
+``igemm_grid``'s blocks).  The shape rules name the instance each width
 runs, raise with a message on shapes no z-fold gives, and the plain
 versions keep their results.
 """
@@ -503,19 +505,17 @@ def test_k4_shape_rule_raises(zc0, k0, zc1, zc2, z, match):
     (40, 1, 4320, 2160, 40),  # k0 = 1, z = 40, C1 = 108, Z*C1 = 4320
 ])
 def test_k4_shape_rule_takes(zc0, k0, zc1, zc2, z):
-    """Widths K4's sm90 tiles refuse run on IGEMM_ZBAND: conv0 (any Z*C0,
-    element by element at Z*C0 not a multiple of 8) replayed through the
-    wmma gather, down0 through the z-banded schedule, are the convs
-    exactly (conv0's output slabs padded to a multiple of 8 channels)."""
-    from tests.test_torch_port_zband import replay_zband
+    """Widths K4's sm90 tiles refuse run on WINDOW_ZBAND: conv0 (any Z*C0,
+    its K loop over each tile's window of live input channels) replayed
+    through the window GEMM's schedule, down0 through the z-banded one,
+    are the folded convs exactly (conv0's output slabs padded to a
+    multiple of 8 channels)."""
+    from tests.test_torch_port_zband import replay_conv0, replay_zband
 
     assert bev_head.check_head_args(8, 4, zc0, k0, zc1, zc2,
-                                    z) == "igemm+zband"
-    c18 = widths.c_step(zc1 // z)
+                                    z) == "window+zband"
     if zc0 * zc1 <= 1 << 22:
-        _replay_igemm(_ints((1, 8, 4, zc0), 2),
-                      widths.pad_fold(_ints((k0, k0, zc0, zc1), 3), 1, zc0,
-                                      z, c18), 1, k0 // 2)
+        replay_conv0(1, 8, 4, z, zc0 // z, zc1 // z, k0)
     replay_zband("k2s2", 1, 8, 4, z, zc1 // z,
                  zc2 // bev_down.me_down_align(z)[2])
 
@@ -579,6 +579,6 @@ def test_k4_rule_takes_the_wider_widths(zc0, zc2):
     for zc1, z in ((64, 1), (128, 2), (192, 3), (256, 4), (256, 2)):
         bev_head.check_head_args(20, 20, 4, 5, zc1, 128, z)
     assert bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 64,
-                                    16) == "igemm+zband"
+                                    16) == "window+zband"
     with pytest.raises(ValueError, match=NO_FOLD):
         bev_head.check_head_args(32, 32, zc0, 5, 1024, zc2 + 4, 16)

@@ -28,18 +28,20 @@ torch.set_num_threads(2)
 
 # ------------------------------------------------------------- the rules
 def test_rules_walk_the_whole_grid():
-    """Every point gets an instance from its rule: K1 at D = 1 .. 2048 and
-    at the wide instance's last widths (and B = 1 .. 129); K3, K2 and K4
+    """Every point gets an instance from its rule: K1 at D = 1 .. 2304 (the
+    grid instance's last width and the wide instance's first) and at the
+    wide instance's last widths (and B = 1 .. 129); K3, K2 and K4
     at every z up to 72 with per-z widths C = 1 .. 64 (and some wider),
     Z*C past 4096 included; the sm90 instances exactly where their tiles
     divide and C is a multiple of 8, the z-banded one everywhere else."""
-    for dim in (*range(1, 2049), 27135, 27136):
+    for dim in (*range(1, 2305), 27135, 27136):
         assert ode_step.ode_instance(33, dim) == (
             "resident" if dim <= 512 else
-            "streamed" if dim <= 1024 else "wide")
+            "grid" if dim <= 2176 else "wide")
         t = ode_step.ode_tiling(33, dim)
         assert t.dim == -(-dim // 128) * 128
-        assert t.rows == (4 if dim <= 1024 else ode_step.wide_rows(t.dim))
+        assert t.rows == (4 if dim <= 512 else 32 if dim <= 2176 else
+                          ode_step.wide_rows(t.dim))
     for batch in range(1, 130):
         assert ode_step.ode_instance(batch, 256) == "resident"
     for z in (*range(1, 41), 64, 72):
@@ -57,8 +59,8 @@ def test_rules_walk_the_whole_grid():
                                else "zband")
                 for k0 in (3, 5):
                     head = bev_head.head_instance(z, k0, zc1, zc2, z)
-                    assert (head == "igemm+zband") == (z not in (4, 8, 16)
-                                                       or got == "zband")
+                    assert (head == "window+zband") == (z not in (4, 8, 16)
+                                                        or got == "zband")
 
 
 @pytest.mark.parametrize("rule,args,match", [
@@ -77,9 +79,10 @@ def test_rules_raise_off_the_grid(rule, args, match):
 
 
 @pytest.mark.parametrize("rule,args,inst", [
-    (ode_step.ode_instance, (1, 1025), "wide"),
-    (ode_step.ode_instance, (32, 1536), "wide"),
-    (ode_step.ode_instance, (32, 2048), "wide"),
+    (ode_step.ode_instance, (1, 1025), "grid"),
+    (ode_step.ode_instance, (32, 1536), "grid"),
+    (ode_step.ode_instance, (32, 2048), "grid"),
+    (ode_step.ode_instance, (32, 2177), "wide"),
     (bev_block_sm.conv3x3_instance, (60, 64, 2), "zband"),       # C = 30
     (bev_block_sm.conv3x3_instance, (66, 66, 33), "zband"),      # z = 33
     (bev_block_sm.conv3x3_instance, (8192, 8192, 2), "sm90"),    # Z*C 8192
@@ -87,7 +90,7 @@ def test_rules_raise_off_the_grid(rule, args, match):
     (bev_block_sm.conv3x3_instance, (4240, 4240, 20), "zband"),  # C = 212
     (bev_down.down0_instance, (256, 60, 4), "zband"),            # C2 = 30
     (bev_down.down0_instance, (4320, 2160, 72), "zband"),        # W4's
-    (bev_head.head_instance, (40, 5, 4320, 2160, 40), "igemm+zband"),  # W5
+    (bev_head.head_instance, (40, 5, 4320, 2160, 40), "window+zband"),  # W5
 ])
 def test_rules_take_past_the_old_grid(rule, args, inst):
     """Widths the port refused before the z-banded instance (D > 1024, z >
@@ -105,3 +108,82 @@ def test_k3_narrow_conv_gather_is_the_conv(zci, zco):
 
     assert bev_block_sm.conv3x3_instance(zci, zco, 2) == "zband"
     replay_zband("s1", 2, 5, 9, 2, zci // 2, zco // 2)
+
+
+# ------------------------------------------- the smoke's device-time reader
+class _Event:
+    def __init__(self, count, us, cuda=True):
+        self.count, self.self_device_time_total = count, us
+        self.device_type = (torch.autograd.DeviceType.CUDA if cuda
+                            else torch.autograd.DeviceType.CPU)
+
+
+class _Profile:
+    def __init__(self, *events):
+        self.events = events
+
+    def key_averages(self):
+        return list(self.events)
+
+
+@pytest.mark.parametrize("counts,best", [
+    ((150, 150, 150, 150), 0),   # every profile whole
+    ((149, 150, 148, 150), 1),   # drops: the first whole one is read
+    ((0, 150, 0, 150), 1),       # every other profile recorded nothing
+    ((30, 9, 30, 9), 0),         # every other profile lost most
+    ((21, 45, 50, 45), 2),
+    ((65, 62, 62, 62), 0),       # the first holds a few more
+    ((0, 0, 0, 0), None),        # nothing recorded: it raises
+    ((3, 0, 0, 0), 0),
+])
+def test_device_ms_reads_only_a_profile_with_every_launch(monkeypatch,
+                                                          counts, best):
+    """``chip_smoke.device_ms`` reads, of PROFILE_TRIES profiles of the same
+    calls, the one with the most device events (the tracer only drops
+    events: none of the others holds one it lacks), and raises if that one
+    recorded no device time.  A stub profiler returns the profiles' event
+    counts in turn, each event 10 us, beside CPU events that never count;
+    the patterns are the card's (PERF.md section 7)."""
+    import chip_smoke
+
+    taken = []
+
+    def profile_once(fn, n):
+        got = counts[len(taken)]
+        taken.append(n)
+        return _Profile(_Event(got, 10.0 * got), _Event(7, 5.0, cuda=False))
+
+    monkeypatch.setattr(chip_smoke, "profile_once", profile_once)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    # a call of 0.1 ms by CUDA events: 50 calls fit the profile's 5 ms
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, **k: 0.1)
+    assert chip_smoke.PROFILE_TRIES == len(counts) == 4
+    if best is None:
+        with pytest.raises(RuntimeError, match="recorded device time"):
+            chip_smoke.device_ms(lambda: None, n=50)
+        return
+    assert chip_smoke.device_ms(lambda: None, n=50) == pytest.approx(
+        counts[best] * 0.01 / 50)
+    assert taken == [50] * 4
+
+
+@pytest.mark.parametrize("per_call,calls", [(0.01, 50), (0.1, 50),
+                                            (0.7, 7), (12.8, 3)])
+def test_device_ms_keeps_its_profiles_short(monkeypatch, per_call, calls):
+    """``chip_smoke.device_ms`` profiles as many calls as fit
+    PROFILE_SPAN_MS by CUDA events, at most the ``n`` asked for, at least
+    3: the tracer dropped events in profiles of 10-35 ms on the card."""
+    import chip_smoke
+
+    taken = []
+
+    def profile_once(fn, n):
+        taken.append(n)
+        return _Profile(_Event(n, 10.0 * n))
+
+    monkeypatch.setattr(chip_smoke, "profile_once", profile_once)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, **k: per_call)
+    assert chip_smoke.PROFILE_SPAN_MS == 5.0
+    assert chip_smoke.device_ms(lambda: None, n=50) == pytest.approx(0.01)
+    assert taken == [calls] * chip_smoke.PROFILE_TRIES

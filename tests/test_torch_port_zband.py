@@ -40,6 +40,8 @@ from agplace_tpu_torch.ops.widths import (c_step, pad_fold, pad_slabs,
 from agplace_tpu_torch.sparse import bev_grid as bg
 from tests.test_torch_port_stage0 import _tma_box
 
+C0_N = bev_head.C0_BLOCK_N
+
 # two threads, as the train test files sorted before this one set them:
 # every xdist worker imports every test file, the last setting wins, and
 # the parallel train tests hold their two-thread worker processes
@@ -142,6 +144,116 @@ def replay_zband(fold, b, xd, yd, z, ci, co):
         ref = (want[..., o * c:(o + 1) * c] if dense
                else _conv3d_slab(fold, x, kern, z, o))
         assert torch.equal(slab[..., :c], ref), (fold, z, ci, co, o)
+
+
+def replay_conv0(b, xd, yd, z, c0, c1, k0):
+    """``conv0_tiling``'s schedule (K4's conv0 off its sm90 tiles, ``csrc/
+    head_conv0_sm90.cu``) over feats [b, xd, yd, z*c0] and the fold of a
+    [k0, k0, k0, c0, c1] kernel, output slabs padded to C1_8: per tile and
+    slice the halo boxes land in a flat image of the shared memory ([block]
+    [x][y][8 channels], NaN between the blocks), each MMA step's A operand
+    is read through the no-swizzle descriptor's addressing (LBO: one cell
+    with a pair of taps, else the next block; SBO: one halo row), B is the
+    two weight boxes.  The result must equal the dense folded conv
+    exactly, every output element written once, the padded channels
+    zero.  Returns the tiling."""
+    h = k0 // 2
+    kern = _ints((k0, k0, k0, c0, c1), 1)
+    c18 = c_step(c1)
+    w = pad_fold(bg.fold_w2_stride1(kern, z), 1, z * c0, z, c18)
+    x = _ints((b, xd, yd, z * c0), 0)
+    t = bev_head.conv0_tiling(b, xd, yd, k0, c0, z, c18, sms=132)
+    zc18 = z * c18
+    assert t.x_dims == (c_step(z * c0), yd, xd, b)
+    assert t.w_dims == (zc18, z * c0, k0, k0)
+    want = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                    padding=h).permute(0, 2, 3, 1)
+    xv = F.pad(x, (0, t.x_dims[0] - z * c0))  # the tensor map's view
+    yh, xh = t.x_box[1], t.x_box[2]
+    hs = -(-xh * yh * 16 // 128) * 128 // 16  # a block's stride, 16 B units
+    lbo, kk_n = (1, 1) if t.pair else (hs, t.sb // 2)
+    # element of (GEMM row 8 g + r, K column 8 kb + e) from a start of 0
+    g, r, kb, e = torch.meshgrid(*(torch.arange(n) for n in (8, 8, 2, 8)),
+                                 indexing="ij")
+    idx = ((g * yh + r + kb * lbo) * 8 + e).reshape(64, 16)
+    got = torch.full((b, xd, yd, zc18), float("nan"), dtype=x.dtype)
+    for tile in range(t.tiles):
+        bb, x0, y0, n0, a0 = bev_head.conv0_tile(t, tile)
+        lo, hi = bev_head.conv0_window(k0, c0, c18, z, n0)
+        assert a0 == lo - lo % 8 and hi - a0 <= 8 * t.nb
+        # the tile's output columns read no fold row outside its window
+        cols = slice(n0, n0 + C0_N)
+        assert not w[:, :, :lo, cols].any() and not w[:, :, hi:, cols].any()
+        acc = torch.zeros(128, C0_N, dtype=x.dtype)
+        for sl in range(t.nsl):
+            ch0 = a0 + 8 * t.sb * sl
+            halo = torch.full((t.sb, hs * 8), float("nan"), dtype=x.dtype)
+            for c in range(t.sb):
+                box = _tma_box(xv, (ch0 + 8 * c, y0 - h, x0 - h, bb),
+                               t.x_box)
+                halo[c, :xh * yh * 8] = box.reshape(-1)
+            halo = halo.reshape(-1)
+            for i in range(t.steps):
+                for dx, dy in bev_head.conv0_step(t, i):
+                    wb = torch.cat([_tma_box(w, (n0 + 64 * half, ch0, dy,
+                                                 dx), t.w_box).reshape(-1, 64)
+                                    for half in (0, 1)], dim=1)
+                    for wg in (0, 1):
+                        start = (8 * wg + dx) * yh + dy
+                        for kk in range(kk_n):
+                            a = halo[idx + (start + 2 * kk * hs) * 8]
+                            acc[64 * wg:64 * wg + 64] += (
+                                a @ wb[16 * kk:16 * kk + 16])
+        nx, ny = min(16, xd - x0), min(8, yd - y0)
+        ncol = min(C0_N, zc18 - n0)
+        region = got[bb, x0:x0 + nx, y0:y0 + ny, n0:n0 + ncol]
+        assert torch.isnan(region).all()  # each element once
+        region[:] = acc.reshape(16, 8, C0_N)[:nx, :ny, :ncol]
+    assert not got.reshape(b, xd, yd, z, c18)[..., c1:].any()
+    assert torch.equal(got, want), (z, c0, c1, k0)
+    return t
+
+
+@pytest.mark.parametrize("k0", [1, 3, 5])
+@pytest.mark.parametrize("c1", [5, 24, 108])
+@pytest.mark.parametrize("c0", [1, 3])
+@pytest.mark.parametrize("z", [1, 2, 3, 6, 40])
+def test_conv0_window_replay_is_the_folded_conv(z, c0, c1, k0):
+    """K4's conv0 off its sm90 tiles, replayed (``replay_conv0``) on 18 x
+    10 cells (ragged 16 x 8 patches; the halo reads zeros at every edge):
+    the dense folded conv exactly, with windows that clip at both z edges
+    (their boxes past Z*C0 read zeros), a pair of taps per MMA step where
+    every window fits 8 channels, up to 8 blocks (z = 40, C0 = 3, C1 = 5,
+    k0 = 5: 16 slabs a tile, 20 x 3 channels)."""
+    t = replay_conv0(1, 18, 10, z, c0, c1, k0)
+    assert t.pair == (t.nb == 1) and t.nsl == 1
+    assert t.nb == (8 if (z, c0, c1, k0) == (40, 3, 5, 5) else t.nb)
+    assert t.tg * t.steps == k0 * (-(-k0 // 2) if t.pair else k0)
+
+
+@pytest.mark.parametrize("z,c0,k0", [(12, 8, 5), (40, 5, 3)])
+def test_conv0_window_past_64_channels_is_sliced(z, c0, k0):
+    """A window wider than 64 channels (C0 = 8 and 5: 12 and 16 slabs of
+    C1_8 = 8 a tile) runs in slices of 8 blocks, each with its own halo,
+    one accumulator across them: still the folded conv exactly."""
+    t = replay_conv0(1, 18, 10, z, c0, 5, k0)
+    assert t.nb > 8 and (t.sb, t.nsl) == (8, 2)
+
+
+def test_conv0_k_loop_reads_the_window_not_the_fold():
+    """At W5's widths (z = 40, C0 = 1, C1 = 108 -> 112) a tile's K is 25
+    taps of 16 channels, not the dense fold's 25 x 40, five taps a ring
+    stage; at W2's (z = 6, C1 = 24) every window fits 8 channels: 15 MMA
+    steps of two taps, three a stage."""
+    w5 = bev_head.conv0_tiling(4, 128, 128, 5, 1, 40, 112, sms=132)
+    assert (w5.pair, w5.nb, w5.sb, w5.nsl, w5.tg, w5.steps) == (0, 2, 2, 1,
+                                                                 5, 5)
+    assert 16 * w5.tg * w5.steps * (w5.sb // 2) < 5 * 5 * 40
+    w2 = bev_head.conv0_tiling(32, 128, 128, 5, 1, 6, 24, sms=132)
+    assert (w2.pair, w2.nb, w2.tg, w2.steps, w2.w_box) == (1, 1, 3, 5,
+                                                           (64, 8, 2, 1))
+    assert (w2.x_dims, w2.x_box) == ((8, 128, 128, 32), (8, 13, 20, 1))
+    assert w2.tiles == 32 * 8 * 16 * 2 and w2.grid == 264
 
 
 @pytest.mark.parametrize("c", CS)
@@ -295,12 +407,14 @@ def test_pad_slabs_puts_the_zeros_at_each_slabs_end():
     assert pw.sum() == w.sum()
 
 
-# ---------------------------------------------------------------- K1 wide
+# ------------------------------------------------------- K1 past D = 512
 @pytest.mark.parametrize("dim", [1536, 2048])
 def test_k1_wide_plain_matches_pallas(dim):
-    """K1 above D = 1024 (the wide instance's widths): its plain version
-    against JAX's ``fused_euler_ode`` (interpreted), K1's fp32 tolerance;
-    the tiling takes the wide instance, 4 rows a cluster."""
+    """K1 at D = 1536 and 2048 (the grid instance's widths since it
+    replaced the wide one up to GRID_MAX_DIM): its plain version against
+    JAX's ``fused_euler_ode`` (interpreted), K1's fp32 tolerance; the
+    tiling takes the grid instance, 32 groups of 4 blocks, each group a
+    band of D / 32 columns, each block a quarter of its k range."""
     rng = np.random.default_rng(dim)
     x = rng.standard_normal((3, dim)).astype(np.float32)
     w = (rng.standard_normal((dim, dim)) / np.sqrt(dim)).astype(np.float32)
@@ -308,12 +422,56 @@ def test_k1_wide_plain_matches_pallas(dim):
     want = jax_ode.fused_euler_ode(jnp.asarray(x), jnp.asarray(w),
                                    jnp.asarray(b), 10, 0.1, "relu")
     t = ode_step.ode_tiling(3, dim)
-    assert ode_step.ode_instance(3, dim) == "wide"
-    assert (t.dim, t.resident, t.rows, t.tiles, t.grid) == (dim, False, 4,
-                                                            1, 8)
+    assert ode_step.ode_instance(3, dim) == "grid"
+    assert t.args() == (dim, dim // 32, dim // 4, 128, 1) and t.rows == 4
     ops.reset_launches()
     got = ode_step.fused_euler_ode(torch.from_numpy(x), torch.from_numpy(w),
                                    torch.from_numpy(b), 10, 0.1, "relu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     assert ode_step.fused_euler_ode.launches == 0
+
+
+@pytest.mark.parametrize("batch", [1, 3, 32, 128])
+@pytest.mark.parametrize("dim", [520, 1024, 1536, 2048, 2176])
+def test_k1_grid_tiling_covers_every_output_once(batch, dim):
+    """The grid instance: each of the 128 blocks (one an SM, co-resident)
+    sums its k-slice of its group's column band for every row, the
+    slices of a group cover the band's k range once, and the columns
+    each block finishes (``ode_block``) cover every (row, column) of the
+    padded state exactly once; W's tile, the x slice and the partial tile
+    fit a block's shared memory up to the capacity, 2176 (W read once);
+    the scratch holds the other state, two buffers of partial tiles and
+    the 33 barrier counters."""
+    t = ode_step.ode_tiling(batch, dim)
+    assert isinstance(t, ode_step.OdeGridTiling)
+    assert t.grid == ode_step.GRID_BLOCKS == 128
+    assert t.rg == min(8, -(-batch // 4)) and t.band % 4 == 0
+    assert ode_step.grid_smem(t.dim, t.rg) <= ode_step.GRID_SMEM
+    groups = t.grid // ode_step.GRID_GROUP
+    assert t.band * groups == t.dim and t.kslice * 4 == t.dim
+    assert t.scratch_floats(batch) == (batch * t.dim + 256 * t.rows * t.band
+                                       + 33)
+    seen = np.zeros((batch, t.dim), np.int64)
+    w_rows = np.zeros((t.dim, t.dim), np.int64)
+    for blk in range(t.grid):
+        rows, cols = ode_step.ode_block(t, blk, batch)
+        assert rows == range(batch)
+        seen[:, cols.start:cols.stop] += 1
+        c0 = blk // ode_step.GRID_GROUP * t.band
+        k0 = blk % ode_step.GRID_GROUP * t.kslice
+        assert c0 <= cols.start and cols.stop <= c0 + t.band
+        w_rows[k0:k0 + t.kslice, c0:c0 + t.band] += 1
+    assert (seen == 1).all() and (w_rows == 1).all()
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+def test_k1_grid_instance_ends_at_its_capacity(batch):
+    """``ode_instance`` names the grid instance on (512, 2176] and the
+    wide one above: at 2304 W's tile (162 KB a block) and the x slice of
+    32 rows (74 KB) no longer fit."""
+    assert [ode_step.ode_instance(batch, d) for d in (512, 513, 2176, 2177,
+                                                      2304)] == [
+        "resident", "grid", "grid", "wide", "wide"]
+    assert ode_step.grid_smem(2176) <= ode_step.GRID_SMEM
+    assert ode_step.grid_smem(2304) > ode_step.GRID_SMEM
