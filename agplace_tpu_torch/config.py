@@ -319,7 +319,7 @@ class TrainConfig:
     resume: Optional[str] = None
     checkpoint_every_epochs: int = 1
     checkpoint_after_epoch: int = 40  # reference saves only for epoch>40
-    profile_steps: int = 0  # >0: capture a jax.profiler trace of N steps
+    profile_steps: int = 0  # >0: a torch.profiler trace of N steps, spans on
     loss: LossConfig = field(default_factory=LossConfig)
 
 

@@ -24,6 +24,7 @@ from agplace_tpu_torch.device import resolve_device
 from agplace_tpu_torch.models.factory import (make_db_model,
                                               make_query_model, query_apply,
                                               shared_db_apply, tower_width)
+from agplace_tpu_torch.utils.spans import span
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -107,11 +108,11 @@ def make_infer_fns(mm: nn.Module, db: Optional[nn.Module]
     the maps (``share_qdb``)."""
 
     def embed_queries(images: torch.Tensor, vox) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("entry.embed_queries"), torch.inference_mode():
             return query_apply(mm, images, vox)["embedding"]
 
     def embed_db(db_map: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("entry.embed_db"), torch.inference_mode():
             return db(db_map) if db is not None else shared_db_apply(
                 mm, db_map)
 

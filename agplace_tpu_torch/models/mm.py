@@ -43,6 +43,7 @@ from agplace_tpu_torch.sparse.bev_grid import (
     bev_densify,
     bev_global_avg,
 )
+from agplace_tpu_torch.utils.spans import span
 
 # final_type component -> (MMConfig weight field, learn flag, flax name)
 _FINAL = {
@@ -203,65 +204,69 @@ class MM(nn.Module):
         query_image, vox = self._drop(query_image, vox)
         use_vox = self.use_vox and vox is not None
 
-        imagefeatmap, imagemaplist = self.image_fe(query_image)
-        v = self.image_pool(imagefeatmap)
-        if cfg.output_l2:
-            v = l2n(v)
-        outputs["imagevec_org"] = v
-        components.append(v * self._w("image_weight"))
+        with span("mm.image"):
+            imagefeatmap, imagemaplist = self.image_fe(query_image)
+            v = self.image_pool(imagefeatmap)
+            if cfg.output_l2:
+                v = l2n(v)
+            outputs["imagevec_org"] = v
+            components.append(v * self._w("image_weight"))
 
         voxfeatmap = voxmaplist = vox_keys = None
         if use_vox:
-            voxfeatmap, voxmaplist, vox_keys, v = self._voxel_branch(vox)
-            if cfg.output_l2:
-                v = l2n(v)
-            outputs["voxvec_org"] = v
-            components.append(v * self._w("vox_weight"))
+            with span("mm.voxel"):
+                voxfeatmap, voxmaplist, vox_keys, v = self._voxel_branch(vox)
+                if cfg.output_l2:
+                    v = l2n(v)
+                outputs["voxvec_org"] = v
+                components.append(v * self._w("vox_weight"))
 
-        shallow = None
-        if self.use_shallow:
-            imageveclist = [m.mean(dim=(1, 2)) for m in imagemaplist]
-            voxveclist = None
-            if use_vox:
-                avg = {"bev": bev_global_avg,
-                       "dense": dense_grid.grid_global_avg,
-                       "sparse": voxels.masked_global_avg}[cfg.voxfe_backend]
-                voxveclist = [avg(g) for g in voxmaplist]
-            shallow = self.fuseblocktoshallow(imageveclist, voxveclist)
-            outputs["shallowvec_org"] = shallow
-            if cfg.output_l2:
-                shallow = l2n(shallow)
-            components.append(shallow * self._w("shallow_weight"))
-        elif self.use_addorg:
-            addorg = outputs["imagevec_org"]
-            if use_vox:
-                addorg = addorg + outputs["voxvec_org"]
-            if cfg.output_l2:
-                addorg = l2n(addorg)
-            outputs["shallowvec_org"] = addorg
-            components.append(addorg * self._w("shallow_weight"))
+        with span("mm.fusion"):
+            shallow = None
+            if self.use_shallow:
+                imageveclist = [m.mean(dim=(1, 2)) for m in imagemaplist]
+                voxveclist = None
+                if use_vox:
+                    avg = {"bev": bev_global_avg,
+                           "dense": dense_grid.grid_global_avg,
+                           "sparse": voxels.masked_global_avg
+                           }[cfg.voxfe_backend]
+                    voxveclist = [avg(g) for g in voxmaplist]
+                shallow = self.fuseblocktoshallow(imageveclist, voxveclist)
+                outputs["shallowvec_org"] = shallow
+                if cfg.output_l2:
+                    shallow = l2n(shallow)
+                components.append(shallow * self._w("shallow_weight"))
+            elif self.use_addorg:
+                addorg = outputs["imagevec_org"]
+                if use_vox:
+                    addorg = addorg + outputs["voxvec_org"]
+                if cfg.output_l2:
+                    addorg = l2n(addorg)
+                outputs["shallowvec_org"] = addorg
+                components.append(addorg * self._w("shallow_weight"))
 
-        fuse, stg2image, stg2vox = self.stg2fuseblock(
-            imagefeatmap, voxfeatmap if use_vox else None, components[-1],
-            vox_keys)
-        outputs["stg2fusevec"] = self.stg2fusefc(fuse)
-        outputs["stg2imagevec"] = stg2image
-        if stg2vox is not None:
-            outputs["stg2voxvec"] = stg2vox
+            fuse, stg2image, stg2vox = self.stg2fuseblock(
+                imagefeatmap, voxfeatmap if use_vox else None, components[-1],
+                vox_keys)
+            outputs["stg2fusevec"] = self.stg2fusefc(fuse)
+            outputs["stg2imagevec"] = stg2image
+            if stg2vox is not None:
+                outputs["stg2voxvec"] = stg2vox
 
-        present = {"imageorg": outputs["imagevec_org"],
-                   "voxorg": outputs.get("voxvec_org"),
-                   "shalloworg": shallow,
-                   "stg2image": stg2image, "stg2vox": stg2vox,
-                   "stg2fuse": outputs["stg2fusevec"]}
-        final = [present[t] * self._w(_FINAL[t][2])
-                 for t in _FINAL if t in cfg.final_type
-                 and present[t] is not None]
-        if cfg.final_fusetype == "add":
-            x = sum(final)
-        elif cfg.final_fusetype == "cat":
-            x = torch.cat(final, dim=-1)
-        else:  # catadd
-            x = torch.cat(final[:-1], dim=-1) + final[-1]
-        outputs["embedding"] = l2n(x) if cfg.final_l2 else x
+            present = {"imageorg": outputs["imagevec_org"],
+                       "voxorg": outputs.get("voxvec_org"),
+                       "shalloworg": shallow,
+                       "stg2image": stg2image, "stg2vox": stg2vox,
+                       "stg2fuse": outputs["stg2fusevec"]}
+            final = [present[t] * self._w(_FINAL[t][2])
+                     for t in _FINAL if t in cfg.final_type
+                     and present[t] is not None]
+            if cfg.final_fusetype == "add":
+                x = sum(final)
+            elif cfg.final_fusetype == "cat":
+                x = torch.cat(final, dim=-1)
+            else:  # catadd
+                x = torch.cat(final[:-1], dim=-1) + final[-1]
+            outputs["embedding"] = l2n(x) if cfg.final_l2 else x
         return outputs

@@ -47,8 +47,8 @@ from agplace_tpu_torch.train.mining import TripletMiner
 from agplace_tpu_torch.train.state import TrainState
 from agplace_tpu_torch.train.step import (TOWER_INPUTS, check_supported,
                                           init_state, make_train_step)
-from agplace_tpu_torch.utils.common import (MetricsWriter, PhaseTimer,
-                                            ProfilerTrace, count_params)
+from agplace_tpu_torch.utils.common import MetricsWriter, count_params
+from agplace_tpu_torch.utils.spans import PhaseTimer, ProfilerTrace
 
 
 def train(cfg: Config, train_ds: PlaceDataset, test_ds: PlaceDataset,

@@ -54,6 +54,7 @@ from agplace_tpu_torch.train.losses import (compute_other_loss,
                                             compute_triplet_loss)
 from agplace_tpu_torch.train.optim import make_optimizer
 from agplace_tpu_torch.train.state import TrainState
+from agplace_tpu_torch.utils.spans import span
 
 log = logging.getLogger("train")
 
@@ -200,7 +201,8 @@ def make_train_step(cfg: Config, mesh=None):
     reduce = None if ax is None else (
         lambda g: all_reduce_sum(g, ax) / ax.size)
 
-    def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+    def forward(state: TrainState, batch):
+        """Both towers and both losses: (loss, triplet loss, metrics)."""
         mm, db = state.towers
         for tower in state.towers:
             if tower is not None:
@@ -234,11 +236,19 @@ def make_train_step(cfg: Config, mesh=None):
                                       joint=loss_cfg.criterion
                                       == "sare_joint")
         loss = loss + tloss * loss_cfg.tripletloss_weight
-        state.opt.zero_grad()
-        loss.backward()
-        state.opt.step(reduce)
-        state.step += 1
-        metrics.update(loss=loss.detach(), triplet_loss=tloss.detach())
-        return metrics
+        return loss, tloss, metrics
+
+    def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        with span("entry.train_step"):
+            with span("train.forward"):
+                loss, tloss, metrics = forward(state, batch)
+            with span("train.backward"):
+                state.opt.zero_grad()
+                loss.backward()
+            with span("train.optimizer"):
+                state.opt.step(reduce)
+            state.step += 1
+            metrics.update(loss=loss.detach(), triplet_loss=tloss.detach())
+            return metrics
 
     return train_step

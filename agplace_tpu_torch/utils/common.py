@@ -1,7 +1,6 @@
-"""Logging and observability (``agplace_tpu/utils/common.py``): the log
-sinks, a JSONL metrics stream, phase timers, the parameter count, the
-per-experiment results files, and a ``torch.profiler`` trace of the first
-steps of a run.
+"""Logging (``agplace_tpu/utils/common.py``): the log sinks, a JSONL
+metrics stream, the parameter count and the per-experiment results files.
+The phase timers and the profiler trace are in ``utils/spans.py``.
 """
 
 from __future__ import annotations
@@ -68,55 +67,9 @@ class MetricsWriter:
             f.write(json.dumps(record, default=_json_default) + "\n")
 
 
-class PhaseTimer:
-    """Wall-clock totals per phase: ``with timer('mining'): ...``, then
-    ``.totals``.  Phases may nest."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self._stack: list = []
-
-    def __call__(self, name: str):
-        self._stack.append((name, None))
-        return self
-
-    def __enter__(self):
-        name, _ = self._stack[-1]
-        self._stack[-1] = (name, time.perf_counter())
-        return self
-
-    def __exit__(self, *exc):
-        name, t0 = self._stack.pop()
-        self.totals[name] = (self.totals.get(name, 0.0)
-                             + time.perf_counter() - t0)
-        return False
-
-
 def count_params(named) -> int:
     """Elements of every parameter of ``named`` ((name, tensor) pairs)."""
     return sum(p.numel() for _, p in named)
-
-
-class ProfilerTrace:
-    """A ``torch.profiler`` trace (CPU, and CUDA when the card is there)
-    written as a Chrome trace to ``{logdir}/trace.json`` on ``stop``."""
-
-    def __init__(self, logdir: str):
-        from torch.profiler import ProfilerActivity, profile
-
-        self.logdir = logdir
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
-        self.prof = profile(activities=acts)
-        self.prof.__enter__()
-
-    def stop(self) -> str:
-        self.prof.__exit__(None, None, None)
-        os.makedirs(self.logdir, exist_ok=True)
-        path = os.path.join(self.logdir, "trace.json")
-        self.prof.export_chrome_trace(path)
-        return path
 
 
 class ResultsLogger:
