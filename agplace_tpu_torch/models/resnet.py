@@ -9,18 +9,46 @@ unfused, or, with ``use_pallas_stem`` in eval mode on bf16 activations of
 even size, as K5 (``ops/stem_pool.py``), with JAX's gate
 (``resnet.py:134-138``).  Training mode takes batch statistics in every
 BN (``models/norm.py``).
+
+Each conv's BN, with the block's residual and relu where they follow, is
+one ``epilogue``: in eval mode, one pass of ``ops/bn_act.py``'s kernel
+over the conv's output on the card, bit-equal to the eager chain that runs
+on the CPU and in training.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from agplace_tpu_torch.models.layers import Conv2d, max_pool_nhwc
 from agplace_tpu_torch.models.norm import BatchNorm2D
-from agplace_tpu_torch.ops import stem_pool
+from agplace_tpu_torch.ops import bn_act, stem_pool
+
+
+def epilogue(training: bool, y: torch.Tensor, bn: BatchNorm2D,
+             residual: Optional[torch.Tensor] = None,
+             residual_bn: Optional[BatchNorm2D] = None) -> torch.Tensor:
+    """relu(bn(y) [+ residual | + residual_bn(residual)]) of a fresh conv
+    output ``y``.  In eval mode, where nothing needs a gradient,
+    ``bn_act.fused_bn_act`` writes it over ``y`` (the kernel on the card,
+    the eager chain on the CPU); training mode and autograd take the eager
+    chain (batch statistics, a backward)."""
+    if training or (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (y, residual, *bn.parameters(),
+                      *(residual_bn.parameters() if residual_bn is not None
+                        else ())))):
+        out = bn(y)
+        if residual is not None:
+            out = out + (residual if residual_bn is None
+                         else residual_bn(residual))
+        return torch.relu(out)
+    return bn_act.fused_bn_act(
+        y, *bn.affine(), residual,
+        None if residual_bn is None else residual_bn.affine(), out=y)
 
 
 class BasicBlock(nn.Module):
@@ -38,11 +66,12 @@ class BasicBlock(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        idn = (self.downsample_bn(self.downsample_conv(x))
-               if self.downsample else x)
-        return torch.relu(out + idn)
+        out = epilogue(self.training, self.conv1(x), self.bn1)
+        out = self.conv2(out)
+        if self.downsample:
+            return epilogue(self.training, out, self.bn2,
+                            self.downsample_conv(x), self.downsample_bn)
+        return epilogue(self.training, out, self.bn2, x)
 
 
 class Bottleneck(nn.Module):
@@ -67,12 +96,13 @@ class Bottleneck(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        idn = (self.downsample_bn(self.downsample_conv(x))
-               if self.downsample else x)
-        return torch.relu(out + idn)
+        out = epilogue(self.training, self.conv1(x), self.bn1)
+        out = epilogue(self.training, self.conv2(out), self.bn2)
+        out = self.conv3(out)
+        if self.downsample:
+            return epilogue(self.training, out, self.bn3,
+                            self.downsample_conv(x), self.downsample_bn)
+        return epilogue(self.training, out, self.bn3, x)
 
 
 # arch -> (block, blocks per stage, expansion)
@@ -120,7 +150,7 @@ class ResNetFeatures(nn.Module):
                 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
             x = stem_pool.fused_affine_relu_maxpool(x, *self.bn1.affine())
         else:
-            x = max_pool_nhwc(torch.relu(self.bn1(x)), 3, 2, 1)
+            x = max_pool_nhwc(epilogue(self.training, x, self.bn1), 3, 2, 1)
         maps = []
         for stage in self.blocks:
             for blk in stage:

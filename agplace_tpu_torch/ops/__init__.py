@@ -10,6 +10,11 @@ plain PyTorch versions beside them:
 * ``probe_block_sm_v2.fused_eca_block_concat``   P1 (csrc/probe_block_sm_v2.cu)
 * ``probe_down_v2.fused_down_concat``            P2 (csrc/probe_down_v2.cu)
 
+Beside them, ``bn_act.fused_bn_act`` (csrc/bn_act.cu) runs every eval
+ResNet epilogue on the card (``models/resnet.epilogue``); it ports no TPU
+kernel and stays out of ``kernels()`` until the benchmark's profile reader
+vouches for its launches.
+
 The default serving configuration runs K1-K3; ``bev_pallas_head`` swaps K2
 for K4, ``stem_pallas`` / ``db.stem_pallas`` run K5 in the image stems.  No
 model path calls K6, P1 or P2; the probe entry points

@@ -27,6 +27,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libagplace_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
     # batch, n_steps, dt, act, then the 6 fields of ode_step.OdeTiling
@@ -65,6 +66,9 @@ _SIGNATURES = {
     # epi, chunk, z, then the 20 fields of probe_block_sm_v2.ConcatConvTiling
     "agp_p1_conv_sm90": [_P] * 7 + [_I] * 23 + [_P],
     "agp_p1_smem_bytes": [_I],  # returns bytes, not an error code
+    # x, r, y, scale, bias, scale_d, bias_d, n_vec, cv, fp32, res, then
+    # bn_act.bn_act_grid's grid and block
+    "agp_bn_act": [_P] * 7 + [_L] + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

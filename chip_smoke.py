@@ -307,6 +307,7 @@ single PyTorch call computes), the last line ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import os
@@ -1379,10 +1380,129 @@ def expected_launches(cfg, n_tiles, n_requests):
             "fused_down_concat": 0}
 
 
+# fused_bn_act's launches on each main-path run that checks them, by path
+# (``check_epilogues``): the kernels line's launches of its row
+EPILOGUES = {}
+
+
+def trunk_epilogues(cfg, n_tiles, n_requests):
+    """fused_bn_act's launches in the run ``expected_launches`` counts: a
+    ResNet trunk forward has one eval epilogue per BN of a block (two a
+    BasicBlock, three a Bottleneck) and the stem's, unless K5 takes it."""
+    from agplace_tpu_torch.models import resnet
+
+    def per_forward(arch, layers, k5):
+        if arch not in resnet.RESNET_SPECS:
+            return 0
+        block, sizes, _ = resnet.RESNET_SPECS[arch]
+        per_block = 2 if block is resnet.BasicBlock else 3
+        return (not k5) + per_block * sum(sizes[:len(layers)])
+
+    mm, db = cfg.model.mm, cfg.model.db
+    db_forwards = -(-n_tiles // cfg.train.infer_batch_size) * cfg.data.nmap
+    return (n_requests * per_forward(mm.imgfe, mm.imgfe_layers,
+                                     mm.stem_pallas)
+            + db_forwards * per_forward(db.image_fe, db.image_fe_layers,
+                                        db.stem_pallas))
+
+
+def check_epilogues(label, n, cfg, n_tiles, n_requests):
+    """The epilogue kernel's launches ``n`` of a path, read just after it:
+    every eval epilogue of every trunk forward, none on the eager chain."""
+    want = trunk_epilogues(cfg, n_tiles, n_requests)
+    log(f"[{label}] fused_bn_act launches {n} (want {want})")
+    if n != want:
+        raise AssertionError(f"[{label}] fused_bn_act launches {n} != "
+                             f"{want}")
+    EPILOGUES[label] = n
+
+
+def bn_act_cells():
+    """The benchmark's embed cells: each one's batch and the epilogues a
+    trunk forward launches at its image size (``resnet18_epilogues``)."""
+    from agplace_tpu_torch.ops import bn_act
+    from portbench.harness import cell as cells
+
+    out = {}
+    for w in cells.benchmark()["workloads"]:
+        c = cells.load(w["name"])
+        if c.mix == "embed":
+            out[c.name] = (c.params["batch"],
+                           bn_act.resnet18_epilogues(*c.params["image_hw"]))
+    return out
+
+
+def phase_bn_act(dev) -> dict:
+    """The ResNet epilogue kernel at every map and instance of the
+    benchmark's embed cells: bit-equal to the eager chain it replaces
+    (raw bits), timed by the profiler's device time beside that chain and
+    its byte bound (the maps read and written once); per cell the sums over
+    one trunk forward.  Returns the kernels line's row; its launches are
+    the main paths' (``EPILOGUES``), filled in by ``main``."""
+    from agplace_tpu_torch.ops import bn_act
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rec = {"name": "fused_bn_act", "route": "cuda",
+           "source": "agplace_tpu_torch/csrc/bn_act.cu",
+           "replaces": "the eager BN / residual / relu chain of "
+                       "agplace_tpu_torch/models/resnet.py (no TPU kernel: "
+                       "XLA fuses it into the conv)",
+           "max_abs_err": 0.0, "frac_differ": 0.0, "by_cell": {}}
+    for cell, (batch, epis) in bn_act_cells().items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+        uses = collections.Counter(epis)  # ([H, W, C], instance) -> n
+        for h, w, c in dict.fromkeys(m for m, _ in epis):
+            x = torch.randn(batch, h, w, c, generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            r = torch.randn(batch, h, w, c, generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            s, sd = (torch.rand(2, c, generator=g, device=dev) * 2 - 0.7)
+            b, bd = torch.randn(2, c, generator=g, device=dev)
+            for inst in range(3):
+                n = uses[((h, w, c), inst)]
+                if not n:
+                    continue
+                args = (x, s, b, *((None, None), (r, None),
+                                   (r, (sd, bd)))[inst])
+                got = bn_act.fused_bn_act(*args)
+                if not torch.equal(got.view(torch.int16),
+                                   bn_act.bn_act_plain(*args).view(
+                                       torch.int16)):
+                    raise AssertionError(f"fused_bn_act {cell} [{h},{w},"
+                                         f"{c}] instance {inst}: not "
+                                         f"bit-equal to the eager chain")
+                del got
+                moved = nbytes(x) * (2 if inst == 0 else 3)
+                ms = device_ms(lambda: bn_act.fused_bn_act(*args), n=10)
+                pms = device_ms(lambda: bn_act.bn_act_plain(*args), n=10)
+                bnd = bound(0.0, moved)["bound_ms"]
+                log(f"  fused_bn_act {cell} [{batch},{h},{w},{c}] instance "
+                    f"{inst} x{n}: {ms:.4f} ms by device "
+                    f"({moved / ms / 1e9:.3f} TB/s, share {bnd / ms:.3f}), "
+                    f"eager chain {pms:.4f} ms")
+                tot["ms"] += n * ms
+                tot["plain_ms"] += n * pms
+                tot["bound_ms"] += n * bnd
+                tot["bytes"] += n * moved
+            del x, r
+        tot["tb_s"] = tot["bytes"] / tot["ms"] / 1e9
+        tot["share"] = tot["bound_ms"] / tot["ms"]
+        log(f"  fused_bn_act {cell}, one forward's {len(epis)} epilogues: "
+            f"{tot['ms']:.4f} ms ({tot['tb_s']:.3f} TB/s, share "
+            f"{tot['share']:.3f}), eager chain {tot['plain_ms']:.4f} ms")
+        rec["by_cell"][cell] = tot
+    k = rec["by_cell"]["kitti360-embed-b128"]
+    rec.update(ms=k["ms"], plain_ms=k["plain_ms"], library_ms=k["plain_ms"],
+               bound_ms=k["bound_ms"], bound_by="bytes", share=k["share"])
+    return rec
+
+
 def phase_serving(cfg, dev, n_tiles, label):
     from agplace_tpu_torch import ops
     from agplace_tpu_torch.infer import build_towers
     from agplace_tpu_torch.serving import PlaceIndex
+
+    from agplace_tpu_torch.ops import bn_act
 
     mm, db = build_towers(cfg, "cpu", torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
@@ -1397,6 +1517,7 @@ def phase_serving(cfg, dev, n_tiles, label):
             np.float32), lidar(rng, n)))
 
     ops.reset_launches()  # ---- the path: gallery + three requests
+    bn_act.fused_bn_act.launches = 0
     t0 = time.perf_counter()
     n_rows = idx.add_tiles(Tiles(n_tiles))
     torch.cuda.synchronize()
@@ -1408,6 +1529,7 @@ def phase_serving(cfg, dev, n_tiles, label):
     torch.cuda.synchronize()
     t_search = time.perf_counter() - t0
     counts = ops.launches()  # ---- read just after the path
+    n_epi = bn_act.fused_bn_act.launches
     log(f"[{label}] gallery {n_rows} tiles in {t_gallery:.2f} s; 3 requests "
         f"in {t_search:.2f} s (host prep included); launches {counts}")
     if n_rows != n_tiles:
@@ -1421,6 +1543,7 @@ def phase_serving(cfg, dev, n_tiles, label):
     want = expected_launches(cfg, n_tiles, len(requests))
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
+    check_epilogues(label, n_epi, cfg, n_tiles, len(requests))
 
     images, points = requests[1]
     q = idx.embed(images[:1], points[:1])
@@ -1644,11 +1767,12 @@ def run_evaluate(cfg, ds, towers, dev):
     return, so the checks read the descriptors ``evaluate`` itself used;
     the dataset stamps its first query load, where the gallery pass has
     ended (its descriptors fetched).  Returns (recalls, text, counts,
-    query and tile descriptors as numpy, wall s of evaluate, wall s of its
-    gallery pass)."""
+    fused_bn_act's launches, query and tile descriptors as numpy, wall s
+    of evaluate, wall s of its gallery pass)."""
     from agplace_tpu_torch import ops
     from agplace_tpu_torch.evaluate import evaluate
     from agplace_tpu_torch.infer import make_infer_fns
+    from agplace_tpu_torch.ops import bn_act
 
     def keeping(fn, out):
         def call(*args):
@@ -1667,15 +1791,17 @@ def run_evaluate(cfg, ds, towers, dev):
     ds.load_query_image = stamped
     embed_q, embed_db = make_infer_fns(*towers)
     ops.reset_launches()  # ---- the path: evaluate
+    bn_act.fused_bn_act.launches = 0
     t0 = time.perf_counter()
     recalls, text = evaluate(cfg, ds, keeping(embed_q, q_out),
                              keeping(embed_db, db_out), device=dev)
     t_eval = time.perf_counter() - t0
     counts = ops.launches()  # ---- read just after the path
+    counts_epi = bn_act.fused_bn_act.launches
     ds.load_query_image = load
     q = torch.cat(q_out)[:ds.queries_num].float().cpu().numpy()
     db = torch.cat(db_out)[:ds.database_num].float().cpu().numpy()
-    return recalls, text, counts, q, db, t_eval, first_q[0] - t0
+    return recalls, text, counts, counts_epi, q, db, t_eval, first_q[0] - t0
 
 
 def phase_eval(cfg, towers, cpu_towers, dev):
@@ -1697,13 +1823,15 @@ def phase_eval(cfg, towers, cpu_towers, dev):
 
     ds = eval_dataset(cfg, N_TILES, N_EVAL_Q)
     bs = cfg.train.infer_batch_size
-    recalls, text, counts, q, db, t_eval, t_gallery = run_evaluate(
+    recalls, text, counts, n_epi, q, db, t_eval, t_gallery = run_evaluate(
         cfg, ds, towers, dev)
-    want = expected_launches(cfg, ds.database_num, -(-ds.queries_num // bs))
+    n_fwd = -(-ds.queries_num // bs)
+    want = expected_launches(cfg, ds.database_num, n_fwd)
     log(f"[eval] evaluate(hard_resize) of {ds.queries_num} queries over "
         f"{ds.database_num} tiles in {t_eval:.3f} s; launches {counts}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
+    check_epilogues("eval", n_epi, cfg, ds.database_num, n_fwd)
     check_recalls("eval", recalls, text)
     cq, cdb = cpu_descriptors(cfg, ds, cpu_towers, 4)
     check_descriptors("eval", "descriptors of 4 queries", q[:4], cq)
@@ -1786,6 +1914,7 @@ def phase_eval_crops(cfg, towers, cpu_towers, db, dev):
     from agplace_tpu_torch.embed import batched_embed_q_crops
     from agplace_tpu_torch.evaluate import evaluate_features
     from agplace_tpu_torch.infer import compute_dtype, make_infer_fns
+    from agplace_tpu_torch.ops import bn_act
 
     ds = eval_dataset(cfg, N_TILES, N_EVAL_CROP_Q, crops=True)
     if not np.array_equal(ds.db_eastnorth,
@@ -1794,6 +1923,7 @@ def phase_eval_crops(cfg, towers, cpu_towers, db, dev):
     embed_q, _ = make_infer_fns(*towers)
     bs = cfg.train.infer_batch_size
     ops.reset_launches()  # ---- the path: one crop pass, two merges
+    bn_act.fused_bn_act.launches = 0
     t0 = time.perf_counter()
     q = batched_embed_q_crops(ds, range(ds.queries_num), embed_q, bs, cfg,
                               dev)
@@ -1804,6 +1934,7 @@ def phase_eval_crops(cfg, towers, cpu_towers, db, dev):
                                                  test_method=method))
         results[method] = evaluate_features(c, ds, q, db, device=dev)
     counts = ops.launches()  # ---- read just after the path
+    n_epi = bn_act.fused_bn_act.launches
     want = expected_launches(cfg, 0, -(-ds.queries_num // bs))
     log(f"[eval-crops] {q.shape[0]} crop descriptors ({ds.queries_num} "
         f"queries x 5, batch {5 * bs}) in {t_query:.3f} s (host prep "
@@ -1811,6 +1942,7 @@ def phase_eval_crops(cfg, towers, cpu_towers, db, dev):
     if counts != want or q.shape != (5 * ds.queries_num, 256):
         raise AssertionError(f"launch counts {counts} != {want}, or crop "
                              f"descriptors {q.shape}")
+    check_epilogues("eval-crops", n_epi, cfg, 0, -(-ds.queries_num // bs))
     for method, (recalls, text) in results.items():
         check_recalls(f"eval-crops {method}", recalls, text)
     crops = ds.load_query_crops(0, cfg.data.q_resize)
@@ -1830,13 +1962,15 @@ def phase_eval_fused(cfg, towers, cpu_towers, dev):
     CPU."""
     ds = eval_dataset(cfg, N_TILES_FUSED, N_EVAL_FUSED_Q)
     bs = cfg.train.infer_batch_size
-    recalls, text, counts, q, db, t_eval, _ = run_evaluate(cfg, ds, towers,
-                                                           dev)
-    want = expected_launches(cfg, ds.database_num, -(-ds.queries_num // bs))
+    recalls, text, counts, n_epi, q, db, t_eval, _ = run_evaluate(
+        cfg, ds, towers, dev)
+    n_fwd = -(-ds.queries_num // bs)
+    want = expected_launches(cfg, ds.database_num, n_fwd)
     log(f"[eval-fused] evaluate(hard_resize) of {ds.queries_num} queries "
         f"over {ds.database_num} tiles in {t_eval:.3f} s; launches {counts}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
+    check_epilogues("eval-fused", n_epi, cfg, ds.database_num, n_fwd)
     check_recalls("eval-fused", recalls, text)
     cq, cdb = cpu_descriptors(cfg, ds, cpu_towers, 4)
     check_descriptors("eval-fused", "descriptors of 4 queries", q[:4], cq)
@@ -2612,7 +2746,7 @@ def phase_data_nuscenes(dev):
     seed_bn(db, np.random.default_rng(6))
     cpu_towers = (copy.deepcopy(mm), copy.deepcopy(db))
     towers = (mm.to(dev), db.to(dev))
-    recalls, text, counts, q, dbf, t_eval, t_gal = run_evaluate(
+    recalls, text, counts, n_epi, q, dbf, t_eval, t_gal = run_evaluate(
         cfg, ds, towers, dev)
     n_fwd = -(-ds.queries_num // cfg.train.infer_batch_size)
     want = expected_launches(cfg, ds.database_num, n_fwd)
@@ -2620,6 +2754,7 @@ def phase_data_nuscenes(dev):
         f"{t_gal:.2f} s): {text}; launches {counts}")
     if counts != want:
         raise AssertionError(f"[data-nuscenes] launches {counts} != {want}")
+    check_epilogues("data-nuscenes", n_epi, cfg, ds.database_num, n_fwd)
     check_recalls("data-nuscenes", recalls, "recalls")
     cq, cd = cpu_descriptors(cfg, ds, cpu_towers, 2)
     check_descriptors("data-nuscenes", "2 queries' descriptors", q[:2], cq)
@@ -5376,6 +5511,8 @@ def main() -> None:
     log("[parity] kernel vs plain on the card (b32 main-path shapes)")
     with torch.inference_mode():
         parity = phase_parity(dev, masks[32], masks[128], mask16)
+        log("[bn-act] the ResNet epilogue kernel at the cells' maps")
+        bn_act_row = phase_bn_act(dev)
 
     # ---- the default path: K1, K2, K3
     towers, cpu_towers, requests, counts = phase_serving(cfg, dev, N_TILES,
@@ -5540,6 +5677,11 @@ def main() -> None:
                for k, (src, rep) in sources.items()]
     kernels += instance_rows(parity, widths, instances_w, lone_counts,
                              sources)
+    bn_act_row.update(launches=sum(EPILOGUES.values()),
+                      launches_by_path=dict(EPILOGUES))
+    if not bn_act_row["launches"]:
+        raise AssertionError("no main path launched fused_bn_act")
+    kernels.append(bn_act_row)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of wall time "
         f"(after imports)")
     print(json.dumps({"kernels": kernels}), flush=True)
