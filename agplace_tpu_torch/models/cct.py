@@ -3,8 +3,17 @@ cct.py``): a two-conv 7x7 tokenizer (3 -> 64 -> 384, each conv then relu
 then a 3x3 / 2 max-pool), a learnable (or sine) positional embedding, 14
 encoder layers of the reference's order (pre-norm attention with a fused
 bias-free qkv, a stream LayerNorm, then the MLP with tanh GELU) and
-sequence pooling.  Attention runs in fp32, its scale after the product, as
-JAX's does.
+sequence pooling.  The attention's scale follows its product, as JAX's.
+
+``dtype`` is the products' precision: the two tokenizer convs, qkv, proj,
+mlp1, mlp2, QK^T and AV take operands in it, accumulate in fp32 and
+return it.  LayerNorm, softmax and GELU compute in fp32 (a bf16 input is
+widened; a bf16 output is the next product's rounded operand), relu and
+the max-pools are exact in either, and the residual stream, the positional
+add and the pooling head stay fp32.  At bf16 the scores are rounded once
+by their product, and their scale (1/8 at the head size 64) is a power of
+two, so scaling them is exact.  At fp32 (JAX's, the default) every cast is
+the identity.
 
 Stochastic depth draws, in JAX, from a ``dropout`` rng that its train step
 never passes, so JAX fails to train CCT at two layers or more (the rate of
@@ -20,6 +29,7 @@ from torch import nn
 
 from agplace_tpu_torch.models.layers import (Conv2d, Dense, LayerNorm, gelu,
                                              max_pool_nhwc)
+from agplace_tpu_torch.utils.spans import span
 
 
 def sinusoidal_embedding(n_channels: int, dim: int) -> np.ndarray:
@@ -44,14 +54,14 @@ def tokenizer_side(size: int, n_conv_layers: int = 2) -> int:
 class CCTTokenizer(nn.Module):
     def __init__(self, embed_dim: int = 384, kernel_size: int = 7,
                  stride: int = 2, n_conv_layers: int = 2,
-                 in_planes: int = 64):
+                 in_planes: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         ch = [3] + [in_planes] * (n_conv_layers - 1) + [embed_dim]
         self.convs = []
         for i in range(n_conv_layers):
             setattr(self, f"conv{i}", Conv2d(ch[i], ch[i + 1], kernel_size,
                                              stride, kernel_size // 2,
-                                             False, None))
+                                             False, dtype))
             self.convs.append(getattr(self, f"conv{i}"))
 
     def forward(self, x):
@@ -62,17 +72,19 @@ class CCTTokenizer(nn.Module):
 
 
 class CCT(nn.Module):
-    """Returns (tokens [B, N, C], the sequence-pooled vector [B, C]) for
-    inputs of ``image_hw`` (the learnable embedding's size)."""
+    """Returns (tokens [B, N, C], the sequence-pooled vector [B, C]), both
+    fp32, for inputs of ``image_hw`` (the learnable embedding's size), its
+    products in ``dtype``."""
 
     def __init__(self, image_hw=(224, 224), embed_dim: int = 384,
                  num_layers: int = 14, num_heads: int = 6,
                  mlp_ratio: float = 3.0, stochastic_depth: float = 0.1,
-                 positional_embedding: str = "learnable"):
+                 positional_embedding: str = "learnable",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         c = embed_dim
         self.heads, self.num_layers = num_heads, num_layers
-        self.tokenizer = CCTTokenizer(c)
+        self.tokenizer = CCTTokenizer(c, dtype=dtype)
         n = tokenizer_side(image_hw[0]) * tokenizer_side(image_hw[1])
         if positional_embedding == "learnable":
             self.pos = nn.Parameter(torch.empty(1, n, c))
@@ -84,21 +96,28 @@ class CCT(nn.Module):
         hidden = int(c * mlp_ratio)
         for i in range(num_layers):
             setattr(self, f"pre_norm_{i}", LayerNorm(c, 1e-5))
-            setattr(self, f"qkv_{i}", Dense(c, 3 * c, use_bias=False))
-            setattr(self, f"proj_{i}", Dense(c, c))
+            setattr(self, f"qkv_{i}", Dense(c, 3 * c, False, dtype))
+            setattr(self, f"proj_{i}", Dense(c, c, dtype=dtype))
             setattr(self, f"norm1_{i}", LayerNorm(c, 1e-5))
-            setattr(self, f"mlp1_{i}", Dense(c, hidden))
-            setattr(self, f"mlp2_{i}", Dense(hidden, c))
+            setattr(self, f"mlp1_{i}", Dense(c, hidden, dtype=dtype))
+            setattr(self, f"mlp2_{i}", Dense(hidden, c, dtype=dtype))
         self.ln_f = LayerNorm(c, 1e-5)
         self.attention_pool = Dense(c, 1)
 
     def forward(self, x):
-        tokens = self.tokenizer(x)
+        with span("geoloc.tokenizer"):
+            tokens = self.tokenizer(x)
         b, n, c = tokens.shape
         if n != self.pos.shape[1]:
             raise ValueError(f"{n} tokens; the positional embedding was "
                              f"sized for {self.pos.shape[1]}")
-        tokens = tokens + self.pos.to(tokens.dtype)
+        with span("geoloc.encoder"):
+            tokens = self._encode(tokens.float() + self.pos)
+        attn = torch.softmax(self.attention_pool(tokens), dim=1)
+        return tokens, (attn * tokens).sum(dim=1)
+
+    def _encode(self, tokens):
+        b, n, c = tokens.shape
         h = self.heads
         hd = c // h
         scale = hd ** -0.5
@@ -111,15 +130,13 @@ class CCT(nn.Module):
             y = getattr(self, f"pre_norm_{i}")(tokens)
             qkv = getattr(self, f"qkv_{i}")(y).reshape(b, n, 3, h, hd)
             q, k, v = qkv.unbind(dim=2)
-            attn = torch.softmax(torch.einsum(
-                "bnhd,bmhd->bhnm", q.float(), k.float()) * scale, dim=-1)
-            y = torch.einsum("bhnm,bmhd->bnhd", attn, v.float())
-            y = getattr(self, f"proj_{i}")(y.reshape(b, n, c).to(
-                tokens.dtype))
+            with span("geoloc.attn"):
+                attn = torch.softmax(torch.einsum(
+                    "bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
+                y = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+            y = getattr(self, f"proj_{i}")(y.reshape(b, n, c))
             tokens = getattr(self, f"norm1_{i}")(tokens + y)
             y = getattr(self, f"mlp2_{i}")(gelu(
                 getattr(self, f"mlp1_{i}")(tokens)))
             tokens = tokens + y
-        tokens = self.ln_f(tokens)
-        attn = torch.softmax(self.attention_pool(tokens), dim=1)
-        return tokens, (attn * tokens).sum(dim=1)
+        return self.ln_f(tokens)

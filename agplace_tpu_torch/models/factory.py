@@ -24,20 +24,21 @@ from agplace_tpu_torch.models.layers import l2n
 from agplace_tpu_torch.models.minkloc import MinkLoc, MinkLocMultimodal
 
 
-def geoloc_net(cfg: Config, image_hw: Tuple[int, int]
-               ) -> GeoLocalizationNet:
+def geoloc_net(cfg: Config, image_hw: Tuple[int, int],
+               dtype: torch.dtype = torch.float32) -> GeoLocalizationNet:
     m = cfg.model
     return GeoLocalizationNet(
         backbone=m.backbone, aggregation=m.aggregation,
         netvlad_clusters=m.netvlad_clusters, fc_output_dim=m.fc_output_dim,
-        l2=m.l2, trunc_te=m.trunc_te, image_hw=image_hw)
+        l2=m.l2, trunc_te=m.trunc_te, image_hw=image_hw, dtype=dtype)
 
 
 def make_query_model(cfg: Config, dtype: torch.dtype = torch.float32
                      ) -> nn.Module:
     """``--modelq``, for query images of ``q_resize`` squared where a
-    geoloc tower fixes a size; ``dtype`` reaches the MM only (JAX's
-    factory gives the other towers none)."""
+    geoloc tower fixes a size; ``dtype`` reaches the MM and a geoloc
+    tower, where CCT and NetVLAD take it (JAX's factory gives the towers
+    other than the MM none; MinkLoc stays fp32)."""
     name, fd = cfg.model.modelq, cfg.model.features_dim
     if name == "mm":
         from agplace_tpu_torch.models.mm import MM
@@ -48,13 +49,14 @@ def make_query_model(cfg: Config, dtype: torch.dtype = torch.float32
     if name == "minkloc_multimodal":
         return MinkLocMultimodal(fd, fd, 2 * fd)
     if name == "geoloc":
-        return geoloc_net(cfg, (cfg.data.q_resize,) * 2)
+        return geoloc_net(cfg, (cfg.data.q_resize,) * 2, dtype)
     raise NotImplementedError(f"modelq={name}")
 
 
 def make_db_model(cfg: Config, dtype: torch.dtype = torch.float32
                   ) -> nn.Module:
-    """``--modeldb``, for tiles of ``db_resize`` squared."""
+    """``--modeldb``, for tiles of ``db_resize`` squared; ``dtype`` as
+    ``make_query_model``'s."""
     name = cfg.model.db.modeldb
     if name == "vanilla2d":
         from agplace_tpu_torch.models.dbvanilla2d import DBVanilla2D
@@ -64,7 +66,7 @@ def make_db_model(cfg: Config, dtype: torch.dtype = torch.float32
                            output_l2=cfg.model.mm.output_l2,
                            final_l2=cfg.model.mm.final_l2, dtype=dtype)
     if name == "geoloc":
-        return GeoDB(geoloc_net(cfg, (cfg.data.db_resize,) * 2))
+        return GeoDB(geoloc_net(cfg, (cfg.data.db_resize,) * 2, dtype))
     raise NotImplementedError(f"modeldb={name}")
 
 

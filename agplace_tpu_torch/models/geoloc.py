@@ -4,8 +4,11 @@ ViT-B/16, CCT-14) and an aggregation head (``pooling.GlobalHead``), then an
 optional linear layer, with the reference's L2 placements.
 
 JAX's factory gives this tower no dtype, so it runs in fp32 whatever
-``compute_dtype`` says; the port's does too.  The stem tail runs unfused:
-JAX builds these ResNets without ``use_pallas_stem``.
+``compute_dtype`` says.  The port's factory passes the compute dtype on,
+and CCT and the NetVLAD head behind it compute their products in it (the
+bf16 serving path of ``cct384`` + ``netvlad``); every other backbone and
+head, and NetVLAD behind another backbone, stays fp32 as in JAX.  The stem
+tail runs unfused: JAX builds these ResNets without ``use_pallas_stem``.
 
 Two sizes are fixed when JAX first traces the tower: ViT's positional
 embedding (its token count) and MixVPR's mixer width (the map's h * w).
@@ -26,6 +29,7 @@ from agplace_tpu_torch.models.layers import (Conv2d, Dense, LayerNorm, gelu,
                                              l2n, max_pool_nhwc)
 from agplace_tpu_torch.models.pooling import POOLS, GlobalHead
 from agplace_tpu_torch.models.resnet import ResNetFeatures
+from agplace_tpu_torch.utils.spans import span
 
 # backbone -> (arch, stages, output width)
 RESNET_BACKBONES = {
@@ -203,16 +207,20 @@ def feature_side(backbone: str, size: int) -> int:
 
 class GeoLocalizationNet(nn.Module):
     """backbone -> (L2) -> aggregation -> (L2 / linear + L2), for inputs
-    of ``image_hw``; returns [B, D]."""
+    of ``image_hw``; returns [B, D] fp32.  ``dtype`` reaches CCT and a
+    NetVLAD head behind it (module docstring)."""
 
     def __init__(self, backbone: str = "resnet18conv4",
                  aggregation: str = "gem", netvlad_clusters: int = 64,
                  fc_output_dim: Optional[int] = None,
                  l2: str = "before_pool", trunc_te: Optional[int] = None,
-                 image_hw: Tuple[int, int] = (224, 224)):
+                 image_hw: Tuple[int, int] = (224, 224),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone_name, self.aggregation_name = backbone, aggregation
         self.l2 = l2
+        # the other backbones and heads are built in fp32, as JAX's factory
+        dt = dtype if backbone == "cct384" else torch.float32
         if backbone in RESNET_BACKBONES:
             arch, stages, _ = RESNET_BACKBONES[backbone]
             self.backbone = ResNetFeatures(arch, stages)
@@ -223,7 +231,8 @@ class GeoLocalizationNet(nn.Module):
         elif backbone == "vit":
             self.backbone = ViTBackbone(image_hw, trunc_te=trunc_te)
         elif backbone == "cct384":
-            self.backbone = CCT(image_hw, num_layers=trunc_te or 14)
+            self.backbone = CCT(image_hw, num_layers=trunc_te or 14,
+                                dtype=dt)
         else:
             raise NotImplementedError(backbone)
         # the token backbones' own pooled outputs end the tower
@@ -237,7 +246,7 @@ class GeoLocalizationNet(nn.Module):
         if backbone in ("vit", "cct384"):  # the square token map
             h = w = int((h * w) ** 0.5)
         self.aggregation = GlobalHead(aggregation, dim, netvlad_clusters,
-                                      hw=h * w)
+                                      hw=h * w, dtype=dt)
         self.out_dim = self._head_dim(aggregation, dim, netvlad_clusters,
                                       h, w)
         self.has_fc = fc_output_dim is not None
@@ -280,14 +289,15 @@ class GeoLocalizationNet(nn.Module):
             feat = self._square(tokens)
         else:
             feat = self.backbone(x)
-        if self.aggregation_name in POOLS:
-            if self.l2 == "before_pool":
-                feat = l2n(feat)
-            out = self.aggregation(feat)
-            if self.l2 == "after_pool":
-                out = l2n(out)
-        else:
-            out = self.aggregation(feat)
+        with span("geoloc.aggregation"):
+            if self.aggregation_name in POOLS:
+                if self.l2 == "before_pool":
+                    feat = l2n(feat)
+                out = self.aggregation(feat)
+                if self.l2 == "after_pool":
+                    out = l2n(out)
+            else:
+                out = self.aggregation(feat)
         if self.has_fc:
             out = l2n(self.fc(out))
         return out

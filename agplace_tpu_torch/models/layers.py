@@ -62,16 +62,20 @@ class Conv2d(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``weight`` is [out, in]; input and parameters are
-    promoted to their common dtype."""
+    """flax ``nn.Dense``: ``weight`` is [out, in]; ``dtype`` None promotes
+    input and parameters to their common dtype, else all three are cast to
+    ``dtype`` and the output is in it (a bf16 product accumulates in fp32
+    and rounds once)."""
 
-    def __init__(self, cin: int, cout: int, use_bias: bool = True):
+    def __init__(self, cin: int, cout: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+        self.dtype = dtype
 
     def forward(self, x):
-        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return F.linear(x.to(dt), self.weight.to(dt),
                         None if self.bias is None else self.bias.to(dt))
 

@@ -5,7 +5,13 @@ registry.  Submodules carry flax's scope names (``Conv_0``, ``Dense_0``,
 ``LayerNorm_0`` where JAX names none) so the weight bridge maps them one to
 one.  NetVLAD's and CRN's products run in fp32 (JAX's
 ``preferred_element_type``); they are plain ``einsum`` calls, as JAX's run
-outside any Pallas kernel.
+outside any Pallas kernel.  A NetVLAD built with ``dtype`` bf16 (behind a
+bf16 CCT) rounds the operands of its two products, the normalised
+descriptors with the assignment weights and the soft assignments with the
+descriptors, to bf16 and multiplies them in fp32, exactly (a product of
+two bf16 numbers is an fp32 number), with an fp32 result: the residuals
+are differences of near-equal sums that a bf16 result would lose.  The
+counts subtract the centroids under the same rounded assignments.
 """
 
 from __future__ import annotations
@@ -177,6 +183,11 @@ class RRM(nn.Module):
         return l2n(self.ln2(v + h))
 
 
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype``, held in fp32 (the identity at fp32)."""
+    return x.to(dtype).float()
+
+
 def _vlad(x, soft, centroids):
     """Residuals of descriptors ``x`` [B, N, C] against ``centroids``
     [K, C] under soft assignments [B, N, K]; intra-normalised, then
@@ -189,20 +200,23 @@ def _vlad(x, soft, centroids):
 
 class NetVLAD(nn.Module):
     """Soft assignment by a bias-free 1x1 conv (``assign_w`` [C, K]),
-    residual aggregation against ``centroids`` [K, C], intra-norm, L2."""
+    residual aggregation against ``centroids`` [K, C], intra-norm, L2;
+    the products' operands rounded to ``dtype`` (module docstring)."""
 
-    def __init__(self, clusters_num: int = 64, dim: int = 256):
+    def __init__(self, clusters_num: int = 64, dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.centroids = nn.Parameter(torch.empty(clusters_num, dim))
         self.assign_w = nn.Parameter(torch.empty(dim, clusters_num))
         self.init_std = {"centroids": 1.0, "assign_w": dim ** -0.5}
+        self.dtype = dtype
 
     def forward(self, x):  # [B, H, W, C] or [B, N, C]
         if x.ndim == 4:
             x = x.reshape(x.shape[0], -1, x.shape[-1])
-        x = l2n(x)
-        soft = torch.softmax(x.float() @ self.assign_w.float(), dim=-1)
-        return _vlad(x, soft, self.centroids)
+        x = _operand(l2n(x), self.dtype)
+        soft = torch.softmax(x @ _operand(self.assign_w, self.dtype), dim=-1)
+        return _vlad(x, _operand(soft, self.dtype), self.centroids)
 
     @staticmethod
     def init_from_kmeans(params: dict, centroids, descriptors=None,
@@ -267,10 +281,11 @@ POOLS = ("gem", "spoc", "mac", "rmac")
 class GlobalHead(nn.Module):
     """``--aggregation``: gem, spoc, mac, rmac, convap, cosplace, mixvpr,
     rrm, netvlad or crn over a [B, h, w, ``dim``] map (``hw`` = h * w,
-    MixVPR's width)."""
+    MixVPR's width); ``dtype`` reaches NetVLAD, the others are fp32."""
 
     def __init__(self, aggregation: str = "gem", dim: int = 256,
-                 netvlad_clusters: int = 64, hw: int = 0):
+                 netvlad_clusters: int = 64, hw: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.aggregation = agg = aggregation
         if agg == "gem":
@@ -285,9 +300,10 @@ class GlobalHead(nn.Module):
             self.mixvpr = MixVPR(dim, hw, out_channels=dim)
         elif agg == "rrm":
             self.rrm = RRM(dim)
-        elif agg in ("netvlad", "crn"):
-            setattr(self, agg, (NetVLAD if agg == "netvlad" else CRN)(
-                netvlad_clusters, dim))
+        elif agg == "netvlad":
+            self.netvlad = NetVLAD(netvlad_clusters, dim, dtype)
+        elif agg == "crn":
+            self.crn = CRN(netvlad_clusters, dim)
         else:
             raise NotImplementedError(f"aggregation={agg}")
 

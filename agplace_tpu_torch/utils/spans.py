@@ -22,7 +22,11 @@ The spans the program opens (``NAMES``):
   fusion, its head, the final sum);
 * ``train.forward`` (both towers and both losses), ``train.backward`` (the
   gradients cleared, then ``loss.backward()``), ``train.optimizer``
-  (``opt.step``).
+  (``opt.step``);
+* ``geoloc.tokenizer`` / ``geoloc.encoder`` (CCT's convs; its positional
+  add, layers and final LayerNorm), ``geoloc.attn`` (one a CCT layer: the
+  scores, their softmax and AV), ``geoloc.aggregation`` (a GeoLoc tower's
+  head, with its L2 placements).
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ import torch
 NAMES = frozenset({
     "entry.embed_queries", "entry.embed_db", "entry.train_step",
     "mm.image", "mm.voxel", "mm.fusion",
-    "train.forward", "train.backward", "train.optimizer"})
+    "train.forward", "train.backward", "train.optimizer",
+    "geoloc.tokenizer", "geoloc.encoder", "geoloc.attn",
+    "geoloc.aggregation"})
 RING = 1 << 16  # records kept between two drains
 
 _on = False

@@ -193,8 +193,8 @@ K6 has no path; only its parity is checked.
     launches, step wall time, peak memory; ``PlaceIndex.from_checkpoint``
     answers one request;
 24. [geoloc-families] every other backbone and head at b8 (ViT-B/16 and
-    CCT-14 at full depth): zero launches, 2 images against the CPU, ms
-    per forward;
+    CCT-14 at full depth, CCT's products in the run's bf16): zero
+    launches, 2 images against the CPU, ms per forward;
 25. [mm-imgfe] the MM beside a ResNet-50 DBVanilla2D behind a 512-tile
     ``PlaceIndex``, default and fused (exact launch counts, K5 on the
     ResNet-50 stem), against the CPU, ms per aerial forward beside
@@ -3698,8 +3698,8 @@ def phase_geoloc_families(base, dev, name):
         total = counts if total is None else {
             k: total[k] + v for k, v in counts.items()}
         del q, cpu_q, xg
-    log(f"[geoloc-families] {name}: b{FAMILY_BATCH} at {IMAGE} px, fp32, "
-        f"launches 0: " + json.dumps(rec))
+    log(f"[geoloc-families] {name}: b{FAMILY_BATCH} at {IMAGE} px, fp32 "
+        f"(CCT in the compute dtype), launches 0: " + json.dumps(rec))
     return total
 
 
