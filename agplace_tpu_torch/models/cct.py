@@ -13,7 +13,10 @@ the max-pools are exact in either, and the residual stream, the positional
 add and the pooling head stay fp32.  At bf16 the scores are rounded once
 by their product, and their scale (1/8 at the head size 64) is a power of
 two, so scaling them is exact.  At fp32 (JAX's, the default) every cast is
-the identity.
+the identity.  The attention core is ``ops/attention.attention_plain``,
+the eager einsum / softmax chain, except in bf16 inference, where it goes
+to ``ops/attention.fused_attention``: on the card one kernel that keeps
+the scores on chip, on the CPU the same eager chain.
 
 Stochastic depth draws, in JAX, from a ``dropout`` rng that its train step
 never passes, so JAX fails to train CCT at two layers or more (the rate of
@@ -29,6 +32,7 @@ from torch import nn
 
 from agplace_tpu_torch.models.layers import (Conv2d, Dense, LayerNorm, gelu,
                                              max_pool_nhwc)
+from agplace_tpu_torch.ops import attention
 from agplace_tpu_torch.utils.spans import span
 
 
@@ -116,11 +120,19 @@ class CCT(nn.Module):
         attn = torch.softmax(self.attention_pool(tokens), dim=1)
         return tokens, (attn * tokens).sum(dim=1)
 
+    def _fused(self, qkv) -> bool:
+        """Whether a layer's attention core goes to
+        ``attention.fused_attention`` (the kernel on the card, the eager
+        chain on the CPU): bf16 products in inference, where nothing needs
+        a gradient.  fp32 (JAX's, and training's), training mode and
+        autograd take ``attention.attention_plain``, the eager einsums."""
+        return (qkv.dtype == torch.bfloat16 and not self.training
+                and not (torch.is_grad_enabled() and qkv.requires_grad))
+
     def _encode(self, tokens):
         b, n, c = tokens.shape
         h = self.heads
         hd = c // h
-        scale = hd ** -0.5
         for i in range(self.num_layers):
             if self.training and self.dpr[i] > 0.0:
                 raise NotImplementedError(
@@ -129,11 +141,9 @@ class CCT(nn.Module):
                     "(agplace_tpu/models/cct.py:124-129)")
             y = getattr(self, f"pre_norm_{i}")(tokens)
             qkv = getattr(self, f"qkv_{i}")(y).reshape(b, n, 3, h, hd)
-            q, k, v = qkv.unbind(dim=2)
             with span("geoloc.attn"):
-                attn = torch.softmax(torch.einsum(
-                    "bnhd,bmhd->bhnm", q, k) * scale, dim=-1)
-                y = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+                y = (attention.fused_attention(qkv) if self._fused(qkv)
+                     else attention.attention_plain(qkv))
             y = getattr(self, f"proj_{i}")(y.reshape(b, n, c))
             tokens = getattr(self, f"norm1_{i}")(tokens + y)
             y = getattr(self, f"mlp2_{i}")(gelu(

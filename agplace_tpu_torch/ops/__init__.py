@@ -11,9 +11,13 @@ plain PyTorch versions beside them:
 * ``probe_down_v2.fused_down_concat``            P2 (csrc/probe_down_v2.cu)
 
 Beside them, ``bn_act.fused_bn_act`` (csrc/bn_act.cu) runs every eval
-ResNet epilogue on the card (``models/resnet.epilogue``); it ports no TPU
-kernel and stays out of ``kernels()`` until the benchmark's profile reader
-vouches for its launches.
+ResNet epilogue on the card (``models/resnet.epilogue``), and
+``attention.fused_attention`` (csrc/attention_sm90.cu) every bf16
+inference attention core of CCT (``models/cct.py``).  Neither ports a TPU
+kernel, and both stay out of ``kernels()``: the benchmark's profile reader
+vouches for a profile by the launches of what ``kernels()`` lists, and
+has no entry for theirs (the GeoLoc cell vouches by its LayerNorm calls
+and span rows instead).
 
 The default serving configuration runs K1-K3; ``bev_pallas_head`` swaps K2
 for K4, ``stem_pallas`` / ``db.stem_pallas`` run K5 in the image stems.  No

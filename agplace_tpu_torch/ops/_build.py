@@ -69,6 +69,8 @@ _SIGNATURES = {
     # x, r, y, scale, bias, scale_d, bias_d, n_vec, cv, fp32, res, then
     # bn_act.bn_act_grid's grid and block
     "agp_bn_act": [_P] * 7 + [_L] + [_I] * 5 + [_P],
+    # qkv, out, B, N, H, then the 4 fields of attention.AttentionTiling
+    "agp_attention": [_P] * 2 + [_I] * 7 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -68,6 +68,13 @@ K6 has no path; only its parity is checked.
    points); K4 against K2 (at z = 4 and 8) and K6 against K3's plain
    version, on the same inputs, must differ in more than 0.25 (their
    rounding points differ), so a kernel with the other's rounding fails;
+   [bn-act] the ResNet epilogue kernel bit-equal to the eager chain at the
+   embed cells' maps; [attention] CCT's attention kernel at
+   ``ops/attention.CHECK_SHAPES``, one launch a call, held to an fp32
+   attention no farther than the eager bf16 chain (``ERR_MARGIN``) and
+   near that chain (``ERR_APART``), timed by the profiler beside its
+   bound, the chain and ``F.scaled_dot_product_attention`` (a yardstick
+   only);
 4. [serving] the default path: a 512-tile aerial gallery and three search
    requests (1, 7 and 32 queries, k=5); [serving-fused] the fused path: its
    own 128-tile gallery and three requests.  Each checks shapes, a planted
@@ -415,6 +422,7 @@ SM90_KERNELS = {"zband K2 down0": "zband_sm90_kernelILi1ELb1ELi0E",
                 "K2 down0 GEMM": "down0_sm90_kernel",
                 "K4 fused head": "head_sm90_kernel",
                 "K4 window conv0": "head_conv0_sm90_kernel",
+                "CCT attention": "attention_kernel",
                 "P2 concat GEMM": "down_concat_sm90_kernel",
                 **{f"P1 conv phase {ph + 1} chunk {ch}":
                    f"p1_sm90_kernelILi{ch}ELi{ph}E"
@@ -1494,6 +1502,85 @@ def phase_bn_act(dev) -> dict:
     k = rec["by_cell"]["kitti360-embed-b128"]
     rec.update(ms=k["ms"], plain_ms=k["plain_ms"], library_ms=k["plain_ms"],
                bound_ms=k["bound_ms"], bound_by="bytes", share=k["share"])
+    return rec
+
+
+# fused_attention's launches on each main-path run that checks them, by path
+# (``phase_geoloc_families``): the kernels line's launches of its row
+ATTENTION = {}
+
+
+def phase_attention(dev) -> dict:
+    """The attention kernel at ``attention.CHECK_SHAPES``: one launch a
+    call, no farther from an fp32 attention than the eager bf16 chain it
+    replaces (the plain version) within ``ERR_MARGIN``, and within
+    ``ERR_APART`` of that chain; timed by the profiler's device time beside
+    its bound (``attention_core_work``'s count), the plain version and
+    ``F.scaled_dot_product_attention`` on [B, H, N, 64] views made
+    contiguous first (a yardstick the port never calls).  Returns the
+    kernels line's row, its times at the cell's shape; its launches are
+    the main paths' (``ATTENTION``), filled in by ``main``."""
+    import torch.nn.functional as F
+
+    from agplace_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rec = {"name": "fused_attention", "route": "cuda",
+           "source": "agplace_tpu_torch/csrc/attention_sm90.cu",
+           "replaces": "the eager einsum / scale / softmax / einsum chain of "
+                       "agplace_tpu_torch/models/cct.py (no TPU kernel: "
+                       "agplace_tpu/models/cct.py:102-106 leaves it to XLA)",
+           "by_shape": {}}
+    for b, n in attention.CHECK_SHAPES:
+        qkv = (torch.randn(b, n, 3, 6, 64, generator=g, device=dev)
+               * 1.5).to(torch.bfloat16)
+        exact = attention.attention_plain(qkv.float())
+        before = attention.fused_attention.launches
+        got = attention.fused_attention(qkv)
+        torch.cuda.synchronize()
+        if attention.fused_attention.launches - before != 1:
+            raise AssertionError("fused_attention: not one launch a call")
+        plain = attention.attention_plain(qkv)
+        k_err = attention.row_err(got, exact)
+        p_err = attention.row_err(plain, exact)
+        apart = attention.row_err(got, plain.float())
+        del exact
+        log(f"  fused_attention [{b},{n},3,6,64]: to fp32 widest / mean "
+            f"row {k_err[0]:.3g} / {k_err[1]:.3g}, eager chain "
+            f"{p_err[0]:.3g} / {p_err[1]:.3g}; to the chain {apart[0]:.3g} "
+            f"/ {apart[1]:.3g}")
+        if not bool(torch.isfinite(got).all()) or any(
+                kv > attention.ERR_MARGIN * pv
+                for kv, pv in zip(k_err, p_err)):
+            raise AssertionError(f"fused_attention [{b},{n}]: farther from "
+                                 f"the fp32 attention than the eager chain")
+        if apart[0] >= attention.ERR_APART:
+            raise AssertionError(f"fused_attention [{b},{n}]: {apart[0]} "
+                                 f"from the eager chain")
+        work = 4.0 * b * 6 * n * n * 64
+        bnd = bound(work, nbytes(qkv, got))
+        ms = device_ms(lambda: attention.fused_attention(qkv), n=20)
+        pms = device_ms(lambda: attention.attention_plain(qkv), n=5)
+        qh, kh, vh = (t.transpose(1, 2).contiguous()
+                      for t in qkv.unbind(dim=2))
+        lms = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                        n=20)
+        del qh, kh, vh, got, plain
+        row = {"ms": ms, "plain_ms": pms, "library_ms": lms, **bnd,
+               "share": bnd["bound_ms"] / ms, "tflop_s": work / ms / 1e9,
+               "err_to_fp32": k_err, "plain_err_to_fp32": p_err,
+               "err_to_plain": apart}
+        log(f"  fused_attention [{b},{n}]: {ms:.4f} ms by device ("
+            f"{row['tflop_s']:.1f} TFLOP/s, bound {bnd['bound_ms']:.4f} by "
+            f"{bnd['bound_by']}, share {row['share']:.3f}); plain {pms:.4f},"
+            f" scaled_dot_product_attention {lms:.4f}")
+        rec["by_shape"][f"{b}x{n}"] = row
+    cell = rec["by_shape"]["128x576"]
+    rec.update({x: cell[x] for x in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "share")})
+    rec.update(max_abs_err=None, frac_differ=None,
+               library_ms_is="F.scaled_dot_product_attention on contiguous "
+                             "[B, H, N, 64] q, k, v (the call alone)")
     return rec
 
 
@@ -3671,9 +3758,14 @@ def phase_geoloc_train(dev, name):
 
 def phase_geoloc_families(base, dev, name):
     """[geoloc-families]: each other backbone and head at b8 (ViT-B/16 and
-    CCT-14 at full depth), zero launches, 2 images against the CPU, ms per
+    CCT-14 at full depth), zero launches of ``ops.kernels()``, and
+    ``fused_attention`` once a CCT encoder layer in the bf16 compute dtype
+    (none elsewhere; ``ATTENTION``), 2 images against the CPU, ms per
     forward (median of 10)."""
     from agplace_tpu_torch import ops
+    from agplace_tpu_torch.infer import compute_dtype
+    from agplace_tpu_torch.models.cct import CCT
+    from agplace_tpu_torch.ops import attention
 
     rng = np.random.default_rng(31)
     x = rng.standard_normal((FAMILY_BATCH, IMAGE, IMAGE, 3)).astype(
@@ -3683,14 +3775,28 @@ def phase_geoloc_families(base, dev, name):
         cfg = geoloc_cfg(base, backbone=backbone, aggregation=agg)
         (q, _), (cpu_q, _) = family_towers(cfg, dev)
         xg = torch.from_numpy(x).to(dev)
+        # one launch a bf16 CCT encoder layer: CCT-14's 14 in cct384
+        want = sum(m.num_layers for m in q.modules() if isinstance(m, CCT)
+                   and compute_dtype(cfg) == torch.bfloat16)
+        if want != (14 if backbone == "cct384" else 0):
+            raise AssertionError(f"[geoloc-families] {backbone}: {want} "
+                                 f"bf16 CCT encoder layers")
         with torch.inference_mode():
             ops.reset_launches()  # ---- the path: one forward
+            attention.fused_attention.launches = 0
             out = q(xg)
             torch.cuda.synchronize()
             counts = ops.launches()  # ---- read just after the path
+            n_attn = attention.fused_attention.launches
             err = held_to_cpu(f"geoloc {backbone} {agg}", out[:FAMILY_CPU],
                               cpu_q(torch.from_numpy(x[:FAMILY_CPU])))
         zero_launches(f"geoloc-families {backbone} {agg}", counts)
+        if n_attn != want:
+            raise AssertionError(f"[geoloc-families] {backbone} {agg}: "
+                                 f"fused_attention launches {n_attn} != "
+                                 f"{want}")
+        if want:
+            ATTENTION[f"geoloc-families {backbone}+{agg}"] = n_attn
         ms, _ = timed_forward(lambda: q(xg), iters=10)
         rec[f"{backbone}+{agg}"] = {"dim": int(out.shape[1]),
                                     "cpu_err": round(err, 8),
@@ -3699,7 +3805,8 @@ def phase_geoloc_families(base, dev, name):
             k: total[k] + v for k, v in counts.items()}
         del q, cpu_q, xg
     log(f"[geoloc-families] {name}: b{FAMILY_BATCH} at {IMAGE} px, fp32 "
-        f"(CCT in the compute dtype), launches 0: " + json.dumps(rec))
+        f"(CCT in the compute dtype), ops launches 0, fused_attention "
+        f"launches {json.dumps(ATTENTION)}: " + json.dumps(rec))
     return total
 
 
@@ -5513,6 +5620,8 @@ def main() -> None:
         parity = phase_parity(dev, masks[32], masks[128], mask16)
         log("[bn-act] the ResNet epilogue kernel at the cells' maps")
         bn_act_row = phase_bn_act(dev)
+        log("[attention] CCT's attention kernel against the eager chain")
+        attention_row = phase_attention(dev)
 
     # ---- the default path: K1, K2, K3
     towers, cpu_towers, requests, counts = phase_serving(cfg, dev, N_TILES,
@@ -5682,6 +5791,11 @@ def main() -> None:
     if not bn_act_row["launches"]:
         raise AssertionError("no main path launched fused_bn_act")
     kernels.append(bn_act_row)
+    attention_row.update(launches=sum(ATTENTION.values()),
+                         launches_by_path=dict(ATTENTION))
+    if not attention_row["launches"]:
+        raise AssertionError("no main path launched fused_attention")
+    kernels.append(attention_row)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of wall time "
         f"(after imports)")
     print(json.dumps({"kernels": kernels}), flush=True)

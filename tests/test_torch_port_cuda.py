@@ -19,9 +19,10 @@ import torch
 from agplace_tpu_torch import kitti360_config, nuscenes_config, ops, \
     synthetic_config
 from agplace_tpu_torch.data.voxels import me_down_align
-from agplace_tpu_torch.ops import (bev_block, bev_block_sm, bev_down,
-                                   bev_head, ode_step, probe_block_sm_v2,
-                                   probe_down_v2, stem_pool)
+from agplace_tpu_torch.ops import (attention, bev_block, bev_block_sm,
+                                   bev_down, bev_head, ode_step,
+                                   probe_block_sm_v2, probe_down_v2,
+                                   stem_pool)
 from agplace_tpu_torch.sparse.bev_grid import BEVGrid, fold_w2_k2s2, \
     fold_w2_stride1
 
@@ -1424,3 +1425,76 @@ def test_bn_act_kernel_names_land_in_no_class_of_the_profile_reader(cuda):
         assert not any(re.search(p, name) for p in profiling.KERNEL.values())
         assert not re.search(CONV_KERNELS, name)
         assert profiling.classify(name) == "other", name
+
+
+# ---- CCT's attention kernel (ops/attention.py; its check's shapes, margins
+# and row error are that module's) -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", attention.CHECK_SHAPES)
+def test_attention_kernel_is_as_near_fp32_as_the_eager_chain(cuda, b, n):
+    g = torch.Generator(device=cuda).manual_seed(b * 1000 + n)
+    qkv = (torch.randn(b, n, 3, 6, 64, generator=g, device=cuda)
+           * 1.5).to(torch.bfloat16)
+    with torch.inference_mode():
+        before = attention.fused_attention.launches
+        got = attention.fused_attention(qkv)
+        assert attention.fused_attention.launches == before + 1
+        chain = attention.attention_plain(qkv)
+        exact = attention.attention_plain(qkv.float())
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, 6, 64) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    k_err, c_err = (attention.row_err(got, exact),
+                    attention.row_err(chain, exact))
+    assert k_err[0] <= attention.ERR_MARGIN * c_err[0], (k_err, c_err)
+    assert k_err[1] <= attention.ERR_MARGIN * c_err[1], (k_err, c_err)
+    assert attention.row_err(got, chain.float())[0] < attention.ERR_APART
+
+
+@pytest.mark.cuda
+def test_attention_kernel_reads_each_image_alone(cuda):
+    """A batch row's output does not change with its neighbours: TMA stops
+    at N, so no key of the next image leaks into a ragged tail."""
+    qkv = torch.randn(4, 100, 3, 6, 64, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        whole = attention.fused_attention(qkv)
+        for i in range(4):
+            alone = attention.fused_attention(qkv[i:i + 1].clone())
+            assert torch.equal(alone, whole[i:i + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fp32", "fp16", "d = 32", "not dense"])
+def test_attention_wrapper_raises_on_the_card(cuda, case):
+    qkv = torch.randn(2, 9, 3, 6, 64, device=cuda)
+    qkv = {"fp32": qkv, "fp16": qkv.half(),
+           "d = 32": qkv[..., :32].contiguous().to(torch.bfloat16),
+           "not dense": qkv.to(torch.bfloat16).transpose(0, 1)}[case]
+    before = attention.fused_attention.launches
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="must be bf16"):
+        attention.fused_attention(qkv)
+    assert attention.fused_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_cct_bf16_inference_launches_the_kernel_once_a_layer(cuda):
+    from agplace_tpu_torch.models.cct import CCT
+
+    m = CCT((64, 64), dtype=torch.bfloat16).to(cuda).eval()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.normal_(0.0, 0.02)
+    x = torch.randn(2, 64, 64, 3, device=cuda)
+    before = attention.fused_attention.launches
+    with torch.inference_mode():
+        tokens, pooled = m(x)
+    torch.cuda.synchronize()
+    assert attention.fused_attention.launches == before + 14
+    assert bool(torch.isfinite(pooled).all())
+    m2 = CCT((64, 64)).to(cuda).eval()  # fp32: the eager einsums
+    m2.load_state_dict(m.state_dict())
+    with torch.inference_mode():
+        m2(x)
+    assert attention.fused_attention.launches == before + 14
