@@ -50,7 +50,7 @@
 //     consumer warpgroups interleave one's prologue with the other's MMAs.
 //     One block per SM with 4 stages (129 KB): two blocks per SM at 3
 //     stages capped the registers at 96 and spilled, and measured slower
-//     (PERF.md, scripts/ablate_torch_stage0.py);
+//     (PERF.md section 6, PR 5);
 //   * the epilogue is K3's EPI 0 (store_tile) at the output resolution;
 //   * a persistent grid of one block per SM: a block walks tiles
 //     blockIdx.x, + gridDim.x, ..., its ring running on across them, so
@@ -68,7 +68,7 @@ namespace {
 
 using namespace agp;
 
-__global__ void __launch_bounds__(kSm90Threads, AGP_DOWN0_MIN_BLOCKS)
+__global__ void __launch_bounds__(kSm90Threads, kDown0MinBlocks)
     down0_sm90_kernel(const __grid_constant__ CUtensorMap tmap_g,
                       const __grid_constant__ CUtensorMap tmap_w,
                       Down0Params p) {

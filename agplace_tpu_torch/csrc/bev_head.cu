@@ -77,19 +77,10 @@
 
 #include "sm90.cuh"
 
-// Ablation switch of the resident instance, 0 unless set with -D: parts of
-// the work taken out (bit 1: the im2col copies, 2: conv0's MMAs, 4: down0's
-// MMAs, 8: the BN0 epilogue's arithmetic, 16: the Wd loads; results are
-// then wrong on purpose)
-#ifndef AGP_HEAD_SKIP
-#define AGP_HEAD_SKIP 0
-#endif
-
 namespace {
 
 using namespace agp;
 
-constexpr int kSkip = AGP_HEAD_SKIP;
 constexpr int kStages = 4;            // ring: 16 KB per stage
 constexpr int kStageBytes = 2 * kBoxBytes;
 constexpr int kMaxZC2 = 512;          // the down BN's affine, staged
@@ -233,7 +224,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
           tma_load_4d(halo + hb * kHaloBytes, &tmap_x, hbar, 0,
                       2 * yo0 - kHaloLead, 2 * xo0 - h, b);
         ring_produce<kStages>(full, empty, it * p.steps, p.steps,
-                              !kStream && (kSkip & 16) ? 0 : kStageBytes,
+                              kStageBytes,
                               [&](int i, int s, uint32_t bar) {
           const uint32_t sb = ring + s * kStageBytes;
           int wrow = i * 64;  // resident: step i is rows [64 i, 64 i + 64)
@@ -248,8 +239,6 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
               return;
             }
             wrow = par * p.zc1 + c * 64;
-          } else if (kSkip & 16) {
-            return;
           }
           tma_load_2d(sb, &tmap_wd, bar, n0, wrow);
           tma_load_2d(sb + kBoxBytes, &tmap_wd, bar, n0 + 64, wrow);
@@ -320,7 +309,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       const unsigned char* src =
           hsrc + (src_lane + dx * pitch + dy * zc0) * 2;
       named_sync(2 + wg, 128);  // the buffer's last MMAs are done
-      if (tap_lane && !(!kStream && (kSkip & 1))) {
+      if (tap_lane) {
 #pragma unroll 4
         for (int i = 0; i < 16; ++i) {
           const int R = warp * 16 + i;  // patch cell (R / 16, R % 16)
@@ -359,11 +348,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
           const float v1 =
               __fadd_rn(__fmul_rn(acc0[4 * jj + 2 * hh + 1], sc.y), bi.y);
           af[4 * (jj >> 1) + 2 * (jj & 1) + hh] =
-              !kStream && (kSkip & 8)
-                  ? pack_bf16x2(acc0[4 * jj + 2 * hh],
-                                acc0[4 * jj + 2 * hh + 1])
-                  : live ? pack_bf16x2(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f))
-                         : 0u;
+              live ? pack_bf16x2(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f)) : 0u;
         }
       }
     };
@@ -433,12 +418,11 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         const uint32_t w_box = w0s + (j % nch) * nks * kBoxBytes;
 #pragma unroll
         for (int kk = 0; kk < KP / 16; ++kk)
-          if (!(kSkip & 2))
-            wgmma_m64n64k16_ss(acc,
-                               a_desc(a_buf + (kk / 4) * kSlabBytes, wg,
-                                      kk % 4),
-                               b_desc(w_box + (kk / 4) * kBoxBytes, kk % 4),
-                               kk > 0);
+          wgmma_m64n64k16_ss(acc,
+                             a_desc(a_buf + (kk / 4) * kSlabBytes, wg,
+                                    kk % 4),
+                             b_desc(w_box + (kk / 4) * kBoxBytes, kk % 4),
+                             kk > 0);
       };
       // Chunk j: wait until C(j) and D(j - 1) retire; the BN0 epilogue
       // turns acc0 into af; then D(j) and C(j + 1) go to the tensor cores
@@ -463,10 +447,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          if (!(kSkip & 4))
-            wgmma_m64n128k16_rs(acc_d, &af[4 * kk],
-                                b_desc(ring + s * kStageBytes, kk),
-                                j > 0 || kk > 0);
+          wgmma_m64n128k16_rs(acc_d, &af[4 * kk],
+                              b_desc(ring + s * kStageBytes, kk),
+                              j > 0 || kk > 0);
         if constexpr (decltype(next)::value) conv0(j + 1, acc0);
         wgmma_commit();
       };

@@ -50,8 +50,7 @@
 //     fill overlap the other's main loop.  On an H100 80GB HBM3 this
 //     measured 1.23-1.26x faster than one block per SM with six stages,
 //     and 1.12-1.25x faster than two stages, at every shape it timed
-//     (scripts/ablate_torch_conv3x3.py, which builds this file with the
-//     AGP_CONV3X3_* switches below);
+//     (PERF.md section 6, PR 4);
 //   * the epilogue works from the accumulator registers with the JAX
 //     rounding points: bf16(acc), a bf16 multiply by bf16(scale), a bf16 add
 //     of bf16(bias), then relu * mask or the fp32 masked pool.
@@ -66,19 +65,6 @@
 // and passed as __grid_constant__ kernel parameters.
 #include "sm90.cuh"
 
-// Ablation switches, 0 / the shipped values unless set with -D: the ring's
-// depth, blocks per SM, and parts of the work taken out (bit 1: the x box,
-// 2: the weight boxes, 4: the MMAs; results are then wrong on purpose)
-#ifndef AGP_CONV3X3_STAGES
-#define AGP_CONV3X3_STAGES 3
-#endif
-#ifndef AGP_CONV3X3_MIN_BLOCKS
-#define AGP_CONV3X3_MIN_BLOCKS 2
-#endif
-#ifndef AGP_CONV3X3_SKIP
-#define AGP_CONV3X3_SKIP 0
-#endif
-
 namespace {
 
 using namespace agp;
@@ -88,11 +74,10 @@ constexpr int kABytes = kSlabBytes;  // the x box: 128 cells x 64 channels
 constexpr int kBBytes = 2 * kBoxBytes;  // two 64 x 64 weight boxes
 constexpr int kStageBytes = kABytes + kBBytes;  // 32 KB
 
-constexpr int kStages = AGP_CONV3X3_STAGES;  // per block
-constexpr int kMinBlocks = AGP_CONV3X3_MIN_BLOCKS;  // per SM
-constexpr int kSkip = AGP_CONV3X3_SKIP;
+constexpr int kStages = 3;     // per block
+constexpr int kMinBlocks = 2;  // per SM
 constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + 1 KB alignment
-constexpr int kTxBytes = (kSkip & 1 ? 0 : kABytes) + (kSkip & 2 ? 0 : kBBytes);
+constexpr int kTxBytes = kABytes + kBBytes;
 
 struct Conv3x3Params {
   const uint8_t* mask;  // [B, X, Y, z]
@@ -156,13 +141,10 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
         const int tap = k0 / p.cin, c0 = k0 - tap * p.cin;
         const int dx = tap / 3, dy = tap - 3 * dx;
         const uint32_t sa = ring + s * kStageBytes, sb = sa + kABytes;
-        if (!(kSkip & 1))
-          tma_load_4d(sa, &tmap_x, bar, c0, y0 + dy - 1, x0 + dx - 1, b);
+        tma_load_4d(sa, &tmap_x, bar, c0, y0 + dy - 1, x0 + dx - 1, b);
         // w [9*cin, cout]: two 64 x 64 boxes of 64 output channels each
-        if (!(kSkip & 2)) {
-          tma_load_2d(sb, &tmap_w, bar, n0, k0);
-          tma_load_2d(sb + kBoxBytes, &tmap_w, bar, n0 + 64, k0);
-        }
+        tma_load_2d(sb, &tmap_w, bar, n0, k0);
+        tma_load_2d(sb + kBoxBytes, &tmap_w, bar, n0 + 64, k0);
       });
     return;
   }
@@ -179,9 +161,8 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kSlab / 16; ++kk)
-          if (!(kSkip & 4))
-            wgmma_m64n128k16_ss(acc, a_desc(sa, wg, kk),
-                                b_desc(sa + kABytes, kk));
+          wgmma_m64n128k16_ss(acc, a_desc(sa, wg, kk),
+                              b_desc(sa + kABytes, kk));
       },
       [&] { fence_regs(acc); });
 

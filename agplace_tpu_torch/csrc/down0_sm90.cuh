@@ -9,24 +9,11 @@
 
 #include "sm90.cuh"
 
-// Ablation switches, the shipped values unless set with -D: the ring's
-// depth, blocks per SM, and parts of the work taken out (bit 1: the g box,
-// 2: the BN0 prologue, 4: the MMAs; results are then wrong on purpose).
-// Each .cu that includes this header takes its own values.
-#ifndef AGP_DOWN0_STAGES
-#define AGP_DOWN0_STAGES 4
-#endif
-#ifndef AGP_DOWN0_MIN_BLOCKS
-#define AGP_DOWN0_MIN_BLOCKS 1
-#endif
-#ifndef AGP_DOWN0_SKIP
-#define AGP_DOWN0_SKIP 0
-#endif
-
 namespace agp {
 
-constexpr int kDown0Stages = AGP_DOWN0_STAGES;
-constexpr int kDown0Skip = AGP_DOWN0_SKIP;
+// the ring's depth and blocks per SM (bev_down.cu says why)
+constexpr int kDown0Stages = 4;
+constexpr int kDown0MinBlocks = 1;
 constexpr int kDown0StageBytes = kSlabBytes + 2 * kBoxBytes;  // 32 KB
 constexpr int kDown0SmemBytes = kDown0Stages * kDown0StageBytes + 1024;
 // BN0's and the down BN's affines are staged in shared memory; a row's mask
@@ -99,14 +86,13 @@ __device__ __forceinline__ void down0_body(const CUtensorMap& tmap_w,
         int b, xo0, yo0, n0;
         patch(tile, b, xo0, yo0, n0);
         ring_produce<kDown0Stages>(
-            full, empty, it * p.steps, p.steps,
-            kDown0StageBytes - (kDown0Skip & 1 ? kSlabBytes : 0),
+            full, empty, it * p.steps, p.steps, kDown0StageBytes,
             [&](int k, int s, uint32_t bar) {
           const int k0 = k * kSlab;
           const int tap = k0 / p.zc1, c0 = k0 - tap * p.zc1;
           const uint32_t sa = ring + s * kDown0StageBytes,
                          sb = sa + kSlabBytes;
-          if (!(kDown0Skip & 1)) load_a(sa, bar, tap, c0, yo0, xo0, b);
+          load_a(sa, bar, tap, c0, yo0, xo0, b);
           tma_load_2d(sb, &tmap_w, bar, n0, k0);
           tma_load_2d(sb + kBoxBytes, &tmap_w, bar, n0 + 64, k0);
         });
@@ -178,9 +164,7 @@ __device__ __forceinline__ void down0_body(const CUtensorMap& tmap_w,
                   *reinterpret_cast<const __nv_bfloat162*>(&v[r]),
                   s_s0[ch >> 1]);
               t = __hmax2(__hadd2_rn(t, s_b0[ch >> 1]), zero2);
-              a[4 * kk + r] = kDown0Skip & 2
-                                  ? v[r]
-                                  : *reinterpret_cast<uint32_t*>(&t) & live;
+              a[4 * kk + r] = *reinterpret_cast<uint32_t*>(&t) & live;
             }
           }
           // all 16 fragments in registers before the MMAs: computed later,
@@ -190,9 +174,7 @@ __device__ __forceinline__ void down0_body(const CUtensorMap& tmap_w,
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kSlab / 16; ++kk)
-            if (!(kDown0Skip & 4))
-              wgmma_m64n128k16_rs(acc, &a[4 * kk],
-                                  b_desc(sa + kSlabBytes, kk));
+            wgmma_m64n128k16_rs(acc, &a[4 * kk], b_desc(sa + kSlabBytes, kk));
         },
         [&] {
           fence_regs(acc);

@@ -59,14 +59,6 @@
 
 #include "sm90.cuh"
 
-// Ablation switch, the shipped value unless set with -D: ABLATE 1 skips
-// the epilogue, 2 the MMAs, 3 the weight boxes' loads, 4 the epilogue's
-// TMA stores, 5 its staging of the affine and the mask (the results are
-// then wrong: for timing the parts only)
-#ifndef AGP_HEAD_CONV0_ABLATE
-#define AGP_HEAD_CONV0_ABLATE 0
-#endif
-
 namespace {
 
 using namespace agp;
@@ -184,15 +176,14 @@ __device__ __forceinline__ void store_h(const float (&acc)[64],
   // every thread is past the previous epilogue, whose stores have read
   // the staging buffer
   named_sync(2, kConsumers);
-  if (tid < kBN && AGP_HEAD_CONV0_ABLATE != 5) {
+  if (tid < kBN) {
     const int n = t.n0 + tid;
     const bool live = n < cout;
     st.sc[tid] = live ? p.s0[n] : 0.0f;
     st.bi[tid] = live ? p.b0[n] : 0.0f;
     st.slab[tid] = live ? n / p.c18 - za : 0;
   }
-  for (int i = tid; i < kTileM * ns && AGP_HEAD_CONV0_ABLATE != 5;
-       i += kConsumers) {
+  for (int i = tid; i < kTileM * ns; i += kConsumers) {
     const int cell = i / ns, sl = i - cell * ns;
     const int x = t.x0 + cell / kPY, y = t.y0 + cell % kPY;
     st.mask[cell * kMaxSlabs + sl] =
@@ -227,7 +218,7 @@ __device__ __forceinline__ void store_h(const float (&acc)[64],
   }
   fence_proxy_async();  // the writes, before the async proxy reads them
   named_sync(2, kConsumers);
-  if (tid == 0 && AGP_HEAD_CONV0_ABLATE != 4) {
+  if (tid == 0) {
     for (int hf = 0; hf < 2; ++hf)
       if (t.n0 + 64 * hf < cout)
         tma_store_4d(tmap_h, out + hf * (kTileM * 128), t.n0 + 64 * hf, t.y0,
@@ -279,12 +270,10 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
             tma_load_4d(hb + c * p.hstride, &tmap_x, hbar, c0 + 8 * c,
                         t.y0 - hk, t.x0 - hk, t.b);
           ring_produce<kStages>(
-              full, empty, k, p.steps,
-              AGP_HEAD_CONV0_ABLATE == 3 ? 0 : p.stage_bytes,
+              full, empty, k, p.steps, p.stage_bytes,
               [&](int i, int s, uint32_t bar) {
                 // tg taps (or pairs of taps) a step, two boxes each
                 for (int g = 0; g < p.tg; ++g) {
-                  if (AGP_HEAD_CONV0_ABLATE == 3) break;
                   const uint32_t sw = ring + s * p.stage_bytes +
                                       g * 2 * box_bytes;
                   int dx, dy;
@@ -326,7 +315,7 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
           // GEMM row 8 m + r of the warpgroup: halo cell (8 wg + m + dx,
           // r + dy)
           const uint32_t a0 = hb + ((8 * wg + dx) * p.yh + dy) * 16;
-          for (int kk = 0; kk < kk_n && AGP_HEAD_CONV0_ABLATE != 2; ++kk)
+          for (int kk = 0; kk < kk_n; ++kk)
             wgmma_m64n128k16_ss(acc,
                                 nosw_desc(a0 + 2 * kk * p.hstride, lbo, sbo),
                                 b_desc(sw, kk, box_bytes), 1);
@@ -339,8 +328,7 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
       // all of them)
       if (lane == 0) mbar_arrive(smem_u32(&hempty[hs]));
     }
-    if (AGP_HEAD_CONV0_ABLATE != 1)
-      store_h(acc, p, t, &tmap_h, out, epi, tid);
+    store_h(acc, p, t, &tmap_h, out, epi, tid);
   }
   if (tid == 0) bulk_wait();  // every store done before the block leaves
 }

@@ -50,13 +50,6 @@
 // ode_tiling), its one source; the host side checks it.
 #include "common.cuh"
 
-// Ablation switch, the shipped value unless set with -D: ABLATE 1 skips
-// the step's x copies, 2 its FMAs, 3 its grid barrier (the results are
-// then wrong: for timing the parts only)
-#ifndef AGP_ODE_GRID_ABLATE
-#define AGP_ODE_GRID_ABLATE 0
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -193,13 +186,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     float* dst = (p.n_steps - 1 - step) % 2 == 0 ? p.out : p.scratch;
     for (int r0 = 0; r0 < p.batch; r0 += rt) {
       // the row tile's x slice (rows past the batch: zeros)
-      if (AGP_ODE_GRID_ABLATE != 1)
-        for (int i = tid; i < rt * xq; i += kThreads) {
-          const int r = i / xq, c = i - r * xq;
-          const bool in = r0 + r < p.batch;
-          cp_async16(xs + r * xstride + 4 * c,
-                     src + (size_t)(in ? r0 + r : 0) * dim + k0 + 4 * c, in);
-        }
+      for (int i = tid; i < rt * xq; i += kThreads) {
+        const int r = i / xq, c = i - r * xq;
+        const bool in = r0 + r < p.batch;
+        cp_async16(xs + r * xstride + 4 * c,
+                   src + (size_t)(in ? r0 + r : 0) * dim + k0 + 4 * c, in);
+      }
       cp_async_all();
       __syncthreads();
       float acc[4][4];
@@ -207,7 +199,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
-      if (on && AGP_ODE_GRID_ABLATE != 2) {
+      if (on) {
         const float* xb = xs + gi * xstride;
         const float* wb = ws + 4 * cgi;
         for (int k4 = s; k4 < xq; k4 += ks) {
@@ -275,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();  // the shares' space is the next row tile's x slice
     }
-    if (step + 1 < p.n_steps && AGP_ODE_GRID_ABLATE != 3)
+    if (step + 1 < p.n_steps)
       arrive_wait(p.count, (unsigned)(step + 1) * gridDim.x);
   }
 }

@@ -40,7 +40,8 @@
 // across the shared memory of the whole card.
 // Rows are independent, so kRows is small enough that b32 already spreads
 // over several clusters.  The cluster size, kRows and kSplit were chosen by
-// timing (scripts/ablate_torch_ode.py, the AGP_ODE_* switches below).
+// timing every fitting choice of clusters of 2-16 blocks, 4-16 rows and 1,
+// 2 or 4 threads per output (PERF.md section 6, PR 7).
 // fp32 FMA throughout; the activation is a template parameter.  The launch
 // geometry comes from the wrapper (ops/ode_step.py: ode_tiling), its one
 // source; the host side here only checks it against the compiled
@@ -48,19 +49,6 @@
 #include <cooperative_groups.h>
 
 #include "sm90.cuh"
-
-// Ablation switches, the shipped values unless set with -D: blocks per
-// cluster (2, 4, 8 or 16), rows per cluster, threads per output (1, 2 or
-// 4)
-#ifndef AGP_ODE_CLUSTER
-#define AGP_ODE_CLUSTER 8
-#endif
-#ifndef AGP_ODE_ROWS
-#define AGP_ODE_ROWS 4
-#endif
-#ifndef AGP_ODE_SPLIT
-#define AGP_ODE_SPLIT 2
-#endif
 
 namespace {
 
@@ -70,9 +58,9 @@ using agp::mbar_init;
 using agp::mbar_wait;
 using agp::smem_u32;
 
-constexpr int kCluster = AGP_ODE_CLUSTER;
-constexpr int kRows = AGP_ODE_ROWS;
-constexpr int kSplit = AGP_ODE_SPLIT;
+constexpr int kCluster = 8;  // blocks per cluster
+constexpr int kRows = 4;     // rows of x per cluster
+constexpr int kSplit = 2;    // threads per output
 constexpr int kLaneCols = 32 / kSplit;  // a warp: kLaneCols x kSplit lanes
 // D steps: every instance's D is a multiple of kDimStep, up to kMaxDim
 constexpr int kDimStep = 128, kMaxDim = 512;
@@ -94,7 +82,7 @@ struct Ode {
   static constexpr int kSmemBytes =
       (kWFloats + kCols + 2 * kRows * kDim) * (int)sizeof(float);
   // whether the cluster / row tile / split fit the block's limits at this
-  // width (the ablation switches reach widths that do not)
+  // width
   static constexpr bool kValid =
       kDim % kCluster == 0 && kCols % kLaneCols == 0 && 32 % kSplit == 0 &&
       kThreads <= 1024 && kSeg % 4 == 0 && kSmemBytes <= 227 * 1024;
@@ -297,11 +285,7 @@ cudaError_t launch_dim(int dim, const float* x, const float* w,
     if (dim != DIM)
       return launch_dim<ACT, DIM + kDimStep>(dim, x, w, b, out, batch,
                                              n_steps, dt, grid, stream);
-    if constexpr (!Ode<DIM>::kValid)
-      return cudaErrorInvalidValue;
-    else
-      return launch<ACT, DIM>(x, w, b, out, batch, n_steps, dt, grid,
-                              stream);
+    return launch<ACT, DIM>(x, w, b, out, batch, n_steps, dt, grid, stream);
   }
 }
 

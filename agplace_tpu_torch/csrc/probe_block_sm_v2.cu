@@ -29,7 +29,8 @@
 //     and channels past Zcin, so ragged patches and Zcin = 32, 96, ... cost
 //     no address arithmetic.  One halo buffer: a block waits for the next
 //     slab's halo while the other block on its SM runs its MMAs, and the
-//     room goes to weight stages (a second buffer measured no faster);
+//     room goes to weight stages (a second buffer measured no faster,
+//     PERF.md section 6, PR 9);
 //   * a weight stage holds `chunk` taps -- the TPU kernel's concatenated
 //     group -- of KC input channels for the tile's 128 output channels: two
 //     3-D TMA boxes (64 columns, KC rows, chunk taps) of w viewed as [9,
@@ -44,10 +45,12 @@
 //     bytes between 8-row core groups: a 16 x 8 patch, so a core group is
 //     one x row of the patch, and kHY = 10.  The 128-byte swizzle is a
 //     function of the shared-memory address: the descriptor's base-offset
-//     field stays 0 at any start row (the ablation measured the field set
-//     to (start >> 7) & 7 wrong at every dy != 0).  Built with AGP_P1_SS=0
-//     (RS), each lane ldmatrix'es its rows at their swizzled offsets into
-//     wgmma's register fragment instead (an 8 x 16 patch, K3's);
+//     field stays 0 at any start row (set to (start >> 7) & 7 it gave
+//     wrong results at every dy != 0).  At chunk 3, the default, this
+//     design measured faster than each variant timed: the rows
+//     ldmatrix'ed into wgmma's register fragment (an 8 x 16 patch, K3's),
+//     halo rows of 16 cells, two halo buffers, two weight stages, and one
+//     block per SM with larger stages (PERF.md section 6, PR 9);
 //   * one producer warp keeps both rings full; two consumer warpgroups
 //     (64 rows each) issue wgmma m64n128k16 into one fp32 accumulator
 //     over all nine taps and every slab, rounded to bf16 once in the
@@ -58,66 +61,34 @@
 // boxes against the tiles this kernel is compiled for.
 #include "sm90.cuh"
 
-// Build switches, the shipped values unless set with -D (the ablation,
-// scripts/ablate_torch_probes.py, builds the others): the A route (1: SS
-// shifted descriptors, 0: RS ldmatrix), the SS halo box's y extent and
-// descriptor base-offset field (1: (start >> 7) & 7), blocks per SM (2:
-// KC 64 / 32 / 16 at chunk 1 / 3 / 9; 1: KC 64 / 64 / 32), halo buffers
-// and weight stages (0: as many as the block's shared memory holds besides
-// the halo buffers)
-#ifndef AGP_P1_SS
-#define AGP_P1_SS 1
-#endif
-#ifndef AGP_P1_HY
-#define AGP_P1_HY 10
-#endif
-#ifndef AGP_P1_BASE
-#define AGP_P1_BASE 0
-#endif
-#ifndef AGP_P1_MIN_BLOCKS
-#define AGP_P1_MIN_BLOCKS 2
-#endif
-#ifndef AGP_P1_HALOS
-#define AGP_P1_HALOS 1
-#endif
-#ifndef AGP_P1_STAGES
-#define AGP_P1_STAGES 0
-#endif
-
 namespace {
 
 using namespace agp;
 
-constexpr bool kSS = AGP_P1_SS != 0;
-constexpr int kPX = kSS ? 16 : 8, kPY = kSS ? 8 : 16;  // output patch
-constexpr int kHX = kPX + 2, kHY = kSS ? AGP_P1_HY : kPY + 2;  // halo box
-static_assert(kHY >= kPY + 2 && kHY <= 256, "the halo box's y extent");
+constexpr int kPX = 16, kPY = 8;        // output patch
+constexpr int kHX = kPX + 2, kHY = 10;  // halo box
 constexpr int kHaloTx = kHX * kHY * 128;  // bytes of one halo box
 constexpr int kHaloBytes = (kHaloTx + 1023) / 1024 * 1024;
-constexpr int kMinBlocks = AGP_P1_MIN_BLOCKS;
-static_assert(kMinBlocks == 1 || kMinBlocks == 2, "blocks per SM");
+constexpr int kMinBlocks = 2;  // per SM
 // the rings' share of a block's shared memory: two blocks per SM leave a
 // block about 110 KB besides its static scratch
-constexpr int kRingBudget = kMinBlocks == 2 ? 104 * 1024 : 200 * 1024;
+constexpr int kRingBudget = 104 * 1024;
 
 // Input channels and the number of weight stages at each chunk: KC shrinks
 // with the taps a stage holds, so that two blocks per SM (one block's
 // epilogue overlapping the other's MMAs) keep two stages or more
 template <int CHUNK>
-constexpr int kKC = kMinBlocks == 2 ? (CHUNK == 1 ? 64 : CHUNK == 3 ? 32 : 16)
-                    : CHUNK == 9    ? 32
-                                    : 64;
+constexpr int kKC = CHUNK == 1 ? 64 : CHUNK == 3 ? 32 : 16;
 template <int CHUNK>
 constexpr int kWBytes = CHUNK * kKC<CHUNK> * kTileN * 2;  // a weight stage
-constexpr int kHalos = AGP_P1_HALOS;
-// (two at least: a consumer releases a stage one step after reading it)
+constexpr int kHalos = 1;
+// as many weight stages as the budget holds besides the halo (two at
+// least: a consumer releases a stage one step after reading it)
 template <int CHUNK>
 constexpr int kWStages =
-    AGP_P1_STAGES ? AGP_P1_STAGES
-    : (kRingBudget - kHalos * kHaloBytes) / kWBytes<CHUNK> > 2
+    (kRingBudget - kHalos * kHaloBytes) / kWBytes<CHUNK> > 2
         ? (kRingBudget - kHalos * kHaloBytes) / kWBytes<CHUNK>
         : 2;
-static_assert(AGP_P1_STAGES != 1, "two weight stages at least");
 template <int CHUNK>
 constexpr int kSmemBytes =
     kHalos * kHaloBytes + kWStages<CHUNK> * kWBytes<CHUNK> + 1024;
@@ -132,14 +103,13 @@ struct P1Params {
   int npx, npy, ntn, nslab, steps, tiles;
 };
 
-// shared-memory descriptor of tap (dx, dy)'s A rows for warpgroup wg (SS):
+// shared-memory descriptor of tap (dx, dy)'s A rows for warpgroup wg:
 // patch rows 8 wg .. 8 wg + 7 start (8 wg + dx) * kHY + dy halo rows in,
 // one 8-row core group per patch row at a stride of kHY rows
 __device__ __forceinline__ uint64_t halo_desc(uint32_t halo, int wg, int dx,
                                               int dy, int kg) {
   const uint32_t a = halo + ((8 * wg + dx) * kHY + dy) * 128 + kg * 32;
-  const uint64_t base = AGP_P1_BASE ? (uint64_t)((a >> 7) & 7) << 49 : 0;
-  return sw128_desc(a, 16, kHY * 128) | base;
+  return sw128_desc(a, 16, kHY * 128);
 }
 
 template <int CHUNK, int EPI>
@@ -213,10 +183,6 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
 
   // ---- consumers: warpgroup wg owns GEMM rows [64 wg, 64 wg + 64)
   const int wg = tid / 128, warp = tid / 32, lane = tid & 31;
-  // RS: lane l ldmatrix'es row l % 8 (+8 for lanes 8-15, 24-31) of the
-  // warp's 16 rows -- patch cell (warp, r) -- 16-byte chunk l / 16 of a
-  // 16-channel K step
-  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
   const TileOut o = {p.out, p.mask, p.X, p.Y, p.cout, p.z};
   int it = 0;
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
@@ -232,66 +198,32 @@ __global__ void __launch_bounds__(kSm90Threads, kMinBlocks)
       if (i % GH == 0) mbar_wait(smem_u32(&hfull[hs]), (hk / NH) & 1);
       mbar_wait(smem_u32(&wfull[ws]), (k / S) & 1);
       const uint32_t hb = halo + hs * kHaloBytes, sw = wring + ws * WB;
-      if constexpr (kSS) {
-        wgmma_fence();
+      wgmma_fence();
 #pragma unroll
-        for (int ti = 0; ti < CHUNK; ++ti) {
-          const int tap = j * CHUNK + ti, dx = tap / 3, dy = tap - 3 * dx;
+      for (int ti = 0; ti < CHUNK; ++ti) {
+        const int tap = j * CHUNK + ti, dx = tap / 3, dy = tap - 3 * dx;
 #pragma unroll
-          for (int kk = 0; kk < KC / 16; ++kk)
-            wgmma_m64n128k16_ss(
-                acc, halo_desc(hb, wg, dx, dy, hh * (KC / 16) + kk),
-                b_desc(sw + ti * KC * 128, kk, WB / 2));
-        }
-        wgmma_commit();
-        // one MMA group stays in flight, except at a slab's last step,
-        // which drains so that its halo is released before the next
-        // slab's is awaited (a single halo buffer would deadlock else)
-        const bool slab_end = i % GH == GH - 1;
-        if (slab_end)
-          wgmma_wait<0>();
-        else
-          wgmma_wait<1>();
-        fence_regs(acc);
-        if (lane == 0) {
-          if (i % GH != 0)  // step i - 1 retired, and did not end a slab
-            mbar_arrive(smem_u32(&wempty[(k - 1) % S]));
-          if (slab_end) {
-            mbar_arrive(smem_u32(&wempty[ws]));
-            mbar_arrive(smem_u32(&hempty[hs]));
-          }
-        }
-      } else {
-        // a warpgroup writes the registers its wgmmas read only while none
-        // is in flight (ptxas serializes every wgmma otherwise): one tap's
-        // fragments, its MMAs, then wait
-#pragma unroll
-        for (int ti = 0; ti < CHUNK; ++ti) {
-          const int tap = j * CHUNK + ti, dx = tap / 3, dy = tap - 3 * dx;
-          const int hrow = (warp + dx) * kHY + r + dy;
-          uint32_t a[KC / 4];
-#pragma unroll
-          for (int kk = 0; kk < KC / 16; ++kk) {
-            uint32_t v[4];
-            ldmatrix_x4(v, hb + sw128_offset(hrow, 2 * (hh * (KC / 16) + kk)
-                                                       + (lane >> 4)));
-#pragma unroll
-            for (int q = 0; q < 4; ++q) a[4 * kk + q] = v[q];
-          }
-          fence_regs(a);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < KC / 16; ++kk)
-            wgmma_m64n128k16_rs(acc, &a[4 * kk],
-                                b_desc(sw + ti * KC * 128, kk, WB / 2));
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(acc);
-          fence_regs(a);
-        }
-        if (lane == 0) {
+        for (int kk = 0; kk < KC / 16; ++kk)
+          wgmma_m64n128k16_ss(
+              acc, halo_desc(hb, wg, dx, dy, hh * (KC / 16) + kk),
+              b_desc(sw + ti * KC * 128, kk, WB / 2));
+      }
+      wgmma_commit();
+      // one MMA group stays in flight, except at a slab's last step,
+      // which drains so that its halo is released before the next
+      // slab's is awaited (a single halo buffer would deadlock else)
+      const bool slab_end = i % GH == GH - 1;
+      if (slab_end)
+        wgmma_wait<0>();
+      else
+        wgmma_wait<1>();
+      fence_regs(acc);
+      if (lane == 0) {
+        if (i % GH != 0)  // step i - 1 retired, and did not end a slab
+          mbar_arrive(smem_u32(&wempty[(k - 1) % S]));
+        if (slab_end) {
           mbar_arrive(smem_u32(&wempty[ws]));
-          if (i % GH == GH - 1) mbar_arrive(smem_u32(&hempty[hs]));
+          mbar_arrive(smem_u32(&hempty[hs]));
         }
       }
     }

@@ -50,7 +50,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(agp::kSm90Threads, AGP_DOWN0_MIN_BLOCKS)
+__global__ void __launch_bounds__(agp::kSm90Threads, agp::kDown0MinBlocks)
     down_concat_sm90_kernel(const __grid_constant__ CUtensorMap tmap_g0,
                             const __grid_constant__ CUtensorMap tmap_g1,
                             const __grid_constant__ CUtensorMap tmap_g2,

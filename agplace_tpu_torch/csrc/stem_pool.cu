@@ -44,16 +44,10 @@
 // The launch geometry (channel tile, column tile, band, units, slot size,
 // grid) comes from the wrapper (ops/stem_pool.py: stem_pool_tiling), its
 // one source; the host side checks it against the shape and the kernel's
-// compiled limits.  Ablation switches: the ring's depth and blocks per SM
-// (-D AGP_STEM_*; scripts/ablate_torch_stem.py).
+// compiled limits.  The ring's depth and blocks per SM were chosen by
+// timing: 4 slots at 2 blocks per SM were the fastest at b32 and 3 % behind
+// 2 slots at b128 (PERF.md section 6, PR 8).
 #include "sm90.cuh"
-
-#ifndef AGP_STEM_STAGES
-#define AGP_STEM_STAGES 4
-#endif
-#ifndef AGP_STEM_MIN_BLOCKS
-#define AGP_STEM_MIN_BLOCKS 2
-#endif
 
 namespace {
 
@@ -65,8 +59,8 @@ constexpr int kRowPos = kThreads * kPos;  // positions of a unit's row
 constexpr int kMaxVec = 256;              // 8-channel vectors of a tile
 // the largest slot: (2 tw + 1) columns of ct vectors, tw * ct <= kRowPos
 constexpr int kMaxSlot = (2 * kRowPos + kMaxVec) * 16;
-constexpr int kStages = AGP_STEM_STAGES;
-constexpr int kMinBlocks = AGP_STEM_MIN_BLOCKS;
+constexpr int kStages = 4;                // ring slots of one input row
+constexpr int kMinBlocks = 2;             // per SM
 
 struct StemParams {
   const bf16* x;       // [B, H, W, C]

@@ -89,7 +89,7 @@ def _nvcc() -> str:
                        "are built from source with nvcc (CUDA toolkit)")
 
 
-def nvcc_cmd(*args: str) -> list:
+def _nvcc_cmd(*args: str) -> list:
     """An nvcc command with the port's flags (sm_90a, C++17, -O3, PIC)."""
     return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
             *args]
@@ -110,11 +110,11 @@ def build(force: bool = False) -> str:
     objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
             for s in cus]
     tmp = f"{LIB_PATH}.{tag}"
-    compiles = [nvcc_cmd("-c", "-Xptxas", "-v", "-o", o, s)
+    compiles = [_nvcc_cmd("-c", "-Xptxas", "-v", "-o", o, s)
                 for s, o in zip(cus, objs)]
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     try:
-        done = run_all(compiles)
+        done = _run_all(compiles)
         _run(link)
         with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as f:
             f.write("".join(done))
@@ -126,7 +126,7 @@ def build(force: bool = False) -> str:
     return LIB_PATH
 
 
-def run_all(cmds) -> list:
+def _run_all(cmds) -> list:
     """Run build commands all at once; their stderr, or raise.
     subprocess.run kills its own nvcc on a timeout."""
     with ThreadPoolExecutor(len(cmds)) as pool:

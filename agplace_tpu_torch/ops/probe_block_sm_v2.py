@@ -27,7 +27,7 @@ against K3.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,28 +38,24 @@ from agplace_tpu_torch.sparse import bev_grid as bg
 _BF16 = torch.bfloat16
 CHUNKS = (1, 3, 9)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
-# The conv phases' tiles: an output patch of 128 cells and BLOCK_N output
-# channels, K slabs of SLAB input channels (one 128-byte row of bf16 per
-# halo cell).  The kernel's build (its AGP_P1_SS and AGP_P1_MIN_BLOCKS
-# switches): the A route, "ss" reading each tap's rows of the halo through
-# shifted shared-memory descriptors (a 16 x 8 patch, halo rows of SS_HY
-# cells) or "rs" with ldmatrix into registers (an 8 x 16 patch, halo rows
-# of 18 cells), and BLOCKS_PER_SM resident blocks.
+# The conv phases' tiles, as the kernel is compiled: an output patch of
+# PATCH = 16 x 8 cells (128 GEMM rows) and BLOCK_N output channels, K slabs
+# of SLAB input channels (one 128-byte row of bf16 per halo cell), halo
+# rows of HY cells read by each tap through shifted shared-memory
+# descriptors, and BLOCKS_PER_SM resident blocks.  Two blocks per SM
+# measured 1.18-1.38x faster than one with larger stages (PERF.md section
+# 6, PR 9).
 BLOCK_N, SLAB = 128, 64
-ROUTE = "ss"
-SS_HY = 10
-PATCH = {"rs": (8, 16), "ss": (16, 8)}
+PATCH = (16, 8)
+HY = 10
 BLOCKS_PER_SM = 2
 
 
-def stage_channels(chunk: int, blocks_per_sm: int = BLOCKS_PER_SM) -> int:
-    """Input channels of a weight stage (``chunk`` taps of them): with two
-    blocks per SM a block has about 100 KB, so 64 at chunk 1, 32 at chunk
-    3 and 16 at chunk 9; with one, 64, 64 and 32 (chunk 9's nine taps of
-    64 channels, 144 KB, would leave no room for a second stage)."""
-    if blocks_per_sm == 2:
-        return SLAB // {1: 1, 3: 2, 9: 4}[chunk]
-    return 32 if chunk == 9 else SLAB
+def stage_channels(chunk: int) -> int:
+    """Input channels of a weight stage (``chunk`` taps of them): two
+    blocks per SM leave a block about 100 KB, so 64 at chunk 1, 32 at
+    chunk 3 and 16 at chunk 9."""
+    return SLAB // {1: 1, 3: 2, 9: 4}[chunk]
 
 
 @dataclass(frozen=True)
@@ -93,23 +89,18 @@ class ConcatConvTiling:
 
 
 def concat_conv_tiling(b: int, xd: int, yd: int, zci: int, zco: int,
-                       chunk: int, sms: int, route: str = ROUTE,
-                       hy: Optional[int] = None,
-                       blocks_per_sm: int = BLOCKS_PER_SM
-                       ) -> ConcatConvTiling:
-    """The persistent grid of ``blocks_per_sm`` blocks per SM (``sms``: the
-    card's SM count).  ``route``, ``hy`` (the SS halo's y extent) and
-    ``blocks_per_sm`` must be what the kernel was built with."""
-    px, py = PATCH[route]
-    hy = (py + 2 if route == "rs" else SS_HY) if hy is None else hy
-    kc = stage_channels(chunk, blocks_per_sm)
+                       chunk: int, sms: int) -> ConcatConvTiling:
+    """The persistent grid of ``BLOCKS_PER_SM`` blocks per SM (``sms``: the
+    card's SM count)."""
+    px, py = PATCH
+    kc = stage_channels(chunk)
     npx, npy, ntn = -(-xd // px), -(-yd // py), -(-zco // BLOCK_N)
     tiles = b * npx * npy * ntn
-    return ConcatConvTiling((zci, yd, xd, b), (SLAB, hy, px + 2, 1),
+    return ConcatConvTiling((zci, yd, xd, b), (SLAB, HY, px + 2, 1),
                             (zco, zci, 9), (BLOCK_N // 2, kc, chunk), npx,
                             npy, ntn, -(-zci // SLAB) * (9 // chunk)
                             * (SLAB // kc), tiles,
-                            min(tiles, sms * blocks_per_sm))
+                            min(tiles, sms * BLOCKS_PER_SM))
 
 
 def concat_conv_coords(t: ConcatConvTiling, tile: int, step: int):

@@ -7,16 +7,20 @@ Disassembles both libraries with ``cuobjdump -sass`` (CUDA toolkit), splits
 them into kernels on "Function : " and strips addresses and encodings.
 For each NAME, the kernels whose mangled names hold it are paired in
 order between the builds (a kernel's mangled name changes with the
-namespace of its parameter types); without NAMEs, every kernel of the
-same mangled name in both.  Prints for each pair whether its instructions
-are identical, with the instruction counts and the number of differing
-lines.  Exits 1 if a NAME matches a different number of kernels in the
-two builds or a pair differs.
+namespace of its parameter types); without NAMEs, every kernel by its
+mangled name, less the hash nvcc puts in the name of a source's anonymous
+namespace (``_GLOBAL__N__<hash>_``: two builds of one unchanged source
+can differ there).  Prints for each pair whether its instructions are
+identical, with the instruction counts and the number of differing lines.
+Exits 1 if a NAME matches a different number of kernels in the two
+builds, if without NAMEs a kernel is in one build only, or if a pair
+differs.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -27,6 +31,9 @@ def cuobjdump() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise SystemExit("compare_torch_sass: cuobjdump not found")
+
+
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
 
 
 def kernels(lib: str) -> dict:
@@ -60,7 +67,14 @@ def main() -> None:
                 sys.exit(1)
             pairs += list(zip(a, b))
     else:
-        pairs = [(n, n) for n in sorted(set(old) & set(new))]
+        by_old = {ANON.sub("_GLOBAL__N__", n): n for n in old}
+        by_new = {ANON.sub("_GLOBAL__N__", n): n for n in new}
+        if by_old.keys() != by_new.keys():
+            print(f"in one build only: old "
+                  f"{sorted(by_old.keys() - by_new.keys())}, new "
+                  f"{sorted(by_new.keys() - by_old.keys())}")
+            sys.exit(1)
+        pairs = [(by_old[k], by_new[k]) for k in sorted(by_old)]
     bad = 0
     for na, nb in pairs:
         a, b = old[na], new[nb]

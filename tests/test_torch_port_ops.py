@@ -5,8 +5,13 @@ against the JAX Pallas functions run as the JAX tests run them on the CPU
 (interpret mode), at small shapes, from the same numpy inputs.  CPU calls
 must leave the launch counters at 0.  The kernels themselves are compared
 with their plain versions on the card in ``test_torch_port_cuda.py``; K3's
-conv phases' launch geometry is replayed here on the CPU.
+conv phases' launch geometry is replayed here on the CPU, and every kernel
+source is scanned for build switches: each compiles one design.
 """
+
+import glob
+import os
+import re
 
 import numpy as np
 import pytest
@@ -402,3 +407,25 @@ def test_build_raises_without_nvcc(monkeypatch):
                         lambda p: False)  # no toolkit, no built library
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+# --------------------------------------------------- one design per source
+CSRC = sorted(os.path.basename(p)
+              for p in glob.glob(os.path.join(_build.SRC_DIR, "*.cu*")))
+CONDITIONAL = re.compile(r"^\s*#\s*(if|ifdef|ifndef|elif|else|endif)\b",
+                         re.MULTILINE)
+
+
+def test_the_scan_sees_every_kernel_source():
+    assert set(CSRC) >= {"probe_block_sm_v2.cu", "down0_sm90.cuh",
+                         "sm90.cuh", "ode_step.cu"}
+    assert set(CSRC) == {os.path.basename(p) for p in _build._sources()}
+
+
+@pytest.mark.parametrize("name", CSRC)
+def test_kernel_source_compiles_one_design(name):
+    """Every kernel source builds exactly the design that ships: no
+    preprocessor conditional and no build switch a ``-D`` could set."""
+    src = open(os.path.join(_build.SRC_DIR, name)).read()
+    assert not CONDITIONAL.findall(src)
+    assert "AGP_" not in src

@@ -13,9 +13,9 @@ in float64, so every sum is exact:
   equals ``down_concat_plain``;
 * P1: the halo box, written into a NaN-filled buffer of the kernel's
   shared-memory size, and each tap's rows ``(px+dx)*HY + py+dy`` of it
-  reproduce ``_conv3x3_concat`` at chunk 1, 3 and 9, for both A routes'
-  patch shapes, with ragged patches and Z*C = 96 (zero-filled channels and
-  a ragged N tile);
+  reproduce ``_conv3x3_concat`` at chunk 1, 3 and 9, with ragged patches,
+  Z*C = 96 (zero-filled channels and a ragged N tile) and full multi-tile
+  maps;
 * both width rules take every width the parent took.
 """
 
@@ -173,7 +173,7 @@ def test_p2_gemm_checks_its_arguments():
 
 
 # --------------------------------------------------------------------- P1
-def _replay_concat_conv(b, xd, yd, zci, zco, chunk, route, hy, blocks):
+def _replay_concat_conv(b, xd, yd, zci, zco, chunk):
     """Walk ``concat_conv_tiling``'s tiles block by block as the persistent
     kernel does.  At a slab's first stage the halo box is written into a
     NaN-filled buffer of the kernel's halo size (its rows rounded up to
@@ -181,10 +181,9 @@ def _replay_concat_conv(b, xd, yd, zci, zco, chunk, route, hy, blocks):
     stage's KC channels) against the stage's two w boxes of that tap."""
     x = _ints((b, xd, yd, zci), 0)
     w = _ints((3, 3, zci, zco), 1)
-    t = p1.concat_conv_tiling(b, xd, yd, zci, zco, chunk, 5, route=route,
-                              hy=hy, blocks_per_sm=blocks)
-    px, py = p1.PATCH[route]
-    kc = p1.stage_channels(chunk, blocks)
+    t = p1.concat_conv_tiling(b, xd, yd, zci, zco, chunk, 5)
+    px, py = p1.PATCH
+    kc = p1.stage_channels(chunk)
     hy = t.x_box[1]
     assert t.patch == (px, py) and px * py == 128
     assert t.x_dims == (zci, yd, xd, b) and t.x_box == (64, hy, px + 2, 1)
@@ -194,7 +193,7 @@ def _replay_concat_conv(b, xd, yd, zci, zco, chunk, route, hy, blocks):
                                      -(-zco // 128))
     assert t.steps == -(-zci // 64) * (9 // chunk) * (64 // kc)
     assert t.tiles == b * t.npx * t.npy * t.ntn
-    assert t.grid == min(t.tiles, 5 * blocks)
+    assert t.grid == min(t.tiles, 5 * p1.BLOCKS_PER_SM)
     # the kernel takes the geometry as is: 7 pointers, epi, chunk, z, the
     # fields
     assert len(_build._SIGNATURES["agp_p1_conv_sm90"]) == \
@@ -240,26 +239,23 @@ def _replay_concat_conv(b, xd, yd, zci, zco, chunk, route, hy, blocks):
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 9])
-@pytest.mark.parametrize("route,hy,blocks", [("ss", 10, 2), ("ss", 16, 2),
-                                             ("rs", None, 2),
-                                             ("rs", None, 1)])
 @pytest.mark.parametrize("b,xd,yd,zci,zco", [
     (2, 12, 20, 128, 256),  # ragged patches, two K slabs, two N tiles
     (1, 9, 9, 96, 96),      # Z*C = 96: a slab and an N tile zero-filled
     (1, 4, 4, 64, 128),     # a map smaller than the patch
+    (2, 17, 9, 192, 64),    # ragged in x and y, three K slabs
+    (1, 16, 16, 256, 256),  # a full multi-tile map, two N tiles
 ])
 def test_p1_halo_and_tap_rows_replay_the_concat_conv(b, xd, yd, zci, zco,
-                                                     chunk, route, hy,
-                                                     blocks):
-    """Both A routes' patches (ss with the shipped and a padded halo
-    pitch), and the stage sizes of two blocks per SM and of one."""
-    _replay_concat_conv(b, xd, yd, zci, zco, chunk, route, hy, blocks)
+                                                     chunk):
+    """The shipped patch, halo pitch and stage sizes at every chunk."""
+    _replay_concat_conv(b, xd, yd, zci, zco, chunk)
 
 
 def test_p1_shipped_route_is_a_replayed_one():
-    assert p1.ROUTE in p1.PATCH
     t = p1.concat_conv_tiling(32, 64, 64, 128, 128, 3, 132)
-    assert t.patch == p1.PATCH[p1.ROUTE]
+    assert t.patch == p1.PATCH
+    assert t.x_box[1] == p1.HY
     assert t.grid == 132 * p1.BLOCKS_PER_SM
     assert t.tiles == 32 * 64 * 64 // 128
     assert t.steps == 2 * 3 * 64 // p1.stage_channels(3)
