@@ -16,7 +16,14 @@ two, so scaling them is exact.  At fp32 (JAX's, the default) every cast is
 the identity.  The attention core is ``ops/attention.attention_plain``,
 the eager einsum / softmax chain, except in bf16 inference, where it goes
 to ``ops/attention.fused_attention``: on the card one kernel that keeps
-the scores on chip, on the CPU the same eager chain.
+the scores on chip, on the CPU the same eager chain.  In bf16 inference
+too, each seam between layers (the residual add of a branch into the
+stream, the LayerNorm after it and the rounding of that norm to the next
+Dense's operand) is one ``LayerNorm`` call on
+``ops/residual_layer_norm.fused_residual_layer_norm``: mlp2's branch is
+added by the next layer's ``pre_norm`` (the last one by ``ln_f``), and
+``pre_norm`` and ``norm1`` hand their Dense its bf16 operand.  The
+stream and the norms stay fp32.
 
 Stochastic depth draws, in JAX, from a ``dropout`` rng that its train step
 never passes, so JAX fails to train CCT at two layers or more (the rate of
@@ -88,6 +95,7 @@ class CCT(nn.Module):
         super().__init__()
         c = embed_dim
         self.heads, self.num_layers = num_heads, num_layers
+        self.dtype = dtype
         self.tokenizer = CCTTokenizer(c, dtype=dtype)
         n = tokenizer_side(image_hw[0]) * tokenizer_side(image_hw[1])
         if positional_embedding == "learnable":
@@ -129,24 +137,58 @@ class CCT(nn.Module):
         return (qkv.dtype == torch.bfloat16 and not self.training
                 and not (torch.is_grad_enabled() and qkv.requires_grad))
 
-    def _encode(self, tokens):
-        b, n, c = tokens.shape
+    def _fused_seams(self, tokens) -> bool:
+        """Whether the seams between layers go to
+        ``residual_layer_norm.fused_residual_layer_norm`` (``_encode_fused``):
+        ``_fused``'s rule, asked before the first product, of the stream
+        and every parameter.  Elsewhere ``_encode`` keeps the eager add,
+        LayerNorm and cast."""
+        return (self.dtype == torch.bfloat16 and not self.training
+                and not (torch.is_grad_enabled() and (
+                    tokens.requires_grad
+                    or any(p.requires_grad for p in self.parameters()))))
+
+    def _attend(self, i, x):
+        """Layer i's attention from its normed input: qkv, the core,
+        proj; the branch [B, N, C] in the products' dtype."""
+        b, n, c = x.shape
         h = self.heads
-        hd = c // h
+        qkv = getattr(self, f"qkv_{i}")(x).reshape(b, n, 3, h, c // h)
+        with span("geoloc.attn"):
+            y = (attention.fused_attention(qkv) if self._fused(qkv)
+                 else attention.attention_plain(qkv))
+        return getattr(self, f"proj_{i}")(y.reshape(b, n, c))
+
+    def _mlp(self, i, x):
+        return getattr(self, f"mlp2_{i}")(gelu(
+            getattr(self, f"mlp1_{i}")(x)))
+
+    def _encode(self, tokens):
+        if self._fused_seams(tokens):
+            return self._encode_fused(tokens)
         for i in range(self.num_layers):
             if self.training and self.dpr[i] > 0.0:
                 raise NotImplementedError(
                     "CCT stochastic depth in training: JAX's train step "
                     "passes no 'dropout' rng and fails here "
                     "(agplace_tpu/models/cct.py:124-129)")
-            y = getattr(self, f"pre_norm_{i}")(tokens)
-            qkv = getattr(self, f"qkv_{i}")(y).reshape(b, n, 3, h, hd)
-            with span("geoloc.attn"):
-                y = (attention.fused_attention(qkv) if self._fused(qkv)
-                     else attention.attention_plain(qkv))
-            y = getattr(self, f"proj_{i}")(y.reshape(b, n, c))
+            y = self._attend(i, getattr(self, f"pre_norm_{i}")(tokens))
             tokens = getattr(self, f"norm1_{i}")(tokens + y)
-            y = getattr(self, f"mlp2_{i}")(gelu(
-                getattr(self, f"mlp1_{i}")(tokens)))
-            tokens = tokens + y
+            tokens = tokens + self._mlp(i, tokens)
         return self.ln_f(tokens)
+
+    def _encode_fused(self, tokens):
+        """``_encode`` with one LayerNorm call a seam: the same values, the
+        stream's add deferred into the next norm, each Dense after a norm
+        handed its bf16 operand."""
+        y = None  # mlp2's branch, not yet added to the stream
+        for i in range(self.num_layers):
+            pre = getattr(self, f"pre_norm_{i}")
+            if y is None:
+                _, a = pre(tokens, stream=None, operand=True)
+            else:
+                tokens, a = pre(tokens, y, stream="sum", operand=True)
+            y = self._attend(i, a)
+            tokens, a = getattr(self, f"norm1_{i}")(tokens, y, operand=True)
+            y = self._mlp(i, a)
+        return self.ln_f(tokens) if y is None else self.ln_f(tokens, y)[0]

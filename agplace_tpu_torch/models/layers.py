@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from agplace_tpu_torch.ops import residual_layer_norm
+
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, stride: int = 1,
@@ -81,15 +83,28 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis.  Called on x alone it is
+    ``F.layer_norm``.  CCT's bf16 inference asks for more at its seams
+    between layers (``models/cct.py``): the norm of the stream x +
+    ``residual`` through ``ops/residual_layer_norm.
+    fused_residual_layer_norm`` (one kernel on the card, the eager chain on
+    the CPU), which returns (t = x + residual when ``stream`` is "sum",
+    LN(t) when "normed", None when None; bf16(LN(t)) when ``operand``,
+    else None)."""
+
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.eps = eps
 
-    def forward(self, x):
-        return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
+    def forward(self, x, residual=None, stream: Optional[str] = "normed",
+                operand: bool = False):
+        if residual is None and stream == "normed" and not operand:
+            return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), self.eps)
+        return residual_layer_norm.fused_residual_layer_norm(
+            x, self.weight, self.bias, self.eps, residual, stream, operand)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -11,13 +11,17 @@ plain PyTorch versions beside them:
 * ``probe_down_v2.fused_down_concat``            P2 (csrc/probe_down_v2.cu)
 
 Beside them, ``bn_act.fused_bn_act`` (csrc/bn_act.cu) runs every eval
-ResNet epilogue on the card (``models/resnet.epilogue``), and
+ResNet epilogue on the card (``models/resnet.epilogue``),
 ``attention.fused_attention`` (csrc/attention_sm90.cu) every bf16
-inference attention core of CCT (``models/cct.py``).  Neither ports a TPU
-kernel, and both stay out of ``kernels()``: the benchmark's profile reader
-vouches for a profile by the launches of what ``kernels()`` lists, and
-has no entry for theirs (the GeoLoc cell vouches by its LayerNorm calls
-and span rows instead).
+inference attention core of CCT (``models/cct.py``), and
+``residual_layer_norm.fused_residual_layer_norm``
+(csrc/residual_layer_norm.cu) every seam between CCT's bf16 inference
+layers: the residual add, the LayerNorm and the next Dense's bf16 operand
+(29 a CCT-14 forward, through ``models/layers.LayerNorm``).  None of the
+three ports a TPU kernel, and all stay out of ``kernels()``: the
+benchmark's profile reader vouches for a profile by the launches of what
+``kernels()`` lists, and has no entry for theirs (the GeoLoc cell vouches
+by its LayerNorm calls and span rows instead).
 
 The default serving configuration runs K1-K3; ``bev_pallas_head`` swaps K2
 for K4, ``stem_pallas`` / ``db.stem_pallas`` run K5 in the image stems.  No

@@ -71,6 +71,9 @@ _SIGNATURES = {
     "agp_bn_act": [_P] * 7 + [_L] + [_I] * 5 + [_P],
     # qkv, out, B, N, H, then the 4 fields of attention.AttentionTiling
     "agp_attention": [_P] * 2 + [_I] * 7 + [_P],
+    # x, r, gamma, beta, out, operand, rows, C, eps, keep_sum, then
+    # residual_layer_norm.ln_grid's grid and block
+    "agp_residual_layer_norm": [_P] * 6 + [_L, _I, _F] + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

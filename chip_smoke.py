@@ -74,7 +74,11 @@ K6 has no path; only its parity is checked.
    attention no farther than the eager bf16 chain (``ERR_MARGIN``) and
    near that chain (``ERR_APART``), timed by the profiler beside its
    bound, the chain and ``F.scaled_dot_product_attention`` (a yardstick
-   only);
+   only); [residual-layer-norm] CCT's seam kernel in each of its outputs
+   at [128 x 576, 384] and odd row counts: t bit-equal to the eager chain,
+   LN(t) within ``LN_ATOL``, the bf16 operand equal on ``OPERAND_EQUAL`` of
+   the elements and one ulp (or ``LN_ATOL``) off elsewhere, timed beside
+   its byte bound and the eager chain;
 4. [serving] the default path: a 512-tile aerial gallery and three search
    requests (1, 7 and 32 queries, k=5); [serving-fused] the fused path: its
    own 128-tile gallery and three requests.  Each checks shapes, a planted
@@ -201,6 +205,7 @@ K6 has no path; only its parity is checked.
     answers one request;
 24. [geoloc-families] every other backbone and head at b8 (ViT-B/16 and
     CCT-14 at full depth, CCT's products in the run's bf16): zero
+    launches of ``ops.kernels()``, CCT-14's 14 attention and 29 seam
     launches, 2 images against the CPU, ms per forward;
 25. [mm-imgfe] the MM beside a ResNet-50 DBVanilla2D behind a 512-tile
     ``PlaceIndex``, default and fused (exact launch counts, K5 on the
@@ -1581,6 +1586,103 @@ def phase_attention(dev) -> dict:
     rec.update(max_abs_err=None, frac_differ=None,
                library_ms_is="F.scaled_dot_product_attention on contiguous "
                              "[B, H, N, 64] q, k, v (the call alone)")
+    return rec
+
+
+# fused_residual_layer_norm's launches on each main-path run that checks
+# them, by path (``phase_geoloc_families``): the kernels line's launches of
+# its row
+RESIDUAL_LN = {}
+# the outputs CCT-14's bf16 forward asks of the seams, (stream, operand,
+# with a residual): its calls of each at pre_norm_0, pre_norm_1..13,
+# norm1_0..13 and ln_f
+LN_SEAMS = {"operand, no residual": ((None, True, False), 1),
+            "sum+operand": (("sum", True, True), 13),
+            "normed+operand": (("normed", True, True), 14),
+            "normed": (("normed", False, True), 1)}
+
+
+def phase_residual_layer_norm(dev) -> dict:
+    """CCT's residual LayerNorm kernel in each of its outputs at the GeoLoc
+    cell's [128 x 576, 384] and at odd row counts: one launch a call, t
+    bit-equal to the eager chain, LN(t) within ``LN_ATOL`` and the bf16
+    operand equal on ``OPERAND_EQUAL`` of the elements, one ulp (or
+    ``LN_ATOL``) off elsewhere (``close_to_chain``); timed at the cell's shape by the profiler's device time
+    beside its byte bound and the eager chain it replaces (the add,
+    ``F.layer_norm`` and the cast).  Returns the kernels line's row, its
+    times summed over one CCT-14 forward's 29 seams; its launches are the
+    main paths' (``RESIDUAL_LN``), filled in by ``main``."""
+    from agplace_tpu_torch.ops import residual_layer_norm as rln
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    c, cell_rows = 384, 128 * 576
+    rec = {"name": "fused_residual_layer_norm", "route": "cuda",
+           "source": "agplace_tpu_torch/csrc/residual_layer_norm.cu",
+           "replaces": "the eager residual add, F.layer_norm and bf16 cast "
+                       "at the seams of agplace_tpu_torch/models/cct.py (no "
+                       "TPU kernel: XLA fuses the chain)",
+           "by_mode": {}, "max_abs_err": 0.0, "frac_differ": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0}
+    for mode, ((stream, operand, res), uses) in LN_SEAMS.items():
+        for rows in (cell_rows, 1, 7, 1731, 100003):
+            x = torch.randn(rows, c, generator=g, device=dev) * 3.0 + 0.5
+            r = ((torch.randn(rows, c, generator=g, device=dev) * 2.0).to(
+                torch.bfloat16) if res else None)
+            w = torch.rand(c, generator=g, device=dev) * 2.0 - 0.5
+            b = torch.randn(c, generator=g, device=dev) * 0.3
+            args = (x, w, b, 1e-5, r, stream, operand)
+            before = rln.fused_residual_layer_norm.launches
+            got = rln.fused_residual_layer_norm(*args)
+            torch.cuda.synchronize()
+            if rln.fused_residual_layer_norm.launches - before != 1:
+                raise AssertionError("fused_residual_layer_norm: not one "
+                                     "launch a call")
+            want = rln.residual_layer_norm_plain(*args)
+            gap = rln.chain_gap(got, want)
+            log(f"  fused_residual_layer_norm {mode} [{rows},{c}]: {gap}")
+            if stream == "sum" and not torch.equal(
+                    got[0].view(torch.int32), want[0].view(torch.int32)):
+                raise AssertionError(f"fused_residual_layer_norm {mode} "
+                                     f"[{rows}]: t is not the eager sum")
+            if not rln.close_to_chain(gap, stream, operand):
+                raise AssertionError(f"fused_residual_layer_norm {mode} "
+                                     f"[{rows}]: {gap}")
+            if stream == "normed":
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         gap["stream_max_abs"])
+            if operand:
+                rec["frac_differ"] = max(rec["frac_differ"],
+                                         1.0 - gap["operand_equal"])
+            if rows != cell_rows:
+                continue
+            moved = nbytes(x, *(t for t in (r, *got) if t is not None))
+            del got, want
+            ms = device_ms(lambda: rln.fused_residual_layer_norm(*args),
+                           n=20)
+            pms = device_ms(lambda: rln.residual_layer_norm_plain(*args),
+                            n=10)
+            bnd = bound(0.0, moved)["bound_ms"]
+            row = {"ms": ms, "plain_ms": pms, "bound_ms": bnd,
+                   "bytes": moved, "share": bnd / ms,
+                   "tb_s": moved / ms / 1e9, "per_forward": uses, **gap}
+            log(f"  fused_residual_layer_norm {mode} [{rows},{c}] x{uses}: "
+                f"{ms:.4f} ms by device ({row['tb_s']:.3f} TB/s, bound "
+                f"{bnd:.4f}, share {row['share']:.3f}), eager chain "
+                f"{pms:.4f} ms")
+            rec["by_mode"][mode] = row
+            tot["ms"] += uses * ms
+            tot["plain_ms"] += uses * pms
+            tot["bound_ms"] += uses * bnd
+            tot["bytes"] += uses * moved
+    log(f"  fused_residual_layer_norm, one CCT-14 forward's 29 seams: "
+        f"{tot['ms']:.4f} ms ({tot['bytes'] / tot['ms'] / 1e9:.3f} TB/s, "
+        f"share {tot['bound_ms'] / tot['ms']:.3f}), eager chain "
+        f"{tot['plain_ms']:.4f} ms")
+    rec.update(ms=tot["ms"], plain_ms=tot["plain_ms"],
+               library_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+               bound_by="bytes", share=tot["bound_ms"] / tot["ms"],
+               library_ms_is="the eager chain (PyTorch's add, LayerNorm "
+                             "and cast kernels)")
     return rec
 
 
@@ -3758,14 +3860,16 @@ def phase_geoloc_train(dev, name):
 
 def phase_geoloc_families(base, dev, name):
     """[geoloc-families]: each other backbone and head at b8 (ViT-B/16 and
-    CCT-14 at full depth), zero launches of ``ops.kernels()``, and
-    ``fused_attention`` once a CCT encoder layer in the bf16 compute dtype
-    (none elsewhere; ``ATTENTION``), 2 images against the CPU, ms per
-    forward (median of 10)."""
+    CCT-14 at full depth), zero launches of ``ops.kernels()``,
+    ``fused_attention`` once a CCT encoder layer and
+    ``fused_residual_layer_norm`` once a seam (2 x layers + 1) in the bf16
+    compute dtype (none elsewhere; ``ATTENTION``, ``RESIDUAL_LN``), 2
+    images against the CPU, ms per forward (median of 10)."""
     from agplace_tpu_torch import ops
     from agplace_tpu_torch.infer import compute_dtype
     from agplace_tpu_torch.models.cct import CCT
     from agplace_tpu_torch.ops import attention
+    from agplace_tpu_torch.ops import residual_layer_norm as rln
 
     rng = np.random.default_rng(31)
     x = rng.standard_normal((FAMILY_BATCH, IMAGE, IMAGE, 3)).astype(
@@ -3784,10 +3888,12 @@ def phase_geoloc_families(base, dev, name):
         with torch.inference_mode():
             ops.reset_launches()  # ---- the path: one forward
             attention.fused_attention.launches = 0
+            rln.fused_residual_layer_norm.launches = 0
             out = q(xg)
             torch.cuda.synchronize()
             counts = ops.launches()  # ---- read just after the path
             n_attn = attention.fused_attention.launches
+            n_ln = rln.fused_residual_layer_norm.launches
             err = held_to_cpu(f"geoloc {backbone} {agg}", out[:FAMILY_CPU],
                               cpu_q(torch.from_numpy(x[:FAMILY_CPU])))
         zero_launches(f"geoloc-families {backbone} {agg}", counts)
@@ -3795,8 +3901,13 @@ def phase_geoloc_families(base, dev, name):
             raise AssertionError(f"[geoloc-families] {backbone} {agg}: "
                                  f"fused_attention launches {n_attn} != "
                                  f"{want}")
+        if n_ln != (2 * want + 1 if want else 0):
+            raise AssertionError(f"[geoloc-families] {backbone} {agg}: "
+                                 f"fused_residual_layer_norm launches "
+                                 f"{n_ln} for {want} layers")
         if want:
             ATTENTION[f"geoloc-families {backbone}+{agg}"] = n_attn
+            RESIDUAL_LN[f"geoloc-families {backbone}+{agg}"] = n_ln
         ms, _ = timed_forward(lambda: q(xg), iters=10)
         rec[f"{backbone}+{agg}"] = {"dim": int(out.shape[1]),
                                     "cpu_err": round(err, 8),
@@ -3806,7 +3917,8 @@ def phase_geoloc_families(base, dev, name):
         del q, cpu_q, xg
     log(f"[geoloc-families] {name}: b{FAMILY_BATCH} at {IMAGE} px, fp32 "
         f"(CCT in the compute dtype), ops launches 0, fused_attention "
-        f"launches {json.dumps(ATTENTION)}: " + json.dumps(rec))
+        f"launches {json.dumps(ATTENTION)}, fused_residual_layer_norm "
+        f"launches {json.dumps(RESIDUAL_LN)}: " + json.dumps(rec))
     return total
 
 
@@ -5622,6 +5734,8 @@ def main() -> None:
         bn_act_row = phase_bn_act(dev)
         log("[attention] CCT's attention kernel against the eager chain")
         attention_row = phase_attention(dev)
+        log("[residual-layer-norm] CCT's seams against the eager chain")
+        ln_row = phase_residual_layer_norm(dev)
 
     # ---- the default path: K1, K2, K3
     towers, cpu_towers, requests, counts = phase_serving(cfg, dev, N_TILES,
@@ -5796,6 +5910,12 @@ def main() -> None:
     if not attention_row["launches"]:
         raise AssertionError("no main path launched fused_attention")
     kernels.append(attention_row)
+    ln_row.update(launches=sum(RESIDUAL_LN.values()),
+                  launches_by_path=dict(RESIDUAL_LN))
+    if not ln_row["launches"]:
+        raise AssertionError("no main path launched "
+                             "fused_residual_layer_norm")
+    kernels.append(ln_row)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of wall time "
         f"(after imports)")
     print(json.dumps({"kernels": kernels}), flush=True)
